@@ -30,6 +30,10 @@ def pytest_configure(config):
         "markers",
         "slow: benchmarks-adjacent / subprocess-heavy tests skipped by "
         "scripts/check.sh --fast")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's hand-written kernels); "
+        "skips without one")
 
 
 @pytest.fixture(scope="session")
