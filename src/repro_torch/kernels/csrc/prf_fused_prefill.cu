@@ -14,9 +14,11 @@
 // What bounds it on the H100: the state's bytes and the arithmetic of
 //   the causal scan. Each call reads and writes S (B*G*Hg*m*dv f32) and z
 //   once: for smollm-135m at 8 rows that is 2 * 4.72 MB = 9.4 MB, 2.8 us
-//   at 3.35 TB/s. The scan costs 4*m*dv flops per token per head (0.56
-//   GFLOP for 8 rows of 32 tokens), 8 us at the 67 TFLOP/s of f32 outside
-//   the tensor cores, so at serving shapes the arithmetic bounds it.
+//   at 3.35 TB/s. The arithmetic is the features, 2*d*m + 2*r*d flops per
+//   featurized q or k row, plus the scan, 4*m*dv + 4*m flops per token per
+//   head: 0.28 GFLOP for 8 rows of 32 tokens (0.13 features, 0.15 scan),
+//   4.2 us at the 67 TFLOP/s of f32 outside the tensor cores, so at
+//   serving shapes the arithmetic bounds it.
 //
 // Design: one block per (b, g, h, 64-column tile of dv). The TPU kernel's
 //   sequential chunk axis, which kept S in VMEM, becomes a loop inside

@@ -217,15 +217,9 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _resolve_proj(params, cfg, proj, fused):
-    if not fused:
-        return None
-    return proj if proj is not None else build_decode_proj(params, cfg)
-
-
 def prefill_chunk(params, cfg: ModelConfig, batch: dict, state: dict,
                   valid_len: Optional[torch.Tensor] = None,
-                  proj: Optional[dict] = None, fused: bool = True):
+                  proj: Optional[dict] = None):
     """Advance ``state`` in place over one prompt chunk (tokens (B, L)).
 
     ``state["pos"]`` is the chunk's start offset. ``valid_len`` ((B,)
@@ -233,14 +227,13 @@ def prefill_chunk(params, cfg: ModelConfig, batch: dict, state: dict,
     ``valid_len[b]`` tokens and the rest leave no trace; logits are
     gathered at each row's last valid position. With ``cfg.use_kernel``
     every layer runs the fused ``prf_fused_prefill`` kernel against
-    ``proj`` (built here when None; ``fused=False`` forces the plain
-    path). Returns (logits (B, V) f32, state).
+    ``proj`` (built here when None). Returns (logits (B, V) f32, state).
     """
     if "layers" not in state:
         raise _not_ported("the unit/rem serving layout")
     x = _embed_inputs(params, cfg, batch)
     pos = state["pos"]
-    proj = _resolve_proj(params, cfg, proj, fused)
+    proj = proj if proj is not None else build_decode_proj(params, cfg)
     for lp, ls, lproj in _layer_slices(params, cfg, state, proj):
         x = _apply_block(lp, x, cfg, state=ls, mode="prefill",
                          position=pos, valid_len=valid_len, proj=lproj)
@@ -254,11 +247,11 @@ def prefill_chunk(params, cfg: ModelConfig, batch: dict, state: dict,
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, state: dict,
-                proj: Optional[dict] = None, fused: bool = True):
+                proj: Optional[dict] = None):
     """One serving step, advancing ``state`` in place. token: (B,) ->
     (logits (B, V) f32, state). With ``cfg.use_kernel`` every layer runs
-    the fused ``prf_fused_decode`` kernel (``fused=False`` forces the
-    plain path)."""
+    the fused ``prf_fused_decode`` kernel against ``proj`` (built here
+    when None)."""
     if "layers" not in state:
         raise _not_ported("the unit/rem serving layout")
     pos = state["pos"]
@@ -266,7 +259,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, state: dict,
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     x = x.to(cfg.param_dtype)
-    proj = _resolve_proj(params, cfg, proj, fused)
+    proj = proj if proj is not None else build_decode_proj(params, cfg)
     for lp, ls, lproj in _layer_slices(params, cfg, state, proj):
         x = _apply_block(lp, x, cfg, state=ls, mode="decode", position=pos,
                          proj=lproj)

@@ -153,7 +153,11 @@ class ServingEngine:
         self._step_params = dict(params)
         self._step_params["layers"] = lm.stack_layer_params(params, cfg)
         self._proj = lm.build_decode_proj(self._step_params, cfg)
-        path = "fused_kernel" if self._proj is not None else "torch"
+        # what the dispatch runs: the kernels only take CUDA tensors; on
+        # the CPU the same wrappers run their plain versions
+        path = ("torch" if self._proj is None else
+                "fused_kernel" if self.device.type == "cuda" else
+                "fused_plain")
         self._serve_paths = {"prefill_path": path, "decode_path": path}
 
         self._slots: list[Optional[_Slot]] = [None] * max_slots

@@ -4,20 +4,17 @@ Needs a CUDA device and nvcc; every test here is marked ``cuda`` and
 skips without a device. The file imports neither JAX nor the reference
 package, so it also runs on a machine that has only PyTorch:
 
-    python -m pytest -q --noconftest tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
-Inputs are attention-scaled (q, k ~ N(0, d^-1/2), M near identity) so
-the feature logits have a realistic range; f32 tolerance atol 1e-4,
-rtol 1e-3 (token-serial scan vs chunked matmuls, different sum orders).
+Inputs and tolerances come from ``repro_torch.kernels.check``, which
+``chip_smoke.py`` uses too.
 """
-import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import check
 from repro_torch.kernels import prf_fused_decode as kd
 from repro_torch.kernels import prf_fused_prefill as kp
-
-TOL = dict(atol=1e-4, rtol=1e-3)
 
 
 @pytest.fixture
@@ -28,45 +25,6 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(dev, b, g, hg, d, m, dv, l, dark, seed, dtype=torch.float32):
-    rng = np.random.default_rng(seed)
-    lq = () if l is None else (l,)
-
-    def t(a, dt=torch.float32):
-        return torch.tensor(np.ascontiguousarray(a, np.float32),
-                            device=dev).to(dt)
-    sc = d ** -0.25
-    w = rng.standard_normal((g, m, d))
-    if dark:
-        mm = np.eye(d)[None] + 0.1 * d ** -0.5 * rng.standard_normal(
-            (g, d, d))
-        a, m_mat = np.einsum("gmr,grd->gdm", w, mm), t(mm)
-    else:
-        a, m_mat = np.swapaxes(w, -1, -2), None
-    return [t(sc * rng.standard_normal((b, g, hg, *lq, d)), dtype),
-            t(sc * rng.standard_normal((b, g, *lq, d)), dtype),
-            t(rng.standard_normal((b, g, *lq, dv)), dtype), t(a), m_mat,
-            t(rng.standard_normal((b, g, hg, m, dv))),
-            t(rng.uniform(size=(b, g, hg, m)) + 0.5),
-            t(rng.standard_normal((b, g)) + 1.0)]
-
-
-def _clone(args):
-    return [None if x is None else x.clone() for x in args]
-
-
-def _close(got, exp, valid_len=None, out_tol=TOL):
-    for o, e, name in zip(got, exp, ("out", "s", "z", "c")):
-        o, e = o.float().cpu(), e.float().cpu()
-        if name == "out" and valid_len is not None:
-            l = o.shape[3]
-            mask = (torch.arange(l)[None] < valid_len.cpu()[:, None]
-                    )[:, None, None, :, None]
-            o, e = torch.where(mask, o, 0.0), torch.where(mask, e, 0.0)
-        torch.testing.assert_close(o, e, **(out_tol if name == "out"
-                                            else TOL), msg=name)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,g,hg,d,m,dv,dark,stab", [
     (8, 3, 3, 64, 256, 64, True, True),       # smollm-135m heads
@@ -75,15 +33,9 @@ def _close(got, exp, valid_len=None, out_tol=TOL):
     (3, 2, 2, 16, 32, 16, True, False),
 ])
 def test_decode_kernel_matches_plain(dev, b, g, hg, d, m, dv, dark, stab):
-    args = _inputs(dev, b, g, hg, d, m, dv, None, dark, seed=b + m)
-    exp = kd.prf_fused_decode_plain(*_clone(args), stabilize=stab)
-    ptrs = [x.data_ptr() for x in args[5:]]
-    n0 = kd.launches
-    got = kd.fused_prf_decode(*args, stabilize=stab)
-    torch.cuda.synchronize()
-    assert kd.launches == n0 + 1
-    assert [x.data_ptr() for x in got[1:]] == ptrs
-    _close(got, exp)
+    args = check.make_inputs(dev, b, g, hg, d, m, dv, None, dark, seed=b + m)
+    check.check_case("decode", kd, kd.fused_prf_decode,
+                     kd.prf_fused_decode_plain, args, stabilize=stab)
 
 
 @pytest.mark.cuda
@@ -96,27 +48,22 @@ def test_decode_kernel_matches_plain(dev, b, g, hg, d, m, dv, dark, stab):
 ])
 def test_prefill_kernel_matches_plain(dev, b, g, hg, d, m, dv, l, dark,
                                       stab, valid_len):
-    args = _inputs(dev, b, g, hg, d, m, dv, l, dark, seed=b + l)
+    args = check.make_inputs(dev, b, g, hg, d, m, dv, l, dark, seed=b + l)
     vl = (None if valid_len is None
           else torch.tensor(valid_len, dtype=torch.int32, device=dev))
-    exp = kp.prf_fused_prefill_plain(*_clone(args), vl, stabilize=stab)
-    ptrs = [x.data_ptr() for x in args[5:]]
-    n0 = kp.launches
-    got = kp.fused_prf_prefill(*args, vl, stabilize=stab)
-    torch.cuda.synchronize()
-    assert kp.launches == n0 + 1
-    assert [x.data_ptr() for x in got[1:]] == ptrs
-    _close(got, exp, vl)
+    check.check_case("prefill", kp, kp.fused_prf_prefill,
+                     kp.prf_fused_prefill_plain, args, vl, stabilize=stab)
 
 
 @pytest.mark.cuda
 def test_bf16_inputs_match_plain(dev):
     """The main path's input type: bf16 q/k/v, f32 state."""
-    args = _inputs(dev, 8, 3, 3, 64, 256, 64, 32, True, 1, torch.bfloat16)
+    args = check.make_inputs(dev, 8, 3, 3, 64, 256, 64, 32, True, 1,
+                             torch.bfloat16)
     vl = torch.tensor([32, 20, 1, 32, 7, 32, 32, 9], dtype=torch.int32,
                       device=dev)
-    exp = kp.prf_fused_prefill_plain(*_clone(args), vl, eps=1e-8)
+    exp = kp.prf_fused_prefill_plain(*check.clone(args), vl, eps=1e-8)
     got = kp.fused_prf_prefill(*args, vl, eps=1e-8)
     assert got[0].dtype == torch.bfloat16
-    # bf16 outputs: within two bf16 ulps
-    _close(got, exp, vl, out_tol=dict(atol=2e-2, rtol=2e-2))
+    # bf16 outputs within check.BF16_OUT_TOL, the state within F32_TOL
+    check.max_error("prefill bf16", got, exp, vl)

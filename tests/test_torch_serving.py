@@ -56,7 +56,7 @@ def test_greedy_streams_match_reference_engine(use_kernel):
         st = eng.stats
         assert st["admitted"] == st["finished"] == len(prompts)
     assert streams[0] == streams[1]
-    assert st["decode_path"] == ("fused_kernel" if use_kernel else "torch")
+    assert st["decode_path"] == ("fused_plain" if use_kernel else "torch")
 
 
 @pytest.fixture(scope="module")
@@ -128,6 +128,6 @@ def test_launcher_runs_in_process(use_kernel, capsys):
                      "--max-len", "48", "--prompt-len", "4-12",
                      "--gen", "3-5", "--chunk-tokens", "8"])
     assert st["finished"] == 3 and len(st["results"]) == 3
-    assert st["prefill_path"] == ("fused_kernel" if use_kernel ==
+    assert st["prefill_path"] == ("fused_plain" if use_kernel ==
                                   "--use-kernel" else "torch")
     assert "throughput:" in capsys.readouterr().out
