@@ -1,0 +1,110 @@
+"""Msgpack pytree checkpoints in the reference's on-disk layout.
+
+Port of ``repro.checkpoint.store``. Layout: ``<dir>/step_<N>/state.msgpack``
+plus a ``DONE`` marker; the file is one msgpack map from each leaf's key
+path (the reference's ``keystr``, e.g. ``"['params']['units']['b0']
+['attn']['wq']"``) to ``{"dtype", "shape", "data"}``, data being the raw
+little-endian bytes (bf16 as its 16-bit words under the dtype name
+"bfloat16"). A checkpoint written by either package loads in the other.
+
+Guarantees, as the reference's: written to ``step_<N>.tmp-<pid>``,
+fsync'd, then renamed, so a crash never corrupts the latest checkpoint;
+keep-last-k garbage collection. ``restore_to_shardings`` (elastic
+restore onto a mesh) waits with ROADMAP A13.
+"""
+from __future__ import annotations
+
+import os
+import shutil
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import msgpack_subset
+from repro_torch.tree import flatten, map_with_path
+
+
+def _pack_leaf(t: torch.Tensor) -> dict:
+    t = t.detach().cpu().contiguous()
+    return {"dtype": str(t.dtype).removeprefix("torch."),
+            "shape": list(t.shape),
+            "data": t.reshape(-1).view(torch.uint8).numpy().tobytes()}
+
+
+def _unpack_leaf(rec: dict) -> torch.Tensor:
+    dtype = getattr(torch, rec["dtype"], None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown leaf dtype {rec['dtype']!r}")
+    raw = torch.from_numpy(np.frombuffer(rec["data"], np.uint8).copy())
+    return raw.view(dtype).reshape(rec["shape"])
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree, keep: int = 3) -> str:
+    """Write the step's checkpoint atomically; keep the newest ``keep``."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    final = os.path.join(ckpt_dir, f"step_{step}")
+    tmp = final + f".tmp-{os.getpid()}"
+    os.makedirs(tmp, exist_ok=True)
+    chunks: list = []
+    msgpack_subset.pack({k: _pack_leaf(v) for k, v in flatten(tree)}, chunks)
+    with open(os.path.join(tmp, "state.msgpack"), "wb") as f:
+        f.writelines(chunks)
+        f.flush()
+        os.fsync(f.fileno())
+    open(os.path.join(tmp, "DONE"), "w").close()
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    _gc(ckpt_dir, keep)
+    return final
+
+
+def _gc(ckpt_dir: str, keep: int) -> None:
+    for s in all_steps(ckpt_dir)[:-keep] if keep > 0 else []:
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s}"),
+                      ignore_errors=True)
+
+
+def all_steps(ckpt_dir: str) -> list[int]:
+    """Steps with a complete (DONE) checkpoint, ascending."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    out = []
+    for name in os.listdir(ckpt_dir):
+        if name.startswith("step_") and "tmp" not in name and \
+                os.path.exists(os.path.join(ckpt_dir, name, "DONE")):
+            try:
+                out.append(int(name.split("_")[1]))
+            except ValueError:
+                pass
+    return sorted(out)
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    steps = all_steps(ckpt_dir)
+    return steps[-1] if steps else None
+
+
+def restore_checkpoint(ckpt_dir: str, target, step: Optional[int] = None):
+    """Restore into the structure of ``target`` (a nested dict of
+    tensors), each leaf cast to the target leaf's dtype and device.
+    Returns (tree, step)."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+    with open(os.path.join(ckpt_dir, f"step_{step}", "state.msgpack"),
+              "rb") as f:
+        payload = msgpack_subset.unpackb(f.read())
+
+    def leaf(key, t):
+        if key not in payload:
+            raise KeyError(f"checkpoint missing leaf {key}")
+        arr = _unpack_leaf(payload[key])
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"shape mismatch for {key}: ckpt "
+                             f"{tuple(arr.shape)} vs target "
+                             f"{tuple(t.shape)}")
+        return arr.to(device=t.device, dtype=t.dtype)
+    return map_with_path(leaf, target), step

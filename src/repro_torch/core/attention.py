@@ -1,6 +1,7 @@
-"""The paper's PRF attention for serving: resumed prefill and decode.
+"""The paper's PRF attention: training-time attention, resumed prefill and
+decode.
 
-The counterpart of the serving half of ``repro.core.attention``. Layout:
+The counterpart of ``repro.core.attention`` for the PRF kinds. Layout:
 q is (B, G, Hg, L, d) — G KV groups, Hg query heads per group; k, v are
 (B, G, 1, L, d). Feature params are per group: {"w": (G, m, r),
 "m_mat": (G, r, d)}.
@@ -12,9 +13,15 @@ running max ``c`` and rescales (S, z) by exp(c_old - c_new) whenever a
 new key exceeds it. A fresh state has c = -1e30 (finite, so that
 exp(c - c') never meets -inf - -inf).
 
-Both entry points advance the incoming :class:`AttnServeState` IN PLACE
-(the fused kernels write S, z and c where they lie; the plain path
-copies its result there) and return it beside the attention output.
+Trainability contract (paper section 6): the projection W is a fixed
+random draw for performer and darkformer (no gradient); only the lfk
+baseline trains W, and only darkformer trains M (the learned covariance
+Sigma = M^T M). The stabilizers carry no gradient either.
+
+The serving entry points advance the incoming :class:`AttnServeState`
+IN PLACE (the fused kernels write S, z and c where they lie; the plain
+path copies its result there) and return it beside the attention
+output.
 """
 from __future__ import annotations
 
@@ -44,8 +51,10 @@ def _scale_qk(q: torch.Tensor, k: torch.Tensor):
 def _raw_logits(x: torch.Tensor, fparams: dict, kind: str) -> torch.Tensor:
     """PRF pre-exp logits: w.x - ||x||^2/2 (performer/lfk) or
     w.(Mx) - ||Mx||^2/2 (darkformer). x: (B, G, H, L, d) -> (B, G, H, L,
-    m), f32."""
+    m), f32. W carries a gradient for lfk only."""
     w = fparams["w"].float()                          # (G, m, r)
+    if kind != "lfk":
+        w = w.detach()
     x = x.float()
     if kind == "darkformer":
         x = torch.einsum("bghld,grd->bghlr", x, fparams["m_mat"].float())
@@ -59,7 +68,45 @@ def _stab_max(raw: torch.Tensor, enabled: bool) -> torch.Tensor:
     if not enabled:
         return torch.zeros(raw.shape[:-2] + (1, 1), dtype=raw.dtype,
                            device=raw.device)
-    return raw.amax(dim=(-2, -1), keepdim=True)
+    return raw.detach().amax(dim=(-2, -1), keepdim=True)
+
+
+def _qk_feature_pair(q, k, fparams, cfg: fm.FeatureConfig):
+    """q: (B, G, Hg, L, d), k: (B, G, 1, L, d) -> qf (B, G, Hg, L, m),
+    kf (B, G, 1, L, m), and the k stabilizer."""
+    isq = fm.inv_sqrt(cfg.num_features)
+    qraw = _raw_logits(q, fparams, cfg.kind)
+    kraw = _raw_logits(k, fparams, cfg.kind)
+    qf = torch.exp(qraw - _stab_max(qraw, cfg.stabilize)) * isq
+    kc = _stab_max(kraw, cfg.stabilize)
+    return qf, torch.exp(kraw - kc) * isq, kc
+
+
+def rf_attention(q, k, v, fparams, cfg: fm.FeatureConfig, *,
+                 causal: bool = True, chunk: int = 256,
+                 use_kernel: bool = False) -> torch.Tensor:
+    """Training-time attention over whole sequences. q: (B, G, Hg, L, d);
+    k, v: (B, G, 1, L, d). Causal with ``use_kernel`` runs the hand-written
+    ``linear_attention_causal`` kernel (its plain version on a CPU tensor),
+    reading k's features and v once per KV group; otherwise the chunked
+    plain scan. Returns (B, G, Hg, L, dv) in v.dtype."""
+    if cfg.kind in ("exact", "constant", "random"):
+        raise _not_ported(f"{cfg.kind!r} attention")
+    if cfg.kind not in PRF_KINDS:
+        raise ValueError(f"unsupported feature kind {cfg.kind!r}")
+    b, g, hg, l, _ = q.shape
+    dv = v.shape[-1]
+    qs, ks = _scale_qk(q, k)
+    qf, kf, _ = _qk_feature_pair(qs, ks, fparams, cfg)
+    if causal and use_kernel:
+        return kops.linear_attention_causal(
+            qf.contiguous(), kf.contiguous(), v.contiguous(), eps=cfg.eps)
+    kf = kf.expand(b, g, hg, l, cfg.num_features)
+    vv = v.expand(b, g, hg, l, dv)
+    if not causal:
+        return la.linear_attention_noncausal(qf, kf, vv, eps=cfg.eps)
+    return la.linear_attention_causal_chunked(qf, kf, vv, chunk=chunk,
+                                              eps=cfg.eps)
 
 
 def _resume_qk_features(qs, ks, fparams, cfg: fm.FeatureConfig, c_in,

@@ -1,11 +1,14 @@
-"""Positive random feature (PRF) maps: config, projection draws, and the
-decode-time projection precompose.
+"""Positive random feature (PRF) maps: config, projection draws, the
+feature maps and the decode-time projection precompose.
 
-The counterpart of ``repro.core.feature_maps`` for what the serving path
-needs. The isotropic Performer kinds draw W; the DARKFormer kind adds
-the re-embedding M (Sigma = M^T M), so that phi_Sigma(x) = phi_iso(Mx).
+The counterpart of ``repro.core.feature_maps`` (``trig_features``, for
+benchmarks only, waits with ROADMAP A14). The isotropic Performer kinds
+draw W; the DARKFormer kind adds the re-embedding M (Sigma = M^T M), so
+that phi_Sigma(x) = phi_iso(Mx). Every map subtracts a stabilizer c, a
+max taken without gradient, which cancels in the attention's
+normalization.
 
-Shapes (single head): W : (m, r); M : (r, d).
+Shapes (single head): x : (..., L, d); W : (m, r); M : (r, d).
 """
 from __future__ import annotations
 
@@ -82,6 +85,59 @@ def init_feature_params(gen: torch.Generator, cfg: FeatureConfig,
         eye = torch.eye(r, d_head, dtype=dtype)
         params["m_mat"] = eye.expand(n_groups, r, d_head).clone()
     return params
+
+
+def _stabilizer(logits: torch.Tensor, stabilize: bool) -> torch.Tensor:
+    """Max over (L, m) per leading batch dims, without gradient."""
+    if not stabilize:
+        return torch.zeros(logits.shape[:-2] + (1, 1), dtype=logits.dtype,
+                           device=logits.device)
+    return logits.detach().amax(dim=(-2, -1), keepdim=True)
+
+
+def prf_features(x: torch.Tensor, w: torch.Tensor, *, stabilize: bool = True,
+                 shared_stabilizer: Optional[torch.Tensor] = None):
+    """Isotropic positive random features (Performer):
+    phi(x)_j = exp(w_j . x - ||x||^2/2 - c) / sqrt(m). Returns (phi, c);
+    ``shared_stabilizer`` gives q and k one c."""
+    raw = (torch.einsum("...ld,md->...lm", x, w)
+           - 0.5 * torch.sum(x * x, dim=-1, keepdim=True))
+    c = (shared_stabilizer if shared_stabilizer is not None
+         else _stabilizer(raw, stabilize))
+    return torch.exp(raw - c) * inv_sqrt(w.shape[0]), c
+
+
+def dark_features(x: torch.Tensor, w: torch.Tensor, m_mat: torch.Tensor, *,
+                  stabilize: bool = True,
+                  shared_stabilizer: Optional[torch.Tensor] = None):
+    """DARKFormer data-aware PRFs: phi_Sigma(x) = phi_iso(M x).
+    x: (..., L, d), m_mat: (r, d), w: (m, r). Returns (phi, c)."""
+    x_tilde = torch.einsum("...ld,rd->...lr", x, m_mat)
+    return prf_features(x_tilde, w, stabilize=stabilize,
+                        shared_stabilizer=shared_stabilizer)
+
+
+def qk_features(q: torch.Tensor, k: torch.Tensor, w: torch.Tensor,
+                kind: str, m_mat: Optional[torch.Tensor] = None, *,
+                stabilize: bool = True):
+    """Map (q, k) jointly with one shared stabilizer, the max of both
+    logit sets. q, k: (..., L, d) with the 1/sqrt(d) softmax scaling
+    already absorbed. Returns (q', k')."""
+    if kind == "darkformer":
+        if m_mat is None:
+            raise ValueError("darkformer needs the M matrix")
+        q = torch.einsum("...ld,rd->...lr", q, m_mat)
+        k = torch.einsum("...ld,rd->...lr", k, m_mat)
+    elif kind not in ("performer", "lfk"):
+        raise ValueError(f"qk_features: unsupported kind {kind!r}")
+    qraw = (torch.einsum("...ld,md->...lm", q, w)
+            - 0.5 * torch.sum(q * q, dim=-1, keepdim=True))
+    kraw = (torch.einsum("...ld,md->...lm", k, w)
+            - 0.5 * torch.sum(k * k, dim=-1, keepdim=True))
+    c = torch.maximum(_stabilizer(qraw, stabilize),
+                      _stabilizer(kraw, stabilize))
+    isq = inv_sqrt(w.shape[0])
+    return torch.exp(qraw - c) * isq, torch.exp(kraw - c) * isq
 
 
 def precompose_projection(fparams: dict, kind: str) -> dict:

@@ -1,14 +1,43 @@
-"""Chunked causal linear attention from a carried state.
+"""Linear (random-feature) attention: non-causal, causal naive, and the
+chunked causal scan from a zero or a carried state.
 
-The counterpart of ``repro.core.linear_attention`` for the serving path:
-only the carried-state scan, which the plain (``use_kernel=False``)
-resumed prefill runs. Layout: (..., L, m) features, (..., L, dv) values.
+The counterpart of ``repro.core.linear_attention`` for the PRF kinds
+(exact softmax attention and the random/constant baselines are ROADMAP
+A3). Layout: (..., L, m) features, (..., L, dv) values.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+
+def linear_attention_noncausal(qf: torch.Tensor, kf: torch.Tensor,
+                               v: torch.Tensor,
+                               eps: float = 1e-6) -> torch.Tensor:
+    """(Q' (K'^T V)) / (Q' sum_j K'_j). qf, kf: (..., L, m); v: (..., L,
+    dv). Returns v.dtype."""
+    qf, kf = qf.float(), kf.float()
+    kv = torch.einsum("...lm,...ld->...md", kf, v.float())
+    num = torch.einsum("...lm,...md->...ld", qf, kv)
+    den = torch.einsum("...lm,...m->...l", qf, kf.sum(-2))
+    return (num / (den[..., None] + eps)).to(v.dtype)
+
+
+def linear_attention_causal_naive(qf: torch.Tensor, kf: torch.Tensor,
+                                  v: torch.Tensor,
+                                  eps: float = 1e-6) -> torch.Tensor:
+    """O(L^2) masked form, the ground truth of the chunked scan and the
+    plain version of the causal linear-attention kernel. Leading axes
+    broadcast (kf and v may have one head for qf's H). Returns
+    v.dtype."""
+    scores = torch.einsum("...qm,...km->...qk", qf.float(), kf.float())
+    l = qf.shape[-2]
+    mask = torch.ones(l, l, dtype=torch.bool, device=qf.device).tril()
+    scores = torch.where(mask, scores, 0.0)
+    num = torch.einsum("...qk,...kd->...qd", scores, v.float())
+    den = scores.sum(-1, keepdim=True)
+    return (num / (den + eps)).to(v.dtype)
 
 
 def linear_attention_causal_carry(qf: torch.Tensor, kf: torch.Tensor,
@@ -47,3 +76,13 @@ def linear_attention_causal_carry(qf: torch.Tensor, kf: torch.Tensor,
         s = s + torch.einsum("...km,...kd->...md", kb, vb)
         z = z + kb.sum(-2)
     return torch.cat(outs, dim=-2).to(v.dtype), s, z
+
+
+def linear_attention_causal_chunked(qf: torch.Tensor, kf: torch.Tensor,
+                                    v: torch.Tensor, chunk: int = 256,
+                                    eps: float = 1e-6) -> torch.Tensor:
+    """Fresh-sequence (zero initial state) chunked causal linear
+    attention."""
+    out, _, _ = linear_attention_causal_carry(qf, kf, v, chunk=chunk,
+                                              eps=eps)
+    return out

@@ -12,8 +12,11 @@ import torch
 # f32: the kernels' token-serial scans and the plain versions' chunked
 # matmuls sum in different orders, over up to 512 tokens
 F32_TOL = dict(atol=1e-4, rtol=1e-3)
-# bf16 outputs (the main path's type): one to two bf16 ulps
-BF16_OUT_TOL = dict(atol=2e-2, rtol=2e-2)
+# bf16 outputs (the main path's type), rounded from f32 results that
+# differ in the last f32 bits: two bf16 ulps of the value compared (bf16
+# keeps 8 significant bits, so an ulp is at most 2^-7 of the value), plus
+# 1e-4 for the f32 rounding differences of results near zero
+BF16_OUT_TOL = dict(atol=1e-4, rtol=2 ** -6)
 
 
 def make_inputs(dev, b, g, hg, d, m, dv, l, dark, seed,
@@ -97,3 +100,86 @@ def check_case(name: str, mod, wrapper, plain, args: list, valid_len=None,
     _require([x.data_ptr() for x in got[1:]] == ptrs,
              f"{name}: state not updated in place")
     return max_error(name, got, exp, valid_len)
+
+
+def _compare(name: str, got: torch.Tensor, exp: torch.Tensor, tol) -> float:
+    """Max abs error of ``got`` against ``exp``; raises AssertionError on
+    a shape or dtype mismatch, a non-finite value or an error beyond
+    ``tol``."""
+    _require(got.shape == exp.shape and got.dtype == exp.dtype,
+             f"{name}: got {got.dtype}{tuple(got.shape)}, expected "
+             f"{exp.dtype}{tuple(exp.shape)}")
+    o, e = got.detach().float(), exp.detach().float()
+    _require(bool(torch.isfinite(o).all()), f"{name}: non-finite values")
+    err = (o - e).abs()
+    _require(bool((err <= tol["atol"] + tol["rtol"] * e.abs()).all()),
+             f"{name}: off by {float(err.max()):.3e} (tolerance {tol})")
+    return float(err.max())
+
+
+def _tol(t: torch.Tensor) -> dict:
+    return BF16_OUT_TOL if t.dtype == torch.bfloat16 else F32_TOL
+
+
+def check_autograd(name: str, mod, fn, plain, args: list, seed: int):
+    """One call of the autograd wrapper ``fn`` against ``plain`` on the
+    same inputs: the output within tolerance and exactly one kernel
+    launch counted on ``mod.launches``; then the gradients of a random
+    projection of the output, through ``fn`` and through autograd of
+    ``plain``, for every floating input (``None`` inputs stay None).
+    Returns (forward max abs error, gradient max abs error)."""
+    ins = [None if a is None else a.detach().clone().requires_grad_(
+        a.is_floating_point()) for a in args]
+    ref_ins = [None if a is None else a.detach().clone().requires_grad_(
+        a.is_floating_point()) for a in args]
+    n0 = mod.launches
+    got = fn(*ins)
+    torch.cuda.synchronize()
+    _require(mod.launches == n0 + 1,
+             f"{name}: launch counter moved by {mod.launches - n0}")
+    exp = plain(*ref_ins)
+    fwd = _compare(f"{name} forward", got, exp, _tol(exp))
+    gen = torch.Generator(device=got.device).manual_seed(seed)
+    g = torch.randn(got.shape, generator=gen, device=got.device,
+                    dtype=torch.float32).to(got.dtype)
+    diff = [a for a in ins if a is not None and a.requires_grad]
+    ref_diff = [a for a in ref_ins if a is not None and a.requires_grad]
+    grads = torch.autograd.grad(got, diff, g)
+    ref_grads = torch.autograd.grad(exp, ref_diff, g)
+    worst = 0.0
+    for i, (gg, rg) in enumerate(zip(grads, ref_grads)):
+        worst = max(worst, _compare(f"{name} grad {i}", gg, rg, _tol(rg)))
+    return fwd, worst
+
+
+def make_lin_attn_inputs(dev, b, g, hg, l, m, dv, seed,
+                         dtype=torch.float32) -> list:
+    """[qf, kf, v] of one causal linear-attention call at rf_attention's
+    layout: qf (B, G, Hg, L, m), kf (B, G, 1, L, m) f32, positive like PRF
+    features (exp(N(0, 1/4))/√m); v (B, G, 1, L, dv) in ``dtype``."""
+    rng = np.random.default_rng(seed)
+
+    def feats(shape):
+        a = np.exp(0.5 * rng.standard_normal(shape)) / m ** 0.5
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+    qf = feats((b, g, hg, l, m))
+    kf = feats((b, g, 1, l, m))
+    v = torch.tensor(rng.standard_normal((b, g, 1, l, dv)),
+                     dtype=torch.float32, device=dev).to(dtype)
+    return [qf, kf, v]
+
+
+def make_featmap_inputs(dev, n, d, r, m, dark, seed,
+                        dtype=torch.float32) -> list:
+    """[x, m_mat, w, c] of one feature-map call: attention-scaled rows x
+    (N, d) in ``dtype``, M (r, d) near the identity (None when not
+    ``dark``; then r = d), a Gaussian W (m, r) and the scalar c, f32."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.tensor(np.asarray(a, np.float32), device=dev).to(dt)
+    x = t(d ** -0.25 * rng.standard_normal((n, d)), dtype)
+    m_mat = (t(np.eye(r, d) + 0.1 * d ** -0.5 * rng.standard_normal((r, d)))
+             if dark else None)
+    w = t(rng.standard_normal((m, r if dark else d)))
+    return [x, m_mat, w, t(0.5)]

@@ -1,9 +1,12 @@
-"""Attention mixer block: projections + RoPE + PRF attention, for serving.
+"""Attention mixer block: projections + RoPE + PRF attention, for training
+and serving.
 
 The counterpart of ``repro.models.attention_block`` for the PRF kinds.
 GQA layout throughout: q -> (B, G, Hg, L, dh); k, v -> (B, G, 1, L, dh).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -54,6 +57,22 @@ def _merge_heads(out, params):
     b, g, hg, l, dh = out.shape
     out = torch.movedim(out, 3, 1).reshape(b, l, g * hg * dh)
     return out @ params["wo"]
+
+
+def attn_apply(params: dict, x: torch.Tensor, cfg: fm.FeatureConfig, *,
+               n_heads: int, n_kv: int, d_head: int, causal: bool = True,
+               qk_norm: bool = False, rope_theta: float = 10000.0,
+               positions: Optional[torch.Tensor] = None,
+               use_kernel: bool = False) -> torch.Tensor:
+    """Training-time attention over whole sequences x: (B, L, d_model),
+    at ``positions`` (default 0..L-1). Returns (B, L, d_model)."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v = _project(params, x, n_heads, n_kv, d_head, qk_norm,
+                       positions, rope_theta)
+    out = rfa.rf_attention(q, k, v, params.get("feat"), cfg, causal=causal,
+                           use_kernel=use_kernel)
+    return _merge_heads(out, params)
 
 
 def attn_prefill(params, x, cfg, *, n_heads, n_kv, d_head, state, position,

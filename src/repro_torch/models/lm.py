@@ -1,11 +1,12 @@
-"""The LM stack for serving: config, init, resumable prefill and decode.
+"""The LM stack: config, init, the training forward and loss, resumable
+prefill and decode.
 
 The counterpart of ``repro.models.lm`` for homogeneous attention stacks
-in the layer-stacked serving layout: params and serve state carry a
-leading (n_layers,) axis (the state under ``state["layers"]``) and the
-layers run as a Python loop over it. The unit/rem layout, the recurrent
-and MoE blocks and the non-text modalities are not ported yet (ROADMAP
-Queue A, items A4 and A12).
+in the layer-stacked layout: params and serve state carry a leading
+(n_layers,) axis (the state under ``state["layers"]``) and the layers run
+as a Python loop over it, in training as in serving. The unit/rem
+layout, the recurrent and MoE blocks, the non-text modalities and remat
+are not ported yet (ROADMAP Queue A, items A4 and A12).
 
 ``prefill_chunk`` and ``decode_step`` advance ``state`` IN PLACE: the
 fused kernels write each layer's (S, z, c) where it lies in the stacked
@@ -22,6 +23,7 @@ from repro_torch.core import feature_maps as fm
 from repro_torch.core.attention import AttnServeState
 from repro_torch.models import attention_block as ab
 from repro_torch.models import layers as ll
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +46,9 @@ class ModelConfig:
     embed_scale: bool = False             # gemma-style sqrt(d) embed scale
     logit_softcap: float = 0.0
     dtype: str = "float32"                # param/activation dtype
-    use_kernel: bool = False              # fused kernel path
+    use_kernel: bool = False              # hand-written kernel path
+    z_loss: float = 1e-4
+    causal: bool = True
 
     @property
     def head_dim(self) -> int:
@@ -87,13 +91,6 @@ def _stack(trees: list) -> Any:
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
-
-
-def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a nested dict (None stays None)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return None if tree is None else fn(tree)
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -180,19 +177,22 @@ def _layer_slices(params, cfg, state, proj):
         yield lp, ls, lproj
 
 
-def _apply_block(params, x, cfg: ModelConfig, *, state, mode, position,
-                 valid_len=None, proj=None):
+def _apply_block(params, x, cfg: ModelConfig, *, mode, state=None,
+                 position=None, valid_len=None, proj=None):
     h = ll.apply_norm(cfg.norm_kind, params["ln1"], x)
     common = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.head_dim,
                   qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
-                  use_kernel=cfg.use_kernel, proj=proj)
-    if mode == "prefill":
+                  use_kernel=cfg.use_kernel)
+    if mode == "train":
+        mix = ab.attn_apply(params["attn"], h, cfg.attn, causal=cfg.causal,
+                            **common)
+    elif mode == "prefill":
         mix, _ = ab.attn_prefill(params["attn"], h, cfg.attn, state=state,
                                  position=position, valid_len=valid_len,
-                                 **common)
+                                 proj=proj, **common)
     else:
         mix, _ = ab.attn_decode(params["attn"], h, state, cfg.attn,
-                                position=position, **common)
+                                position=position, proj=proj, **common)
     x = x + mix
     h2 = ll.apply_norm(cfg.norm_kind, params["ln2"], x)
     return x + ll.mlp_apply(params["ffn"], h2, cfg.mlp_kind)
@@ -215,6 +215,43 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+def forward_train(params, cfg: ModelConfig, batch: dict,
+                  gen: Optional[torch.Generator] = None):
+    """Full forward over batch["tokens"] (B, L). Returns (logits (B, L, V)
+    f32, aux loss 0-d f32). With ``cfg.use_kernel`` every layer's causal
+    attention runs the ``linear_attention_causal`` kernel. ``gen`` is the
+    draw of the random-attention baseline (ROADMAP A3); the PRF kinds
+    read none."""
+    _check_servable(cfg)
+    x = _embed_inputs(params, cfg, batch)
+    sp = _layers(params, cfg)
+    for li in range(cfg.n_layers):
+        x = _apply_block(tree_map(lambda t: t[li], sp), x, cfg, mode="train")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(params, cfg, x), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict,
+            gen: Optional[torch.Generator] = None):
+    """Next-token cross-entropy plus z-loss over the positions with
+    ``labels >= 0``. Returns (loss 0-d f32, metrics {loss, ce, z_loss,
+    aux, accuracy}, detached)."""
+    logits, aux = forward_train(params, cfg, batch, gen)
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll_tok = torch.gather(logits, -1,
+                          labels.clamp(min=0)[..., None])[..., 0] - logz
+    wmask = (labels >= 0).float()
+    denom = wmask.sum().clamp(min=1.0)
+    ce = -(ll_tok * wmask).sum() / denom
+    zl = cfg.z_loss * (logz.square() * wmask).sum() / denom
+    loss = ce + zl + aux
+    acc = ((logits.argmax(-1) == labels).float() * wmask).sum() / denom
+    metrics = {"loss": loss, "ce": ce, "z_loss": zl, "aux": aux,
+               "accuracy": acc}
+    return loss, {k: t.detach() for k, t in metrics.items()}
 
 
 def prefill_chunk(params, cfg: ModelConfig, batch: dict, state: dict,

@@ -73,12 +73,25 @@ def test_port_init_matches_reference_tree(arch):
 
 
 def test_port_imports_neither_jax_nor_reference():
+    """No file of the port, nor chip_smoke.py, imports JAX, the reference
+    package or msgpack; ml_dtypes only inside ``bridge._to_numpy``, which
+    the tests alone call (the card's machine has neither package)."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 10
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    for mod in ("core/attention", "core/feature_maps",
+                "core/linear_attention", "kernels/linear_attn_scan",
+                "kernels/prf_featmap", "models/lm", "optim/adamw",
+                "optim/schedules", "data/synthetic", "data/c4_mock",
+                "checkpoint/store", "checkpoint/msgpack_subset",
+                "launch/steps", "launch/train", "tree"):
+        assert f"src/repro_torch/{mod}.py" in names, mod
     bad = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\.|"
-                     r"from\s+repro\.|import\s+repro\s*$|from\s+repro\s+)",
+                     r"from\s+repro\.|import\s+repro\s*$|from\s+repro\s+|"
+                     r"import\s+msgpack\b|from\s+msgpack\b)",
                      re.MULTILINE)
     for f in files:
         hits = bad.findall(f.read_text())
         assert not hits, (f, hits)
+        if f.name != "bridge.py":
+            assert "ml_dtypes" not in f.read_text(), f

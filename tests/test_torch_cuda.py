@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import check
+from repro_torch.kernels import linear_attn_scan as kl
+from repro_torch.kernels import prf_featmap as kf
 from repro_torch.kernels import prf_fused_decode as kd
 from repro_torch.kernels import prf_fused_prefill as kp
 
@@ -67,3 +69,38 @@ def test_bf16_inputs_match_plain(dev):
     assert got[0].dtype == torch.bfloat16
     # bf16 outputs within check.BF16_OUT_TOL, the state within F32_TOL
     check.max_error("prefill bf16", got, exp, vl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,g,hg,l,m,dv,dtype", [
+    (8, 3, 3, 512, 256, 64, torch.bfloat16),  # smollm-135m training
+    (2, 3, 3, 777, 256, 64, torch.float32),   # ragged last chunk
+    (2, 1, 8, 100, 256, 256, torch.float32),  # darkformer-2b heads
+    (3, 2, 2, 1, 32, 16, torch.float32),      # one token
+    (1, 2, 3, 256, 32, 80, torch.bfloat16),   # one full chunk, dv > 64
+])
+def test_linear_attention_kernel_matches_plain(dev, b, g, hg, l, m, dv,
+                                               dtype):
+    """B5 forward and gradients against autograd of its plain version."""
+    args = check.make_lin_attn_inputs(dev, b, g, hg, l, m, dv, seed=l,
+                                      dtype=dtype)
+    check.check_autograd(
+        "linear_attention_causal", kl,
+        lambda q, k, v: kl.linear_attention_causal(q, k, v, eps=1e-8),
+        lambda q, k, v: kl.linear_attention_causal_plain(q, k, v, 1e-8),
+        args, seed=l)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,r,m,dark,dtype", [
+    (36_864, 64, 64, 256, True, torch.float32),   # smollm-135m training
+    (1000, 64, 32, 256, True, torch.bfloat16),    # rows not a tile multiple
+    (777, 64, 64, 256, False, torch.float32),     # isotropic
+    (5, 16, 16, 32, True, torch.float32),
+])
+def test_featmap_kernel_matches_plain(dev, n, d, r, m, dark, dtype):
+    """B6 forward and gradients against autograd of its plain version."""
+    args = check.make_featmap_inputs(dev, n, d, r, m, dark, seed=n,
+                                     dtype=dtype)
+    check.check_autograd("prf_featmap", kf, kf.prf_featmap,
+                         kf.prf_featmap_plain, args, seed=n)

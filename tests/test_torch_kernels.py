@@ -8,6 +8,7 @@ own tolerance for the same math in another reduction order (atol 2e-5,
 rtol 2e-4, as tests/test_fused_prefill.py). tests/test_torch_cuda.py
 holds the CUDA kernels against these plain versions on the card.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -151,3 +152,112 @@ def test_wrappers_reject_bad_arguments(kernel, bad):
             kd.fused_prf_decode(*args)
         else:
             kp.fused_prf_prefill(*args, vl)
+
+
+# ---------------------------------------------------------------------------
+# B5 linear_attention_causal and B6 prf_featmap: the autograd wrappers
+# ---------------------------------------------------------------------------
+
+from repro.kernels import ref  # noqa: E402
+from repro_torch.kernels import linear_attn_scan as kl  # noqa: E402
+from repro_torch.kernels import prf_featmap as kf  # noqa: E402
+
+
+def _lin_inputs(b, hq, hk, l, m, dv, seed):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    return (np.exp(0.5 * rng.standard_normal((b, hq, l, m))).astype(f),
+            np.exp(0.5 * rng.standard_normal((b, hk, l, m))).astype(f),
+            rng.standard_normal((b, hk, l, dv)).astype(f))
+
+
+@pytest.mark.parametrize("hk,l", [(1, 1), (1, 20), (3, 7), (3, 40)])
+def test_linear_attention_matches_reference(hk, l):
+    """Forward against ``ref.linear_attention_causal_ref`` and
+    ``ops.linear_attention_causal`` (Pallas, interpret mode, chunk 16),
+    and gradients against ``jax.grad`` of the latter, with kf and v
+    shared by the 3 query heads (hk = 1) or per head."""
+    qf, kf_, v = _lin_inputs(2, 3, hk, l, 16, 8, seed=l + hk)
+    cot = np.random.default_rng(0).standard_normal((2, 3, l, 8)).astype(
+        np.float32)
+    bq = lambda a: np.broadcast_to(a, qf.shape[:2] + a.shape[2:])  # noqa
+    exp_ref = ref.linear_attention_causal_ref(
+        qf.reshape(-1, l, 16), bq(kf_).reshape(-1, l, 16),
+        bq(v).reshape(-1, l, 8), eps=1e-6).reshape(2, 3, l, 8)
+
+    def jf(q, k, vv):
+        k, vv = (jnp.broadcast_to(a, q.shape[:2] + a.shape[2:])
+                 for a in (k, vv))
+        return jnp.sum(ops.linear_attention_causal(q, k, vv, chunk=16,
+                                                   eps=1e-6) * cot)
+    exp_grads = jax.grad(jf, argnums=(0, 1, 2))(qf, kf_, v)
+    ins = [torch.tensor(a, requires_grad=True) for a in (qf, kf_, v)]
+    n0 = kl.launches
+    out = kl.linear_attention_causal(*ins, eps=1e-6)
+    assert kl.launches == n0
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(exp_ref),
+                               atol=ATOL, rtol=RTOL)
+    grads = torch.autograd.grad(out, ins, torch.tensor(cot))
+    for g, e, name in zip(grads, exp_grads, ("qf", "kf", "v")):
+        assert g.shape == ins[("qf", "kf", "v").index(name)].shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), atol=ATOL,
+                                   rtol=RTOL, err_msg=name)
+
+
+@pytest.mark.parametrize("dark", [True, False])
+def test_prf_featmap_matches_reference(dark):
+    """Forward against ``ref.prf_featmap_ref`` and ``ops.prf_featmap``
+    (Pallas, interpret mode), gradients (x, M, W, c) against ``jax.grad``
+    of the latter, over 37 rows (not a multiple of its row block)."""
+    rng = np.random.default_rng(int(dark))
+    f = np.float32
+    d, r, m = 8, 6, 16
+    x = (0.6 * rng.standard_normal((37, d))).astype(f)
+    mm = (np.eye(r, d) + 0.2 * rng.standard_normal((r, d))).astype(f) \
+        if dark else None
+    w = rng.standard_normal((m, r if dark else d)).astype(f)
+    c = f(0.7)
+    cot = rng.standard_normal((37, m)).astype(f)
+    exp = ops.prf_featmap(x, mm, w, c, block_n=16)
+    np.testing.assert_allclose(np.asarray(exp),
+                               np.asarray(ref.prf_featmap_ref(x, mm, w, c)),
+                               atol=ATOL, rtol=RTOL)
+    if dark:
+        jg = jax.grad(lambda *a: jnp.sum(ops.prf_featmap(
+            a[0], a[1], a[2], a[3], block_n=16) * cot),
+            argnums=(0, 1, 2, 3))(x, mm, w, c)
+    else:
+        jg = jax.grad(lambda *a: jnp.sum(ops.prf_featmap(
+            a[0], None, a[1], a[2], block_n=16) * cot),
+            argnums=(0, 1, 2))(x, w, c)
+    ins = [torch.tensor(a, requires_grad=True)
+           for a in ((x, mm, w, c) if dark else (x, w, c))]
+    n0 = kf.launches
+    out = (kf.prf_featmap(*ins) if dark
+           else kf.prf_featmap(ins[0], None, *ins[1:]))
+    assert kf.launches == n0
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(exp),
+                               atol=ATOL, rtol=RTOL)
+    for g, e in zip(torch.autograd.grad(out, ins, torch.tensor(cot)), jg):
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), atol=ATOL,
+                                   rtol=RTOL)
+
+
+@pytest.mark.parametrize("bad", ["qf_dtype", "kf_heads", "noncontiguous",
+                                 "featmap_rank", "featmap_c"])
+def test_training_kernel_wrappers_reject_bad_arguments(bad):
+    qf, kf_, v = (torch.tensor(a) for a in _lin_inputs(2, 3, 1, 5, 16, 8, 0))
+    x, w = torch.randn(4, 8), torch.randn(16, 8)
+    with pytest.raises((ValueError, TypeError)):
+        if bad == "qf_dtype":
+            kl.linear_attention_causal(qf.double(), kf_, v)
+        elif bad == "kf_heads":
+            kl.linear_attention_causal(qf, torch.cat([kf_, kf_], 1),
+                                       torch.cat([v, v], 1))
+        elif bad == "noncontiguous":
+            kl.linear_attention_causal(qf.transpose(-1, -2).contiguous()
+                                       .transpose(-1, -2), kf_, v)
+        elif bad == "featmap_rank":
+            kf.prf_featmap(x, None, torch.randn(16, 6))
+        else:
+            kf.prf_featmap(x, None, w, torch.zeros(2))
