@@ -5,19 +5,33 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, each printed as a JSON line:
   1. card and build: the card's name and power limit (nvidia-smi), then
-     the kernels built from ``src/repro_torch/kernels/csrc`` with nvcc;
+     the seven kernels built from ``src/repro_torch/kernels/csrc`` with
+     nvcc (one process per source, in parallel);
   2. kernels vs plain: each CUDA kernel held against its plain PyTorch
      version on the card, at the smollm-135m and darkformer-2b head
-     geometries and at the main path's shapes, then timed (CUDA events)
-     at the smollm-135m serving shape beside its plain version and its
-     bound;
+     geometries and at the main paths' shapes (the training kernels and
+     wkv6 with gradients), then timed (CUDA events) at the main paths'
+     shapes beside its plain version and its bound: the fused serving
+     kernels at the smollm-135m serving shape, the training kernels at
+     its training shapes, the two-stage kernels (prf_decode_step and the
+     carried scan, also chained over three uneven chunks) at the serving
+     shape, and wkv6 at the rwkv6-7b geometry;
   3. main path: smollm-135m at full width (random weights from a seed)
-     served by the port's ``ServingEngine`` through the kernels, with the
-     kernels' launch counts checked against the engine's calls;
+     served by the port's ``ServingEngine`` through the fused kernels,
+     with every kernel's launch count checked against the engine's
+     calls;
+     3b. two-stage serving: the same traffic with the LM's serve entry
+     points pinned to ``fused=False`` (B4 per prefill call, B3 per decode
+     step, no fused launch); throughput, TTFT and TPOT beside phase 3's,
+     and the share of greedy tokens equal to phase 3's streams;
   4. cross-device: one prefill chunk and two decode steps on the card
      (kernels) and on the CPU (plain path) with the same params, logits
      and every layer's state compared; a planted fault must fail the
      same comparison;
+     4b. two-stage cross-check: the same chunk and steps through the
+     card's two stages, held against the card's fused kernels and the
+     CPU's plain path; a planted fault (each layer with the next layer's
+     feature params) must fail;
   5. training: smollm-135m at full width trained for 8 steps by the
      port's train launcher through the causal linear-attention kernel
      (loss finite and falling, 30 launches a step), checkpointed, then
@@ -28,12 +42,10 @@ Phases, each printed as a JSON line:
      width and 4 layers on the card (kernel) and on the CPU (plain
      path), same params and batch; a planted fault (each layer's kernel
      call fed the next layer's key features) must fail the same check.
-Phase 2 holds the training kernels too (linear_attention_causal and
-prf_featmap, forward and gradients) and times them at the smollm-135m
-training shapes. Then the kernels line and, last, the ``{"ok": true,
-...}`` line. Exits
-non-zero, without that line, when there is no CUDA device or any phase
-fails. Imports neither JAX nor the reference package.
+Then the kernels line (all seven kernels: launches on their path, max
+error, time, plain time, bound) and, last, the ``{"ok": true, ...}``
+line. Exits non-zero, without that line, when there is no CUDA device
+or any phase fails. Imports neither JAX nor the reference package.
 """
 from __future__ import annotations
 
@@ -91,6 +103,31 @@ def time_ms(torch, fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
+def kernel_times(torch, fn, iters):
+    """A kernel's time per call with CUDA events (:func:`time_ms`: the
+    host's launch path included, as the main path pays it) and its
+    device time per call: the union of the device intervals (kernels and
+    copies) of ``iters`` profiled calls, over ``iters`` (None if the
+    profiler saw none). Where device_ms is well below ms, the host's
+    launch path, not the kernel, sets the pace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = time_ms(torch, fn, iters)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy, end = 0.0, None
+    for t0, t1 in sorted((e.time_range.start, e.time_range.end)
+                         for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA):
+        if end is None or t0 >= end:
+            busy, end = busy + t1 - t0, t1
+        elif t1 > end:
+            busy, end = busy + t1 - end, t1
+    return {"ms": ms, "device_ms": busy / 1e3 / iters if end else None}
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -136,10 +173,11 @@ def feature_flops(rows_q, rows_k, d, r, m, dark):
 # ---------------------------------------------------------------------------
 
 def phase_kernels(torch, dev, kd, kp):
-    """Phase 2: every kernel vs its plain version; returns the worst
-    error per kernel."""
+    """Phase 2: the fused serving kernels vs their plain versions;
+    returns the worst error per kernel."""
     from repro_torch.kernels import check as kc
 
+    state = (5, 6, 7)                  # s, z, c of make_inputs' list
     err = {"prf_fused_decode": 0.0, "prf_fused_prefill": 0.0}
     geos = {"smollm-135m": (8, 3, 3, 64, 256, 64),
             "darkformer-2b": (4, 1, 8, 256, 256, 256)}
@@ -149,9 +187,9 @@ def phase_kernels(torch, dev, kd, kp):
             name = f"decode {gname} dark={dark} stabilize={stab} f32"
             args = kc.make_inputs(dev, b, g, hg, d, m, dv, None, dark,
                                   seed=len(cases))
-            e = kc.check_case(name, kd, kd.fused_prf_decode,
-                              kd.prf_fused_decode_plain, args,
-                              stabilize=stab)
+            e = kc.check_case(name, lambda: kd.launches,
+                              kd.fused_prf_decode, kd.prf_fused_decode_plain,
+                              args, state, stabilize=stab)
             err["prf_fused_decode"] = max(err["prf_fused_decode"], e)
             cases.append({"case": name, "max_abs_err": e})
         vls = [512, 0, 300, 257, 256, 1, 511, 100][:b]
@@ -164,16 +202,18 @@ def phase_kernels(torch, dev, kd, kp):
                                   seed=len(cases))
             vlt = (None if vl is None else
                    torch.tensor(vl, dtype=torch.int32, device=dev))
-            e = kc.check_case(name, kp, kp.fused_prf_prefill,
-                              kp.prf_fused_prefill_plain, args, vlt,
+            e = kc.check_case(name, lambda: kp.launches,
+                              kp.fused_prf_prefill,
+                              kp.prf_fused_prefill_plain, args, state, vlt,
                               stabilize=stab)
             err["prf_fused_prefill"] = max(err["prf_fused_prefill"], e)
             cases.append({"case": name, "max_abs_err": e})
     # the main path's shapes and input type: smollm-135m, 8 slots, bf16
     args = kc.make_inputs(dev, 8, 3, 3, 64, 256, 64, None, True, seed=100,
                           dtype=torch.bfloat16)
-    e = kc.check_case("decode main-path bf16", kd, kd.fused_prf_decode,
-                      kd.prf_fused_decode_plain, args, eps=1e-8)
+    e = kc.check_case("decode main-path bf16", lambda: kd.launches,
+                      kd.fused_prf_decode, kd.prf_fused_decode_plain, args,
+                      state, eps=1e-8)
     err["prf_fused_decode"] = max(err["prf_fused_decode"], e)
     cases.append({"case": "decode main-path bf16", "max_abs_err": e})
     for l, vl in ((32, [32] * 8), (256, [256, 200, 17, 1, 0, 0, 0, 0])):
@@ -181,8 +221,9 @@ def phase_kernels(torch, dev, kd, kp):
         args = kc.make_inputs(dev, 8, 3, 3, 64, 256, 64, l, True,
                               seed=101 + l, dtype=torch.bfloat16)
         vlt = torch.tensor(vl, dtype=torch.int32, device=dev)
-        e = kc.check_case(name, kp, kp.fused_prf_prefill,
-                          kp.prf_fused_prefill_plain, args, vlt, eps=1e-8)
+        e = kc.check_case(name, lambda: kp.launches, kp.fused_prf_prefill,
+                          kp.prf_fused_prefill_plain, args, state, vlt,
+                          eps=1e-8)
         err["prf_fused_prefill"] = max(err["prf_fused_prefill"], e)
         cases.append({"case": name, "max_abs_err": e})
     emit({"phase": "kernels_vs_plain", "tolerance_f32": kc.F32_TOL,
@@ -208,8 +249,8 @@ def phase_timing(torch, dev, kd, kp):
     bms, by = bound(byts, flops)
     out["prf_fused_decode"] = {
         "shape": f"B={b} G={g} Hg={hg} d={d} m={m} dv={dv} bf16",
-        "ms": time_ms(torch, lambda: kd.fused_prf_decode(*args, eps=1e-8),
-                      200),
+        **kernel_times(torch, lambda: kd.fused_prf_decode(*args, eps=1e-8),
+                       200),
         "plain_ms": time_ms(torch, lambda: kd.prf_fused_decode_plain(
             *args, eps=1e-8), 50),
         "bound_ms": bms, "bound_by": by, "bytes": byts, "flops": flops}
@@ -226,7 +267,7 @@ def phase_timing(torch, dev, kd, kp):
     bms, by = bound(byts, flops)
     out["prf_fused_prefill"] = {
         "shape": f"B={b} L={l} G={g} Hg={hg} d={d} m={m} dv={dv} bf16",
-        "ms": time_ms(torch, lambda: kp.fused_prf_prefill(
+        **kernel_times(torch, lambda: kp.fused_prf_prefill(
             *args, vl, eps=1e-8), 50),
         "plain_ms": time_ms(torch, lambda: kp.prf_fused_prefill_plain(
             *args, vl, eps=1e-8), 20),
@@ -235,21 +276,19 @@ def phase_timing(torch, dev, kd, kp):
     return out
 
 
-def phase_main_path(torch, dev, kd, kp):
-    """Phase 3: smollm-135m at full width served through the kernels."""
-    from repro_torch import configs
-    from repro_torch.models import lm
+def serve(torch, dev, cfg, params, counters):
+    """The 16 requests of the serving phases (prompts of 64-512 tokens,
+    32-64 new ones, 8 slots, chunk_tokens 256) through the port's
+    ``ServingEngine``, after a short warm-up engine (cuBLAS, allocator,
+    libraries). Every count of ``counters`` is set to 0 just before the
+    run and read just after. Returns (the phase's JSON fields, the
+    launches, each request's tokens in submission order, engine stats)."""
     from repro_torch.serving import ServingEngine, synthetic_requests
-
-    cfg = configs.get_config("smollm-135m", use_kernel=True)
-    t0 = time.perf_counter()
-    params = lm.init_params(cfg, seed=0, device=dev)
-    init_s = time.perf_counter() - t0
 
     def engine():
         return ServingEngine(params, cfg, max_slots=8, max_len=1024,
                              chunk_tokens=256, seed=0, device=dev)
-    warm = engine()                        # cuBLAS, allocator, libraries
+    warm = engine()
     for r in synthetic_requests(2, cfg.vocab, seed=1, prompt_range=(8, 40),
                                 gen_range=(2, 4)):
         warm.submit(r)
@@ -262,67 +301,118 @@ def phase_main_path(torch, dev, kd, kp):
     for r in reqs:
         eng.submit(r)
     torch.cuda.synchronize()
-    kd.launches = 0
-    kp.launches = 0
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
     t0 = time.perf_counter()
     results = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"prf_fused_decode": kd.launches,
-                "prf_fused_prefill": kp.launches}
+    launches = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
     st = eng.stats
+    by_uid = {r.uid: r for r in results}
+    got = {r.uid: len(by_uid[r.uid].tokens) if r.uid in by_uid else 0
+           for r in reqs}
     want = {r.uid: r.max_new_tokens for r in reqs}
-    got = {r.uid: len(r.tokens) for r in results}
     if got != want:
-        fail(f"main path: tokens per request {got}, expected {want}")
-    if st["prefill_path"] != "fused_kernel" or \
-            st["decode_path"] != "fused_kernel":
-        fail(f"main path ran {st['prefill_path']}/{st['decode_path']}")
-    if launches["prf_fused_prefill"] != st["prefill_calls"] * cfg.n_layers:
-        fail(f"prefill launches {launches['prf_fused_prefill']} != "
-             f"{st['prefill_calls']} calls x {cfg.n_layers} layers")
-    if launches["prf_fused_decode"] != st["decode_steps"] * cfg.n_layers:
-        fail(f"decode launches {launches['prf_fused_decode']} != "
-             f"{st['decode_steps']} steps x {cfg.n_layers} layers")
+        fail(f"serving: tokens per request {got}, expected {want}")
     tpots = [t for r in results for t in r.tpots]
     ttfts = [r.ttft for r in results]
-    emit({"phase": "main_path", "config": cfg.name,
-          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-          "n_heads": cfg.n_heads, "n_kv": cfg.n_kv, "d_head": cfg.head_dim,
-          "num_features": cfg.attn.num_features, "vocab": cfg.vocab,
-          "dtype": cfg.dtype, "slots": 8, "max_len": 1024,
-          "chunk_tokens": 256, "requests": len(reqs),
-          "param_init_s": init_s, "wall_s": wall,
-          "emitted_tokens": st["emitted_tokens"],
-          "throughput_tok_s": st["emitted_tokens"] / wall,
-          "ttft_p50_ms": float(np.percentile(ttfts, 50)) * 1e3,
-          "tpot_p50_ms": float(np.percentile(tpots, 50)) * 1e3,
-          "tpot_p99_ms": float(np.percentile(tpots, 99)) * 1e3,
-          "prefill_calls": st["prefill_calls"],
-          "decode_steps": st["decode_steps"], "launches": launches,
+    fields = {
+        "config": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "n_heads": cfg.n_heads, "n_kv": cfg.n_kv, "d_head": cfg.head_dim,
+        "num_features": cfg.attn.num_features, "vocab": cfg.vocab,
+        "dtype": cfg.dtype, "slots": 8, "max_len": 1024, "chunk_tokens": 256,
+        "requests": len(reqs), "wall_s": wall,
+        "emitted_tokens": st["emitted_tokens"],
+        "throughput_tok_s": st["emitted_tokens"] / wall,
+        "ttft_p50_ms": float(np.percentile(ttfts, 50)) * 1e3,
+        "tpot_p50_ms": float(np.percentile(tpots, 50)) * 1e3,
+        "tpot_p99_ms": float(np.percentile(tpots, 99)) * 1e3,
+        "prefill_calls": st["prefill_calls"],
+        "decode_steps": st["decode_steps"], "launches": launches,
+        "prefill_path": st["prefill_path"], "decode_path": st["decode_path"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return fields, launches, [by_uid[r.uid].tokens for r in reqs], st
+
+
+def phase_main_path(torch, dev, counters):
+    """Phase 3: smollm-135m at full width served through the fused
+    kernels. Returns (cfg, params, launches, the token streams, the
+    phase's JSON fields)."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    cfg = configs.get_config("smollm-135m", use_kernel=True)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev)
+    init_s = time.perf_counter() - t0
+    fields, launches, streams, st = serve(torch, dev, cfg, params, counters)
+    emit({"phase": "main_path", **fields, "param_init_s": init_s,
           "launches_per_prefill_call":
               launches["prf_fused_prefill"] / st["prefill_calls"],
           "launches_per_decode_step":
-              launches["prf_fused_decode"] / st["decode_steps"],
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return cfg, params, launches
+              launches["prf_fused_decode"] / st["decode_steps"]})
+    if st["prefill_path"] != "fused_kernel" or \
+            st["decode_path"] != "fused_kernel":
+        fail(f"main path ran {st['prefill_path']}/{st['decode_path']}")
+    want = {n: 0 for n in counters}
+    want["prf_fused_prefill"] = st["prefill_calls"] * cfg.n_layers
+    want["prf_fused_decode"] = st["decode_steps"] * cfg.n_layers
+    if launches != want:
+        fail(f"main path: launches {launches}, expected {want} (prefill "
+             f"calls and decode steps x {cfg.n_layers} layers)")
+    return cfg, params, launches, streams, fields
 
 
-def drive(torch, lm, cfg, params, dev, toks, vl, feed=None, proj=None):
-    """One ragged prefill chunk and two decode steps from a fresh state.
-    Each decode step is fed ``feed[i]``, or the argmax of the logits
-    before it. Returns (logits of each step on the CPU, tokens fed, the
-    final state on the CPU)."""
+def phase_two_stage_serve(torch, dev, cfg, params, counters, main):
+    """Phase 3b: phase 3's traffic again with the LM's serve entry points
+    pinned to ``fused=False`` (the reference's ``two_stage_kernel`` rung,
+    benchmarks/serve_faults.py): every layer runs the plain feature map,
+    then B4 per prefill call and B3 per decode step. The engine still
+    labels its paths ``fused_kernel``, as the reference's does under that
+    pin, so the launch counts are the evidence. Returns the launches."""
+    import functools
+    from unittest import mock
+    from repro_torch.models import lm
+
+    with mock.patch.multiple(
+            lm, prefill_chunk=functools.partial(lm.prefill_chunk,
+                                                fused=False),
+            decode_step=functools.partial(lm.decode_step, fused=False)):
+        fields, launches, two, st = serve(torch, dev, cfg, params, counters)
+    streams, main_fields = main
+    same = [a == b for s1, s2 in zip(streams, two) for a, b in zip(s1, s2)]
+    emit({"phase": "two_stage_serve", **fields,
+          "main_path": {k: main_fields[k] for k in (
+              "throughput_tok_s", "ttft_p50_ms", "tpot_p50_ms",
+              "tpot_p99_ms")},
+          "greedy_tokens_equal_to_main_path": sum(same) / len(same)})
+    want = {n: 0 for n in counters}
+    want["linear_attention_carry"] = st["prefill_calls"] * cfg.n_layers
+    want["prf_decode_step"] = st["decode_steps"] * cfg.n_layers
+    if launches != want:
+        fail(f"two-stage serve: launches {launches}, expected {want} "
+             f"(prefill calls and decode steps x {cfg.n_layers} layers)")
+    return launches
+
+
+def drive(torch, lm, cfg, params, dev, toks, vl, feed=None, proj=None,
+          fused=True):
+    """One ragged prefill chunk and two decode steps from a fresh state,
+    through the fused kernels or (``fused=False``) the two stages. Each
+    decode step is fed ``feed[i]``, or the argmax of the logits before
+    it. Returns (logits of each step on the CPU, tokens fed, the final
+    state on the CPU)."""
     st = lm.init_serve_state(cfg, b=toks.shape[0], max_len=128,
                              per_slot=True, device=dev)
     logits, st = lm.prefill_chunk(
         params, cfg, {"tokens": torch.tensor(toks, device=dev)}, st,
-        valid_len=torch.tensor(vl, device=dev), proj=proj)
+        valid_len=torch.tensor(vl, device=dev), proj=proj, fused=fused)
     out, fed = [logits.float().cpu()], []
     for i in range(2):
         fed.append(out[-1].argmax(-1) if feed is None else feed[i])
         logits, st = lm.decode_step(params, cfg, fed[-1].to(dev), st,
-                                    proj=proj)
+                                    proj=proj, fused=fused)
         out.append(logits.float().cpu())
     return out, fed, st["layers"]._replace(
         **{k: t.cpu() for k, t in st["layers"]._asdict().items()})
@@ -354,7 +444,8 @@ def phase_cross_device(torch, dev, cfg, params):
     params, same tokens: one ragged prefill chunk, two decode steps; the
     logits of every step and every layer's final state are compared.
     A planted fault (each layer run with the next layer's projection)
-    must fail the same check."""
+    must fail the same check. Returns (tokens, valid lengths, the card's
+    run, the CPU's run) for phase 4b."""
     from repro_torch.models import lm
 
     cpu_cfg = dataclasses.replace(cfg, use_kernel=False)
@@ -387,6 +478,45 @@ def phase_cross_device(torch, dev, cfg, params):
         fail(f"cross-device state differs by {state_err:.3e} of its max")
     if max(fault_logit) <= CROSS_DEVICE_TOL and fault_state <= STATE_TOL:
         fail("cross-device check passes a planted fault")
+    return toks, vl, card, cpu
+
+
+def phase_two_stage_cross(torch, dev, cfg, params, toks, vl, card, cpu):
+    """Phase 4b: phase 4's chunk and decode steps through the card's two
+    stages (B4, B3), held by phase 4's gauges and limits against the
+    card's fused kernels and against the CPU's plain path. A planted
+    fault (each layer run with the next layer's feature params w and
+    m_mat) must fail the same check."""
+    from repro_torch.models import lm
+
+    two = drive(torch, lm, cfg, params, dev, toks, vl, feed=card[1],
+                fused=False)
+    layers = params["units"]["b0"]
+    shifted = {**params, "units": {"b0": {**layers, "attn": {
+        **layers["attn"], "feat": lm.tree_map(
+            lambda t: torch.roll(t, -1, dims=0), layers["attn"]["feat"])}}}}
+    planted = drive(torch, lm, cfg, shifted, dev, toks, vl, feed=card[1],
+                    fused=False)
+    vs_fused = gaps(torch, two, card)
+    vs_cpu = gaps(torch, two, cpu)
+    fault = gaps(torch, planted, cpu)
+    emit({"phase": "two_stage_cross", "tolerance": CROSS_DEVICE_TOL,
+          "state_tolerance": STATE_TOL,
+          "vs_card_fused": {"rel_max_err": vs_fused[0],
+                            "state_rel_err": vs_fused[1]},
+          "vs_cpu_plain": {"rel_max_err": vs_cpu[0],
+                           "state_rel_err": vs_cpu[1]},
+          "planted_fault": {"what": "each layer run with the next layer's "
+                                    "feature params w, m_mat",
+                            "rel_max_err": fault[0],
+                            "state_rel_err": fault[1]}})
+    for what, (logit_err, state_err) in (("card fused", vs_fused),
+                                         ("CPU plain", vs_cpu)):
+        if max(logit_err) > CROSS_DEVICE_TOL or state_err > STATE_TOL:
+            fail(f"two-stage vs {what}: logits {max(logit_err):.3e}, state "
+                 f"{state_err:.3e} of their max")
+    if max(fault[0]) <= CROSS_DEVICE_TOL and fault[1] <= STATE_TOL:
+        fail("two-stage cross-check passes a planted fault")
 
 
 def phase_train_kernels(torch, dev, kl, kf):
@@ -457,7 +587,7 @@ def phase_train_timing(torch, dev, kl, kf):
     with torch.no_grad():
         out["linear_attention_causal"] = {
             "shape": f"B={b} G={g} Hg={hg} L={l} m={m} dv={dv} v=bf16",
-            "ms": time_ms(torch, lambda: kl.linear_attention_causal(
+            **kernel_times(torch, lambda: kl.linear_attention_causal(
                 *args, eps=1e-8), 20),
             "plain_ms": time_ms(
                 torch, lambda: kl.linear_attention_causal_plain(*args, 1e-8),
@@ -471,7 +601,7 @@ def phase_train_timing(torch, dev, kl, kf):
     with torch.no_grad():
         out["prf_featmap"] = {
             "shape": f"N={n} d={d} r={r} m={m} dark x=f32",
-            "ms": time_ms(torch, lambda: kf.prf_featmap(*args), 50),
+            **kernel_times(torch, lambda: kf.prf_featmap(*args), 50),
             "plain_ms": time_ms(torch, lambda: kf.prf_featmap_plain(*args),
                                 20),
             "bound_ms": bms, "bound_by": by, "bytes": byts, "flops": flops}
@@ -479,7 +609,134 @@ def phase_train_timing(torch, dev, kl, kf):
     return out
 
 
-def phase_train(torch, dev, mods):
+def phase_two_stage_kernels(torch, dev, kds, kl, kw):
+    """Phase 2e: the two-stage serving kernels (B3, B4) and B7 against
+    their plain versions; returns the worst forward error per kernel."""
+    from repro_torch.kernels import check as kc
+
+    err = {"prf_decode_step": 0.0, "linear_attention_carry": 0.0,
+           "wkv6": 0.0}
+    cases = []
+
+    def record(kernel, name, e, **extra):
+        err[kernel] = max(err[kernel], e)
+        cases.append({"case": name, "max_abs_err": e, **extra})
+    for gname, (b, g, hg, m, dv) in (("smollm-135m", (8, 3, 3, 256, 64)),
+                                     ("darkformer-2b", (8, 1, 8, 256, 256))):
+        args = kc.make_decode_step_inputs(dev, b, g, hg, m, dv,
+                                          seed=len(cases))
+        name = f"prf_decode_step {gname} slots={b} rho<1"
+        record("prf_decode_step", name, kc.check_case(
+            name, lambda: kds.launches, kds.linear_attention_decode_step,
+            kds.prf_decode_step_plain, args, (3, 4), eps=1e-8))
+    carry = (lambda: kl.carry_launches, kl.linear_attention_prefill_chunk,
+             kl.linear_attention_carry_plain)
+    for l in (1, 37, 256, 300, 512):
+        for hk in (1, 3):
+            for dt in (torch.bfloat16, torch.float32):
+                name = (f"linear_attention_carry N=18 L={l} Hk={hk} "
+                        f"v={str(dt).split('.')[-1]} s0,z0 nonzero")
+                args = kc.make_carry_inputs(dev, 2, 3, 3, hk, l, 256, 64,
+                                            seed=len(cases), dtype=dt)
+                record("linear_attention_carry", name, kc.check_case(
+                    name, *carry, args, (3, 4), eps=1e-8))
+    record("linear_attention_carry", "linear_attention_carry chunks "
+           "256+37+307 vs one pass of 600",
+           kc.check_carry_chained(dev, seed=99))
+    for n, l, dt in ((512, 512, torch.float32), (64, 50, torch.bfloat16),
+                     (8, 1, torch.float32)):
+        name = f"wkv6 N={n} L={l} dh=64 {str(dt).split('.')[-1]}"
+        args = kc.make_wkv6_inputs(dev, n, l, 64, seed=len(cases), dtype=dt)
+        record("wkv6", name, kc.check_forward(
+            name, lambda: kw.launches, kw.wkv6, kw.wkv6_plain, args))
+    for n, l, dt in ((4, 1, torch.float32), (4, 50, torch.float32),
+                     (4, 33, torch.bfloat16)):
+        name = f"wkv6 gradients N={n} L={l} dh=64 {str(dt).split('.')[-1]}"
+        args = kc.make_wkv6_inputs(dev, n, l, 64, seed=len(cases), dtype=dt)
+        fwd, grad = kc.check_autograd(name, kw, kw.wkv6, kw.wkv6_plain,
+                                      args, seed=len(cases))
+        record("wkv6", name, fwd, grad_max_abs_err=grad)
+    emit({"phase": "two_stage_kernels_vs_plain", "tolerance_f32": kc.F32_TOL,
+          "tolerance_bf16_out": kc.BF16_OUT_TOL, "cases": cases})
+    return err
+
+
+def carry_flops(rows, kv_rows, l, m, dv, chunk=256):
+    """Operations the carried scan needs, the fewer of its two exact
+    forms, as :func:`lin_attn_flops` with a nonzero carried state per
+    query row. Token-serial: per token the increments of S and z once per
+    KV row, and per query row q·S0, q·z0 and q·ΔS, q·Δz, their sums and
+    the division; then S0 + ΔS and z0 + Δz once. Chunked: per query row
+    and chunk the causal half of the scores and of P·V and Q·S_in, Q·z_in
+    (every chunk, S0 being nonzero), and S_in formed per chunk; per KV
+    row Kᵀ V and Σ K for every chunk (the final state needs the last)."""
+    final = rows * m * (dv + 1)
+    serial = l * (kv_rows * m * (2 * dv + 1)
+                  + rows * (4 * m * (dv + 1) + 2 * (dv + 1))) + final
+    chunked = rows * l * (dv + 1)
+    for c0 in range(0, l, chunk):
+        t = min(chunk, l - c0)
+        chunked += rows * t * (t + 1) // 2 * (2 * m + 2 * dv + 1)
+        chunked += rows * 2 * t * m * (dv + 1) + final
+        chunked += kv_rows * t * m * (2 * dv + 1)
+    return min(serial, chunked)
+
+
+def phase_two_stage_timing(torch, dev, kds, kl, kw):
+    """Phase 2f: B3, B4 and B7 timed (CUDA events) beside their plain
+    versions and bounds. B3 at 8 slots of smollm-135m; B4 at B2's timing
+    shape (8 rows x 32 tokens) and at one row x 256 tokens, bf16 v, the
+    pool's state advanced in place; B7 at the rwkv6-7b geometry, 512
+    rows (64 heads x batch 8) x 512 tokens, dh 64, f32."""
+    from repro_torch.kernels import check as kc
+
+    out = {}
+    b, g, hg, m, dv = 8, 3, 3, 256, 64
+    args = kc.make_decode_step_inputs(dev, b, g, hg, m, dv, seed=13)
+    qf, kf_, v, s, z, rho = args
+    rows = b * g * hg
+    byts = nbytes(qf, kf_, v, rho) + 2 * nbytes(s, z) + rows * dv * 4
+    bms, by = bound(byts, rows * (4 * m * dv + 4 * m + dv))
+    out["prf_decode_step"] = {
+        "shape": f"B={b} G={g} Hg={hg} m={m} dv={dv} f32",
+        **kernel_times(torch, lambda: kds.linear_attention_decode_step(
+            *args, eps=1e-8), 200),
+        "plain_ms": time_ms(torch, lambda: kds.prf_decode_step_plain(
+            *args, eps=1e-8), 50),
+        "bound_ms": bms, "bound_by": by, "bytes": byts,
+        "flops": rows * (4 * m * dv + 4 * m + dv)}
+    for key, bb, l in (("linear_attention_carry", 8, 32),
+                       ("linear_attention_carry_1x256", 1, 256)):
+        args = kc.make_carry_inputs(dev, bb, g, hg, 1, l, m, dv, seed=14,
+                                    dtype=torch.bfloat16)
+        qf, kf_, v, s0, z0 = args
+        rows, kv_rows = bb * g * hg, bb * g
+        flops = carry_flops(rows, kv_rows, l, m, dv)
+        byts = nbytes(qf, kf_, v) + 2 * nbytes(s0, z0) + rows * l * dv * 2
+        bms, by = bound(byts, flops)
+        out[key] = {
+            "shape": f"B={bb} L={l} G={g} Hg={hg} m={m} dv={dv} v=bf16",
+            **kernel_times(torch, lambda: kl.linear_attention_prefill_chunk(
+                *args, eps=1e-8), 100),
+            "plain_ms": time_ms(torch, lambda: kl.linear_attention_carry_plain(
+                *args, 1e-8), 30),
+            "bound_ms": bms, "bound_by": by, "bytes": byts, "flops": flops}
+    n, l, dh = 512, 512, 64
+    args = kc.make_wkv6_inputs(dev, n, l, dh, seed=15)
+    flops = n * l * (5 * dh * dh + 5 * dh)
+    byts = nbytes(*args) + n * l * dh * 4
+    bms, by = bound(byts, flops)
+    with torch.no_grad():
+        out["wkv6"] = {
+            "shape": f"N={n} L={l} dh={dh} f32",
+            **kernel_times(torch, lambda: kw.wkv6(*args), 20),
+            "plain_ms": time_ms(torch, lambda: kw.wkv6_plain(*args), 3),
+            "bound_ms": bms, "bound_by": by, "bytes": byts, "flops": flops}
+    emit({"phase": "two_stage_kernel_timing", **out})
+    return out
+
+
+def phase_train(torch, dev, counters):
     """Phase 5: smollm-135m at full width trained by the port's launcher
     (kernel on), checkpointed, then finetuned qkv-only from that
     checkpoint in a fresh state. Returns the kernels' launch counts over
@@ -499,14 +756,14 @@ def phase_train(torch, dev, mods):
               "1", "--device", str(dev)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in mods.values():
-        mod.launches = 0
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
     t0 = time.perf_counter()
     out = train.main(common + ["--steps", str(steps_n), "--seed", "0",
                                "--ckpt-dir", str(ck), "--ckpt-every",
                                str(steps_n)])
     wall = time.perf_counter() - t0
-    launches = {n: mod.launches for n, mod in mods.items()}
+    launches = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 1e9
     cfg = out["config"]
     m = out["metrics"]
@@ -526,7 +783,7 @@ def phase_train(torch, dev, mods):
         fail(f"train: losses {losses}")
     if not losses[-1] < losses[0]:
         fail(f"train: loss did not fall ({losses[0]} -> {losses[-1]})")
-    want = {n: 0 for n in mods}
+    want = {n: 0 for n in counters}
     want["linear_attention_causal"] = cfg.n_layers * steps_n
     if launches != want:
         fail(f"train: launches {launches}, expected {want}")
@@ -536,7 +793,8 @@ def phase_train(torch, dev, mods):
     # another seed (so the restore must overwrite every leaf)
     pre, step = ckpt.restore_checkpoint(
         str(ck), {"params": lm.init_params(cfg, seed=1, device=dev)})
-    mods["linear_attention_causal"].launches = 0
+    kl = counters["linear_attention_causal"][0]
+    kl.launches = 0
     ft = train.main(common + ["--steps", "3", "--seed", "1",
                               "--finetune-from", str(ck), "--qkv-only"])
     # a frozen leaf's gradient is zeroed (the reference's freeze), so only
@@ -562,16 +820,15 @@ def phase_train(torch, dev, mods):
           "step_ms": [x["ms"] for x in ft["metrics"]],
           "frozen_leaves_moved": frozen_moved,
           "trained_leaves_unchanged": trained_still,
-          "launches": mods["linear_attention_causal"].launches})
+          "launches": kl.launches})
     shutil.rmtree(ck, ignore_errors=True)
     if frozen_moved or trained_still:
         fail(f"finetune: frozen leaves moved {frozen_moved}, trained "
              f"leaves unchanged {trained_still}")
     if not all(np.isfinite(x["loss"]) for x in ft["metrics"]):
         fail("finetune: non-finite loss")
-    if mods["linear_attention_causal"].launches != 3 * cfg.n_layers:
-        fail("finetune: linear_attention_causal launches "
-             f"{mods['linear_attention_causal'].launches}")
+    if kl.launches != 3 * cfg.n_layers:
+        fail(f"finetune: linear_attention_causal launches {kl.launches}")
     return launches
 
 
@@ -670,16 +927,44 @@ def phase_train_cross_device(torch, dev, kl):
         fail("cross-device training check passes a planted fault")
 
 
+# every kernel of the port: (its module, its launch counter, its CUDA
+# source, the Pallas TPU kernel it replaces)
+KERNELS = {
+    "prf_fused_decode": ("prf_fused_decode", "launches", "prf_fused_decode",
+                         "src/repro/kernels/prf_fused_decode.py:131"),
+    "prf_fused_prefill": ("prf_fused_prefill", "launches",
+                          "prf_fused_prefill",
+                          "src/repro/kernels/prf_fused_prefill.py:167"),
+    "prf_decode_step": ("prf_decode_step", "launches", "prf_decode_step",
+                        "src/repro/kernels/prf_decode_step.py:56"),
+    "linear_attention_carry": ("linear_attn_scan", "carry_launches",
+                               "linear_attn_scan",
+                               "src/repro/kernels/linear_attn_scan.py:158"),
+    "linear_attention_causal": ("linear_attn_scan", "launches",
+                                "linear_attn_scan",
+                                "src/repro/kernels/linear_attn_scan.py:73"),
+    "prf_featmap": ("prf_featmap", "launches", "prf_featmap",
+                    "src/repro/kernels/prf_featmap.py:51"),
+    "wkv6": ("wkv6_scan", "launches", "wkv6_scan",
+             "src/repro/kernels/wkv6_scan.py:60"),
+}
+
+
 def main() -> int:
+    import importlib
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
-    from repro_torch.kernels import linear_attn_scan as kl
-    from repro_torch.kernels import prf_featmap as kf
-    from repro_torch.kernels import prf_fused_decode as kd
-    from repro_torch.kernels import prf_fused_prefill as kp
+
+    mod = {n: importlib.import_module(f"repro_torch.kernels.{m}")
+           for n, (m, _, _, _) in KERNELS.items()}
+    counters = {n: (mod[n], KERNELS[n][1]) for n in KERNELS}
+    kd, kp, kds = (mod[n] for n in ("prf_fused_decode", "prf_fused_prefill",
+                                    "prf_decode_step"))
+    kl, kf, kw = (mod[n] for n in ("linear_attention_causal", "prf_featmap",
+                                   "wkv6"))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -699,35 +984,37 @@ def main() -> int:
 
     errs = phase_kernels(torch, dev, kd, kp)
     errs.update(phase_train_kernels(torch, dev, kl, kf))
+    errs.update(phase_two_stage_kernels(torch, dev, kds, kl, kw))
     timing = phase_timing(torch, dev, kd, kp)
     timing.update(phase_train_timing(torch, dev, kl, kf))
-    cfg, params, launches = phase_main_path(torch, dev, kd, kp)
-    phase_cross_device(torch, dev, cfg, params)
+    timing.update(phase_two_stage_timing(torch, dev, kds, kl, kw))
+    # each path's launches come from its own run: the fused serving
+    # kernels' from phase 3, the two-stage ones' from phase 3b, the
+    # training kernels' from phase 5 (prf_featmap and wkv6 lie on no
+    # path: 0)
+    cfg, params, launches, *main = phase_main_path(torch, dev, counters)
+    toks, vl, card_run, cpu_run = phase_cross_device(torch, dev, cfg, params)
+    two = phase_two_stage_serve(torch, dev, cfg, params, counters, main)
+    launches.update({n: two[n] for n in ("prf_decode_step",
+                                         "linear_attention_carry")})
+    phase_two_stage_cross(torch, dev, cfg, params, toks, vl, card_run,
+                          cpu_run)
     del params
-    mods = {"prf_fused_decode": kd, "prf_fused_prefill": kp,
-            "linear_attention_causal": kl, "prf_featmap": kf}
-    train_launches = phase_train(torch, dev, mods)
-    # the serving kernels' launches come from phase 3, the training
-    # kernels' from phase 5 (prf_featmap lies on no path: 0)
+    train_launches = phase_train(torch, dev, counters)
     launches.update({n: train_launches[n]
-                     for n in ("linear_attention_causal", "prf_featmap")})
+                     for n in ("linear_attention_causal", "prf_featmap",
+                               "wkv6")})
     phase_train_cross_device(torch, dev, kl)
 
-    replaces = {
-        "prf_fused_decode": "src/repro/kernels/prf_fused_decode.py:131",
-        "prf_fused_prefill": "src/repro/kernels/prf_fused_prefill.py:167",
-        "linear_attention_causal": "src/repro/kernels/linear_attn_scan.py:73",
-        "prf_featmap": "src/repro/kernels/prf_featmap.py:51"}
-    sources = {"linear_attention_causal": "linear_attn_scan"}
     emit({"kernels": [
         {"name": n, "route": "cuda",
-         "source": f"src/repro_torch/kernels/csrc/{sources.get(n, n)}.cu",
-         "replaces": replaces[n], "launches": launches[n],
+         "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+         "replaces": replaces, "launches": launches[n],
          "max_abs_err": errs[n], "ms": timing[n]["ms"],
          "plain_ms": timing[n]["plain_ms"],
          "bound_ms": timing[n]["bound_ms"],
          "bound_by": timing[n]["bound_by"], "library_ms": None}
-        for n in mods],
+        for n, (_, _, src, replaces) in KERNELS.items()],
         "card": card, "total_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

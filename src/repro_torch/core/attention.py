@@ -19,9 +19,9 @@ baseline trains W, and only darkformer trains M (the learned covariance
 Sigma = M^T M). The stabilizers carry no gradient either.
 
 The serving entry points advance the incoming :class:`AttnServeState`
-IN PLACE (the fused kernels write S, z and c where they lie; the plain
-path copies its result there) and return it beside the attention
-output.
+IN PLACE (the kernels write S, z and c where they lie; the plain path
+copies its result there) and return it beside the attention output; a
+whole-prompt prefill (no incoming state) returns a new one.
 """
 from __future__ import annotations
 
@@ -168,27 +168,49 @@ def rf_attention_prefill(q, k, v, fparams, cfg: fm.FeatureConfig, *,
                          chunk: int = 256, use_kernel: bool = False,
                          valid_len: Optional[torch.Tensor] = None,
                          proj: Optional[dict] = None):
-    """Causal pass over a prompt chunk that resumes from ``state``.
+    """Causal pass over a prompt: the whole prompt (``state`` None) or a
+    chunk that resumes from ``state``.
 
-    The chunk attends to the carried prefix, and the stabilizer is a
-    running max with an online exp(c_old - c_new) rescale of (S, z).
-    ``valid_len`` ((B,) int32) makes the chunk ragged: row b advances over
-    its first ``valid_len[b]`` positions only; outputs at padded positions
-    are garbage by contract. With ``use_kernel`` and the precomposed
-    ``proj`` (``fm.precompose_projection``) the chunk runs the fused
-    ``prf_fused_prefill`` kernel; otherwise the plain feature map plus
-    the carried-state scan. Returns (out (B, G, Hg, L, dv) in v.dtype,
-    state advanced in place).
+    Whole prompt: causal attention from zero (the ``linear_attention_causal``
+    kernel under ``use_kernel``, else the chunked plain scan) and a fresh
+    state from the prompt's features. Resumed: the chunk attends to the
+    carried prefix, and the stabilizer is a running max with an online
+    exp(c_old - c_new) rescale of (S, z). ``valid_len`` ((B,) int32) makes
+    the chunk ragged: row b advances over its first ``valid_len[b]``
+    positions only; outputs at padded positions are garbage by contract.
+    With ``use_kernel`` a resumed chunk runs the fused
+    ``prf_fused_prefill`` kernel when ``proj`` carries the precomposed
+    projection (``fm.precompose_projection``), and otherwise the two
+    stages: the plain feature map, then the carried-scan kernel
+    ``linear_attention_prefill_chunk``. Without ``use_kernel``, the plain
+    feature map and carried-state scan. Returns (out (B, G, Hg, L, dv) in
+    v.dtype, state: a new one for the whole prompt, else ``state``
+    advanced in place).
     """
     if cfg.kind == "exact":
         raise _not_ported("exact-attention prefill")
-    if state is None:
-        raise _not_ported("whole-prompt prefill without a serve state")
     if cfg.kind not in PRF_KINDS:
         raise ValueError(f"no serving path for kind {cfg.kind!r}")
+    if valid_len is not None and state is None:
+        raise ValueError("valid_len requires an incoming serve state "
+                         "(ragged rows only arise in resumed chunks)")
     b, g, hg, l, _ = q.shape
     dv = v.shape[-1]
     qs, ks = _scale_qk(q, k)
+    if state is None:
+        qf, kf, kc = _qk_feature_pair(qs, ks, fparams, cfg)
+        if use_kernel:
+            out = kops.linear_attention_causal(
+                qf.contiguous(), kf.contiguous(), v.contiguous(), eps=cfg.eps)
+        else:
+            out = la.linear_attention_causal_chunked(
+                qf, kf.expand(b, g, hg, l, cfg.num_features),
+                v.expand(b, g, hg, l, dv), chunk=chunk, eps=cfg.eps)
+        s = torch.einsum("bgklm,bgkld->bgkmd", kf, v.float())
+        return out, AttnServeState(
+            s=s.expand(b, g, hg, *s.shape[-2:]).contiguous(),
+            z=kf.sum(-2).expand(b, g, hg, cfg.num_features).contiguous(),
+            c=kc)
     if use_kernel and proj is not None:
         out, _, _, _ = kops.fused_prf_prefill(
             qs.contiguous(), ks[:, :, 0].contiguous(),
@@ -201,6 +223,15 @@ def rf_attention_prefill(q, k, v, fparams, cfg: fm.FeatureConfig, *,
              .reshape(b, 1, 1, l, 1))
     qf, kf, c_new, rescale = _resume_qk_features(qs, ks, fparams, cfg,
                                                  state.c, valid_mask=vmask)
+    if use_kernel:
+        # the pool rescaled where it lies, then advanced there by the scan
+        state.s.mul_(rescale)
+        state.z.mul_(rescale[..., 0])
+        out, _, _ = kops.linear_attention_prefill_chunk(
+            qf.contiguous(), kf.contiguous(), v.contiguous(), state.s,
+            state.z, eps=cfg.eps)
+        state.c.copy_(c_new)
+        return out, state
     kfb = kf.expand(b, g, hg, l, cfg.num_features)
     vv = v.expand(b, g, hg, l, dv)
     out, s, z = la.linear_attention_causal_carry(
@@ -213,10 +244,12 @@ def rf_attention_decode(q, k, v, state: AttnServeState, fparams,
                         cfg: fm.FeatureConfig, *, use_kernel: bool = False,
                         proj: Optional[dict] = None):
     """One-token decode. q: (B, G, Hg, 1, d); k, v: (B, G, 1, 1, d).
-    With ``use_kernel`` and the precomposed ``proj`` the step runs the
-    fused ``prf_fused_decode`` kernel; otherwise the plain feature map
-    and rank-1 update. Returns (out (B, G, Hg, 1, dv) in v.dtype, state
-    advanced in place)."""
+    With ``use_kernel`` the step runs the fused ``prf_fused_decode``
+    kernel when ``proj`` carries the precomposed projection, and
+    otherwise the two stages: the plain feature map, then the
+    ``linear_attention_decode_step`` kernel. Without ``use_kernel``, the
+    plain feature map and rank-1 update. Returns (out (B, G, Hg, 1, dv)
+    in v.dtype, state advanced in place)."""
     if cfg.kind == "exact":
         raise _not_ported("exact-attention decode")
     if cfg.kind not in PRF_KINDS:
@@ -233,9 +266,16 @@ def rf_attention_decode(q, k, v, state: AttnServeState, fparams,
         return out.to(v.dtype)[..., None, :], state
     qf, kf, c_new, rescale = _resume_qk_features(qs, ks, fparams, cfg,
                                                  state.c)
+    qf1 = qf[..., 0, :]                                   # (B, G, Hg, m)
+    if use_kernel:
+        out, _, _ = kops.linear_attention_decode_step(
+            qf1.contiguous(), kf[:, :, :, 0].contiguous(),
+            v[:, :, :, 0].float().contiguous(), state.s, state.z,
+            rescale[..., 0, 0].contiguous(), eps=cfg.eps)
+        state.c.copy_(c_new)
+        return out.to(v.dtype)[..., None, :], state
     kfb = kf[:, :, :, 0].expand(b, g, hg, cfg.num_features)
     vv = v[:, :, :, 0].expand(b, g, hg, dv).float()
-    qf1 = qf[..., 0, :]                                   # (B, G, Hg, m)
     s = state.s * rescale + kfb[..., :, None] * vv[..., None, :]
     z = state.z * rescale[..., 0] + kfb
     num = torch.einsum("bghm,bghmd->bghd", qf1, s)

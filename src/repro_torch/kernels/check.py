@@ -60,13 +60,15 @@ def clone(args: list) -> list:
 
 
 def max_error(name: str, got, exp, valid_len=None) -> float:
-    """Max abs error over (out, s, z, c). Raises AssertionError on a
+    """Max abs error over (out, s, z[, c]). Raises AssertionError on a
     non-finite value or an error beyond F32_TOL (BF16_OUT_TOL for bf16
     outputs). Outputs past a row's ``valid_len`` are not compared: they
     are garbage by contract."""
     worst = 0.0
     bf16_out = got[0].dtype == torch.bfloat16
     for o, e, what in zip(got, exp, ("out", "s", "z", "c")):
+        _require(o.shape == e.shape, f"{name}: {what} has shape "
+                 f"{tuple(o.shape)}, expected {tuple(e.shape)}")
         o, e = o.float(), e.float()
         if what == "out" and valid_len is not None:
             mask = (torch.arange(o.shape[3], device=o.device)[None]
@@ -83,21 +85,23 @@ def max_error(name: str, got, exp, valid_len=None) -> float:
     return worst
 
 
-def check_case(name: str, mod, wrapper, plain, args: list, valid_len=None,
-               **kw) -> float:
-    """One kernel call against its plain version on copies of the same
-    inputs: the same results within tolerance, S/z/c updated where they
-    lie, and exactly one launch counted on ``mod.launches``. Returns the
-    max abs error."""
+def check_case(name: str, count, wrapper, plain, args: list, state: tuple,
+               valid_len=None, **kw) -> float:
+    """One call of a kernel that advances ``args[i]`` for i in ``state``
+    in place, against its plain version on copies of the same inputs:
+    the same results within tolerance (:func:`max_error`), the state
+    advanced where it lies, and exactly one launch counted by
+    ``count()``. ``valid_len``, when given, follows ``args`` in both
+    calls. Returns the max abs error."""
     extra = [] if valid_len is None else [valid_len]
     exp = plain(*clone(args), *extra, **kw)
-    ptrs = [x.data_ptr() for x in args[5:]]
-    n0 = mod.launches
+    ptrs = [args[i].data_ptr() for i in state]
+    n0 = count()
     got = wrapper(*args, *extra, **kw)
     torch.cuda.synchronize()
-    _require(mod.launches == n0 + 1,
-             f"{name}: launch counter moved by {mod.launches - n0}")
-    _require([x.data_ptr() for x in got[1:]] == ptrs,
+    _require(count() == n0 + 1,
+             f"{name}: launch counter moved by {count() - n0}")
+    _require([t.data_ptr() for t in got[1:]] == ptrs,
              f"{name}: state not updated in place")
     return max_error(name, got, exp, valid_len)
 
@@ -145,7 +149,10 @@ def check_autograd(name: str, mod, fn, plain, args: list, seed: int):
     diff = [a for a in ins if a is not None and a.requires_grad]
     ref_diff = [a for a in ref_ins if a is not None and a.requires_grad]
     grads = torch.autograd.grad(got, diff, g)
-    ref_grads = torch.autograd.grad(exp, ref_diff, g)
+    # an input that reaches no output gets a zero gradient (wkv6's w at
+    # L = 1), as the reference's VJP gives
+    ref_grads = torch.autograd.grad(exp, ref_diff, g, allow_unused=True,
+                                    materialize_grads=True)
     worst = 0.0
     for i, (gg, rg) in enumerate(zip(grads, ref_grads)):
         worst = max(worst, _compare(f"{name} grad {i}", gg, rg, _tol(rg)))
@@ -183,3 +190,86 @@ def make_featmap_inputs(dev, n, d, r, m, dark, seed,
              if dark else None)
     w = t(rng.standard_normal((m, r if dark else d)))
     return [x, m_mat, w, t(0.5)]
+
+
+def make_decode_step_inputs(dev, b, g, hg, m, dv, seed) -> list:
+    """[qf, kf, v, s, z, rescale] of one two-stage decode step at the
+    attention's layout: qf (B, G, Hg, m); kf (B, G, 1, m) and v (B, G,
+    1, dv) per KV group; the pool's s (B, G, Hg, m, dv) and z (B, G, Hg,
+    m); rescale (B, G, 1) in (0, 1], a stabilizer that moved. Features
+    positive like PRF features (exp(N(0, 1/4))/√m); all f32."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+    return [t(np.exp(0.5 * rng.standard_normal((b, g, hg, m))) / m ** 0.5),
+            t(np.exp(0.5 * rng.standard_normal((b, g, 1, m))) / m ** 0.5),
+            t(rng.standard_normal((b, g, 1, dv))),
+            t(rng.standard_normal((b, g, hg, m, dv))),
+            t(rng.uniform(size=(b, g, hg, m)) + 0.5),
+            t(np.exp(-rng.exponential(size=(b, g, 1))))]
+
+
+def make_carry_inputs(dev, b, g, hg, hk, l, m, dv, seed,
+                      dtype=torch.float32) -> list:
+    """[qf, kf, v, s0, z0] of one two-stage prefill chunk: qf (B, G, Hg,
+    L, m) and kf (B, G, Hk, L, m) f32, positive like PRF features; v (B,
+    G, Hk, L, dv) in ``dtype``; the carried s0 (B, G, Hg, m, dv) and z0
+    (B, G, Hg, m) f32, nonzero (a prefix of about 64 tokens)."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.tensor(np.asarray(a, np.float32), device=dev).to(dt)
+
+    def feats(shape):
+        return t(np.exp(0.5 * rng.standard_normal(shape)) / m ** 0.5)
+    return [feats((b, g, hg, l, m)), feats((b, g, hk, l, m)),
+            t(rng.standard_normal((b, g, hk, l, dv)), dtype),
+            t(8 * m ** -0.5 * rng.standard_normal((b, g, hg, m, dv))),
+            t(64 * m ** -0.5 * (rng.uniform(size=(b, g, hg, m)) + 0.5))]
+
+
+def check_carry_chained(dev, seed: int) -> float:
+    """Three uneven resumed chunks (256 + 37 + 307 tokens) through the
+    carried-scan kernel against one plain pass of the 600 tokens from the
+    same nonzero state (smollm-135m heads, 2 slots). Returns the max abs
+    error over (out, s, z)."""
+    from repro_torch.kernels import linear_attn_scan as kl
+    qf, kf, v, s0, z0 = make_carry_inputs(dev, 2, 3, 3, 1, 600, 256, 64,
+                                          seed)
+    exp = kl.linear_attention_carry_plain(qf, kf, v, s0.clone(), z0.clone(),
+                                          1e-8)
+    outs = [kl.linear_attention_prefill_chunk(
+        qf[..., lo:hi, :].contiguous(), kf[..., lo:hi, :].contiguous(),
+        v[..., lo:hi, :].contiguous(), s0, z0, eps=1e-8)[0]
+        for lo, hi in ((0, 256), (256, 293), (293, 600))]
+    torch.cuda.synchronize()
+    return max_error("carry chained", (torch.cat(outs, -2), s0, z0), exp)
+
+
+def make_wkv6_inputs(dev, n, l, dh, seed, dtype=torch.float32) -> list:
+    """[r, k, v, w, u] of one WKV-6 call: r, k, v ~ N(0, 1/√dh) and decays
+    w = sigmoid(N(2, 1)) in (0, 1), (N, L, dh) in ``dtype``; u (dh,)
+    f32."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.tensor(np.asarray(a, np.float32), device=dev).to(dt)
+    r, k, v = (t(dh ** -0.25 * rng.standard_normal((n, l, dh)), dtype)
+               for _ in range(3))
+    w = t(1 / (1 + np.exp(-(rng.standard_normal((n, l, dh)) + 2.0))), dtype)
+    return [r, k, v, w, t(0.3 * rng.standard_normal(dh))]
+
+
+def check_forward(name: str, count, fn, plain, args: list) -> float:
+    """One call of ``fn`` against ``plain`` on the same inputs, without
+    gradients: the output within tolerance and exactly one launch
+    counted by ``count()``. Returns the max abs error."""
+    with torch.no_grad():
+        n0 = count()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        _require(count() == n0 + 1,
+                 f"{name}: launch counter moved by {count() - n0}")
+        exp = plain(*args)
+    return _compare(name, got, exp, _tol(exp))

@@ -1,6 +1,6 @@
-// Device helpers shared by the fused PRF kernels (prf_fused_decode.cu,
-// prf_fused_prefill.cu): type conversion, block reductions and the raw
-// PRF logits through the precomposed projection A = (W M)^T.
+// Device helpers shared by the port's kernels (csrc/*.cu): type
+// conversion, warp and block reductions and the raw PRF logits through the
+// precomposed projection A = (W M)^T.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,6 +51,17 @@ __device__ float block_max(float v, float* scratch) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// Block-wide sum; every thread gets the result. scratch: >= 32 floats.
+__device__ float block_sum(float v, float* scratch) {
+  v = warp_sum(v);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();                     // scratch may still be read
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  v = lane < (int)(blockDim.x >> 5) ? scratch[lane] : 0.f;
+  return warp_sum(v);
 }
 
 // Raw PRF logits of the n rows of xs (n <= NMAX, row stride d, shared

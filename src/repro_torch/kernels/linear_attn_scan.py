@@ -1,23 +1,32 @@
-"""Causal linear attention from a zero state: the Hopper kernel's wrapper,
-its plain PyTorch version and its autograd Function.
+"""Causal linear attention, from a zero state (B5) or resumed from a
+carried one (B4): the Hopper kernels' wrappers and their plain PyTorch
+versions.
 
 Replaces ``repro.kernels.linear_attn_scan.linear_attention_causal_fwd``
-(a Pallas TPU kernel). The CUDA kernel is ``csrc/linear_attn_scan.cu``;
-per query row it computes
+and ``linear_attention_causal_carry_fwd`` (Pallas TPU kernels). The CUDA
+kernels are ``csrc/linear_attn_scan.cu``; per query row they compute
 
-    out_i = qf_i · Σ_{j≤i} kf_j v_jᵀ / (qf_i · Σ_{j≤i} kf_j + ε)
+    out_i = qf_i · S_i / (qf_i · z_i + ε)
+    S_i = S0 + Σ_{j≤i} kf_j v_jᵀ,   z_i = z0 + Σ_{j≤i} kf_j
 
 chunk-parallel, with kf and v read once per KV row: the Hk rows of kf and
 v serve the H query rows of qf, query head h reading KV head h·Hk/H, so a
 GQA group's heads need no broadcast copy (Hk is 1 or H).
 
-Backward: autograd of :func:`linear_attention_causal_plain`, the O(L²)
-oracle, recomputed under ``torch.enable_grad()`` — the port of
-``repro.kernels.ops._lin_attn_bwd``. The reference has no backward
-kernel, so neither has the port (ROADMAP.md Queue B, "B5 backward").
+:func:`linear_attention_causal` (B5, training) starts from S0 = 0, z0 = 0
+and is an autograd Function. Its backward is autograd of
+:func:`linear_attention_causal_plain`, the O(L²) oracle, recomputed under
+``torch.enable_grad()`` — the port of ``repro.kernels.ops._lin_attn_bwd``.
+The reference has no backward kernel, so neither has the port (ROADMAP.md
+Queue B, "B5 backward").
+
+:func:`linear_attention_prefill_chunk` (B4, the two-stage serving
+prefill) starts from the carried (S0, z0) of each query row and advances
+them in place over the chunk; it is forward-only, as the reference's.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-(or raises). ``launches`` counts kernel launches.
+(or raises). ``launches`` counts B5's kernel launches, ``carry_launches``
+B4's.
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ F32 = (torch.float32,)
 CHUNK = 256                   # keys per state chunk (kChunk in the .cu)
 MAX_ROWS = 65535              # query rows: the launch grid's y extent
 launches = 0
+carry_launches = 0
 
 
 # The plain version: the O(L²) masked oracle (port of
@@ -42,12 +52,35 @@ launches = 0
 linear_attention_causal_plain = linear_attention_causal_naive
 
 
+def linear_attention_carry_plain(qf, kf, v, s0, z0, eps: float = 1e-6):
+    """Plain PyTorch version of the carried scan: the O(L²) masked oracle
+    (port of ``repro.kernels.ref.linear_attention_carry_ref``), advancing
+    s0 and z0 in place like the kernel. Shapes as
+    :func:`linear_attention_prefill_chunk`; the Hk heads of kf and v
+    broadcast over the H heads of qf. Returns (out in v.dtype, s0, z0)."""
+    qf, kff, vf = qf.float(), kf.float(), v.float()
+    scores = torch.einsum("...qm,...km->...qk", qf, kff)
+    l = qf.shape[-2]
+    mask = torch.ones(l, l, dtype=torch.bool, device=qf.device).tril()
+    scores = torch.where(mask, scores, 0.0)
+    num = (torch.einsum("...qm,...md->...qd", qf, s0)
+           + torch.einsum("...qk,...kd->...qd", scores, vf))
+    den = torch.einsum("...qm,...m->...q", qf, z0) + scores.sum(-1)
+    s_new = s0 + torch.einsum("...lm,...ld->...md", kff, vf)
+    z_new = z0 + kff.sum(-2)
+    s0.copy_(s_new)
+    z0.copy_(z_new)
+    return (num / (den[..., None] + eps)).to(v.dtype), s0, z0
+
+
 @functools.cache
-def _c_fn():
-    fn = _build.load("linear_attn_scan").linear_attn_causal
-    fn.argtypes = [P] * 6 + [I] * 6 + [F, P]
-    fn.restype = I
-    return fn
+def _c_fns():
+    lib = _build.load("linear_attn_scan")
+    lib.linear_attn_causal.argtypes = [P] * 6 + [I] * 6 + [F, P]
+    lib.linear_attn_causal.restype = I
+    lib.linear_attn_carry.argtypes = [P] * 8 + [I] * 6 + [F, P]
+    lib.linear_attn_carry.restype = I
+    return lib.linear_attn_causal, lib.linear_attn_carry
 
 
 def _check(qf, kf, v):
@@ -75,9 +108,9 @@ def _launch(qf, kf, v, eps, n, nk, l, m, dv):
     ds = torch.empty((nk, nc1, m, dv), dtype=torch.float32, device=dev)
     dz = torch.empty((nk, nc1, m), dtype=torch.float32, device=dev)
     out = torch.empty((*qf.shape[:-1], dv), dtype=v.dtype, device=dev)
-    err = _c_fn()(ptr(qf), ptr(kf), ptr(v), ptr(ds), ptr(dz), ptr(out),
-                  n, nk, l, m, dv, int(v.dtype == torch.bfloat16), eps,
-                  stream(dev))
+    err = _c_fns()[0](ptr(qf), ptr(kf), ptr(v), ptr(ds), ptr(dz), ptr(out),
+                      n, nk, l, m, dv, int(v.dtype == torch.bfloat16), eps,
+                      stream(dev))
     check_cuda(err, "linear_attn_causal")
     launches += 1
     return out
@@ -118,3 +151,41 @@ def linear_attention_causal(qf: torch.Tensor, kf: torch.Tensor,
     or Hk = H. Every tensor must be contiguous. Returns (..., H, L, dv)
     in v.dtype; gradients come back in the shapes given."""
     return _LinAttnCausal.apply(qf, kf, v, eps)
+
+
+def linear_attention_prefill_chunk(qf: torch.Tensor, kf: torch.Tensor,
+                                   v: torch.Tensor, s0: torch.Tensor,
+                                   z0: torch.Tensor, *, eps: float = 1e-6):
+    """Advance a PRF prefix state over a prompt chunk, in place.
+
+    qf: (..., H, L, m) f32; kf: (..., Hk, L, m) f32; v: (..., Hk, L, dv)
+    f32 or bf16, Hk = 1 or H; s0: (..., H, m, dv) and z0: (..., H, m)
+    f32, the carried state of each query row, advanced in place over the
+    L tokens. Every tensor must be contiguous. The function does not
+    depend on a chunk length: the kernel's own is 256 keys, and the
+    plain version has none. Forward-only, as the reference's. Returns
+    (out (..., H, L, dv) in v.dtype, s0, z0)."""
+    n, nk, l, m, dv = _check(qf, kf, v)
+    lead_h = qf.shape[:-2]
+    dev = qf.device
+    expect("s0", s0, (*lead_h, m, dv), F32, dev)
+    expect("z0", z0, (*lead_h, m), F32, dev)
+    if dev.type == "cpu":
+        return linear_attention_carry_plain(qf, kf, v, s0, z0, eps)
+    if dev.type != "cuda":
+        raise ValueError("linear_attention_prefill_chunk runs on cuda or "
+                         f"cpu, not {dev}")
+    if n > MAX_ROWS:
+        raise ValueError("linear_attention_prefill_chunk takes at most "
+                         f"{MAX_ROWS} query rows, got {n}")
+    global carry_launches
+    nc = -(-l // CHUNK)
+    ds = torch.empty((nk, nc, m, dv), dtype=torch.float32, device=dev)
+    dz = torch.empty((nk, nc, m), dtype=torch.float32, device=dev)
+    out = torch.empty((*qf.shape[:-1], dv), dtype=v.dtype, device=dev)
+    err = _c_fns()[1](ptr(qf), ptr(kf), ptr(v), ptr(s0), ptr(z0), ptr(ds),
+                      ptr(dz), ptr(out), n, nk, l, m, dv,
+                      int(v.dtype == torch.bfloat16), eps, stream(dev))
+    check_cuda(err, "linear_attn_carry")
+    carry_launches += 1
+    return out, s0, z0

@@ -75,17 +75,20 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: fm.FeatureConfig, *,
     return _merge_heads(out, params)
 
 
-def attn_prefill(params, x, cfg, *, n_heads, n_kv, d_head, state, position,
-                 qk_norm=False, rope_theta=10000.0, use_kernel=False,
-                 valid_len=None, proj=None):
-    """Prefill one prompt chunk that resumes from ``state`` at chunk
-    start ``position`` (() int, or (B,) per-row starts). ``valid_len``
-    marks ragged rows; ``proj`` selects the fused kernel under
-    ``use_kernel``. Returns (mix (B, L, d_model), state advanced in
-    place)."""
+def attn_prefill(params, x, cfg, *, n_heads, n_kv, d_head, state=None,
+                 position=None, qk_norm=False, rope_theta=10000.0,
+                 use_kernel=False, valid_len=None, proj=None):
+    """Prefill a whole prompt (``state`` and ``position`` None: positions
+    0..L-1, a new state) or one prompt chunk that resumes from ``state``
+    at chunk start ``position`` (() int, or (B,) per-row starts).
+    ``valid_len`` marks ragged rows; ``proj`` selects the fused kernel
+    under ``use_kernel``. Returns (mix (B, L, d_model), the new state or
+    ``state`` advanced in place)."""
     l = x.shape[1]
     ar = torch.arange(l, device=x.device)
-    if position.ndim == 0:
+    if position is None:
+        positions = ar
+    elif position.ndim == 0:
         positions = position + ar
     else:                      # (B,) per-row starts -> (B, 1, 1, L)
         positions = (position[:, None] + ar[None]).reshape(-1, 1, 1, l)

@@ -9,8 +9,8 @@ layout, the recurrent and MoE blocks, the non-text modalities and remat
 are not ported yet (ROADMAP Queue A, items A4 and A12).
 
 ``prefill_chunk`` and ``decode_step`` advance ``state`` IN PLACE: the
-fused kernels write each layer's (S, z, c) where it lies in the stacked
-pool, and the plain path copies its result there.
+kernels write each layer's (S, z, c) where it lies in the stacked pool,
+and the plain path copies its result there.
 """
 from __future__ import annotations
 
@@ -254,9 +254,18 @@ def loss_fn(params, cfg: ModelConfig, batch: dict,
     return loss, {k: t.detach() for k, t in metrics.items()}
 
 
+def _serve_proj(params, cfg: ModelConfig, proj: Optional[dict],
+                fused: bool) -> Optional[dict]:
+    """The projections the fused kernels run against: ``proj``, or built
+    here when None; none at all when ``fused`` is False."""
+    if not fused:
+        return None
+    return proj if proj is not None else build_decode_proj(params, cfg)
+
+
 def prefill_chunk(params, cfg: ModelConfig, batch: dict, state: dict,
                   valid_len: Optional[torch.Tensor] = None,
-                  proj: Optional[dict] = None):
+                  proj: Optional[dict] = None, fused: bool = True):
     """Advance ``state`` in place over one prompt chunk (tokens (B, L)).
 
     ``state["pos"]`` is the chunk's start offset. ``valid_len`` ((B,)
@@ -264,13 +273,16 @@ def prefill_chunk(params, cfg: ModelConfig, batch: dict, state: dict,
     ``valid_len[b]`` tokens and the rest leave no trace; logits are
     gathered at each row's last valid position. With ``cfg.use_kernel``
     every layer runs the fused ``prf_fused_prefill`` kernel against
-    ``proj`` (built here when None). Returns (logits (B, V) f32, state).
+    ``proj`` (built here when None); ``fused=False`` drops ``proj`` and
+    runs the two stages instead, the plain feature map and the
+    ``linear_attention_prefill_chunk`` kernel (the oracle the fused
+    kernel is tested against). Returns (logits (B, V) f32, state).
     """
     if "layers" not in state:
         raise _not_ported("the unit/rem serving layout")
     x = _embed_inputs(params, cfg, batch)
     pos = state["pos"]
-    proj = proj if proj is not None else build_decode_proj(params, cfg)
+    proj = _serve_proj(params, cfg, proj, fused)
     for lp, ls, lproj in _layer_slices(params, cfg, state, proj):
         x = _apply_block(lp, x, cfg, state=ls, mode="prefill",
                          position=pos, valid_len=valid_len, proj=lproj)
@@ -283,12 +295,25 @@ def prefill_chunk(params, cfg: ModelConfig, batch: dict, state: dict,
     return _logits(params, cfg, x_last), state
 
 
+def prefill(params, cfg: ModelConfig, batch: dict, max_len: int):
+    """Whole-prompt pass: one ``prefill_chunk`` over batch["tokens"]
+    (B, L) from a fresh serve state (the one-chunk schedule). Returns
+    (logits (B, 1, V) f32, the new state)."""
+    tokens = batch["tokens"]
+    state = init_serve_state(cfg, b=tokens.shape[0], max_len=max_len,
+                             device=tokens.device)
+    logits, state = prefill_chunk(params, cfg, batch, state)
+    return logits[:, None], state
+
+
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, state: dict,
-                proj: Optional[dict] = None):
+                proj: Optional[dict] = None, fused: bool = True):
     """One serving step, advancing ``state`` in place. token: (B,) ->
     (logits (B, V) f32, state). With ``cfg.use_kernel`` every layer runs
     the fused ``prf_fused_decode`` kernel against ``proj`` (built here
-    when None)."""
+    when None); ``fused=False`` drops ``proj`` and runs the two stages
+    instead, the plain feature map and the
+    ``linear_attention_decode_step`` kernel."""
     if "layers" not in state:
         raise _not_ported("the unit/rem serving layout")
     pos = state["pos"]
@@ -296,7 +321,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, state: dict,
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     x = x.to(cfg.param_dtype)
-    proj = proj if proj is not None else build_decode_proj(params, cfg)
+    proj = _serve_proj(params, cfg, proj, fused)
     for lp, ls, lproj in _layer_slices(params, cfg, state, proj):
         x = _apply_block(lp, x, cfg, state=ls, mode="decode", position=pos,
                          proj=lproj)

@@ -81,7 +81,8 @@ def test_port_imports_neither_jax_nor_reference():
     names = {f.relative_to(ROOT).as_posix() for f in files}
     for mod in ("core/attention", "core/feature_maps",
                 "core/linear_attention", "kernels/linear_attn_scan",
-                "kernels/prf_featmap", "models/lm", "optim/adamw",
+                "kernels/prf_featmap", "kernels/prf_decode_step",
+                "kernels/wkv6_scan", "kernels/check", "models/lm", "optim/adamw",
                 "optim/schedules", "data/synthetic", "data/c4_mock",
                 "checkpoint/store", "checkpoint/msgpack_subset",
                 "launch/steps", "launch/train", "tree"):

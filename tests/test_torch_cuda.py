@@ -14,9 +14,11 @@ import torch
 
 from repro_torch.kernels import check
 from repro_torch.kernels import linear_attn_scan as kl
+from repro_torch.kernels import prf_decode_step as kds
 from repro_torch.kernels import prf_featmap as kf
 from repro_torch.kernels import prf_fused_decode as kd
 from repro_torch.kernels import prf_fused_prefill as kp
+from repro_torch.kernels import wkv6_scan as kw
 
 
 @pytest.fixture
@@ -36,8 +38,9 @@ def dev():
 ])
 def test_decode_kernel_matches_plain(dev, b, g, hg, d, m, dv, dark, stab):
     args = check.make_inputs(dev, b, g, hg, d, m, dv, None, dark, seed=b + m)
-    check.check_case("decode", kd, kd.fused_prf_decode,
-                     kd.prf_fused_decode_plain, args, stabilize=stab)
+    check.check_case("decode", lambda: kd.launches, kd.fused_prf_decode,
+                     kd.prf_fused_decode_plain, args, (5, 6, 7),
+                     stabilize=stab)
 
 
 @pytest.mark.cuda
@@ -53,8 +56,9 @@ def test_prefill_kernel_matches_plain(dev, b, g, hg, d, m, dv, l, dark,
     args = check.make_inputs(dev, b, g, hg, d, m, dv, l, dark, seed=b + l)
     vl = (None if valid_len is None
           else torch.tensor(valid_len, dtype=torch.int32, device=dev))
-    check.check_case("prefill", kp, kp.fused_prf_prefill,
-                     kp.prf_fused_prefill_plain, args, vl, stabilize=stab)
+    check.check_case("prefill", lambda: kp.launches, kp.fused_prf_prefill,
+                     kp.prf_fused_prefill_plain, args, (5, 6, 7), vl,
+                     stabilize=stab)
 
 
 @pytest.mark.cuda
@@ -104,3 +108,69 @@ def test_featmap_kernel_matches_plain(dev, n, d, r, m, dark, dtype):
                                      dtype=dtype)
     check.check_autograd("prf_featmap", kf, kf.prf_featmap,
                          kf.prf_featmap_plain, args, seed=n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,g,hg,m,dv", [
+    (8, 3, 3, 256, 64),        # smollm-135m heads, 8 slots
+    (8, 1, 8, 256, 256),       # darkformer-2b heads
+    (3, 2, 2, 32, 8),          # dv within one tile: z written in place
+])
+def test_decode_step_kernel_matches_plain(dev, b, g, hg, m, dv):
+    """B3 against its plain version, S and z advanced where they lie."""
+    args = check.make_decode_step_inputs(dev, b, g, hg, m, dv, seed=b + m)
+    check.check_case("prf_decode_step", lambda: kds.launches,
+                     kds.linear_attention_decode_step,
+                     kds.prf_decode_step_plain, args, (3, 4), eps=1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,hk,dtype", [
+    (1, 1, torch.float32), (37, 3, torch.float32), (256, 1, torch.bfloat16),
+    (300, 1, torch.float32), (512, 3, torch.bfloat16)])
+def test_carry_kernel_matches_plain(dev, l, hk, dtype):
+    """B4 against its plain version from a nonzero carried state, with kf
+    and v per KV group (Hk = 1) or per head, the state advanced in
+    place."""
+    args = check.make_carry_inputs(dev, 2, 3, 3, hk, l, 256, 64, seed=l,
+                                   dtype=dtype)
+    check.check_case("linear_attention_carry", lambda: kl.carry_launches,
+                     kl.linear_attention_prefill_chunk,
+                     kl.linear_attention_carry_plain, args, (3, 4),
+                     eps=1e-8)
+
+
+@pytest.mark.cuda
+def test_carry_kernel_chained_chunks_match_single_pass(dev):
+    """Three uneven resumed chunks through B4 against one plain pass."""
+    check.check_carry_chained(dev, seed=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,l,dh,dtype", [
+    (16, 512, 64, torch.float32), (5, 50, 64, torch.bfloat16),
+    (3, 1, 64, torch.float32), (4, 33, 16, torch.float32)])
+def test_wkv6_kernel_matches_plain(dev, n, l, dh, dtype):
+    """B7 forward and gradients against autograd of its plain version."""
+    args = check.make_wkv6_inputs(dev, n, l, dh, seed=l, dtype=dtype)
+    check.check_autograd("wkv6", kw, kw.wkv6, kw.wkv6_plain, args, seed=l)
+
+
+@pytest.mark.cuda
+def test_two_stage_decode_step_launches_b3(dev):
+    """A ``use_kernel`` decode step with ``fused=False`` on CUDA tensors
+    runs B3 once per layer and the fused kernel never."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = configs.get_config("smollm-135m", reduced=True, use_kernel=True)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    st = lm.init_serve_state(cfg, b=2, max_len=32, per_slot=True,
+                             device=dev)
+    toks = torch.tensor([[1, 2, 3], [4, 5, 6]], device=dev)
+    lm.prefill_chunk(params, cfg, {"tokens": toks}, st, fused=False)
+    n3, n1 = kds.launches, kd.launches
+    logits, _ = lm.decode_step(params, cfg, toks[:, 0], st, fused=False)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits).all())
+    assert kds.launches == n3 + cfg.n_layers
+    assert kd.launches == n1

@@ -4,8 +4,9 @@ For the reduced smollm-135m and darkformer-2b (f32), the same params
 (the reference's, brought across by ``repro_torch.bridge``) and the same
 token chunks go through ``lm.prefill_chunk`` / ``lm.decode_step`` of both
 packages, over a sequence of resumed ragged chunks and decode steps, with
-and without ``use_kernel``. Logits and every serve-state leaf agree
-within atol 1e-4 (f32 in other reduction orders across 3 layers).
+and without ``use_kernel``, and under ``use_kernel`` with ``fused=False``
+(the two-stage path). Logits and every serve-state leaf agree within
+atol 1e-4 (f32 in other reduction orders across 3 layers).
 """
 import dataclasses
 
@@ -51,6 +52,17 @@ def _assert_states_close(jstate, tstate, msg):
 @pytest.mark.parametrize("use_kernel", [False, True])
 @pytest.mark.parametrize("arch", ["smollm-135m", "darkformer-2b"])
 def test_prefill_and_decode_match_reference(arch, use_kernel):
+    _check_prefill_and_decode(arch, use_kernel, fused=True)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "darkformer-2b"])
+def test_two_stage_prefill_and_decode_match_reference(arch):
+    """``fused=False`` under ``use_kernel``: the two-stage path (plain
+    feature map, then the B4/B3 wrappers) in both packages."""
+    _check_prefill_and_decode(arch, True, fused=False)
+
+
+def _check_prefill_and_decode(arch, use_kernel, fused):
     jcfg, tcfg, jparams, tparams = _setup(arch, use_kernel)
     b = 3
     jstate = jlm.init_serve_state(jcfg, b=b, max_len=64, per_slot=True,
@@ -63,10 +75,12 @@ def test_prefill_and_decode_match_reference(arch, use_kernel):
         vl_np = None if vl is None else np.asarray(vl, np.int32)
         jlog, jstate = jlm.prefill_chunk(
             jparams, jcfg, {"tokens": jnp.asarray(toks)}, jstate,
-            valid_len=None if vl is None else jnp.asarray(vl_np))
+            valid_len=None if vl is None else jnp.asarray(vl_np),
+            fused=fused)
         tlog, tstate = tlm.prefill_chunk(
             tparams, tcfg, {"tokens": torch.tensor(toks).long()}, tstate,
-            valid_len=None if vl is None else torch.tensor(vl_np))
+            valid_len=None if vl is None else torch.tensor(vl_np),
+            fused=fused)
         np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
                                    atol=ATOL, rtol=0,
                                    err_msg=f"prefill logits, chunk {step}")
@@ -74,9 +88,10 @@ def test_prefill_and_decode_match_reference(arch, use_kernel):
     for step in range(2):
         tok = rng.integers(0, jcfg.vocab, (b,)).astype(np.int32)
         jlog, jstate = jlm.decode_step(jparams, jcfg, jnp.asarray(tok),
-                                       jstate)
+                                       jstate, fused=fused)
         tlog, tstate = tlm.decode_step(tparams, tcfg,
-                                       torch.tensor(tok).long(), tstate)
+                                       torch.tensor(tok).long(), tstate,
+                                       fused=fused)
         np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
                                    atol=ATOL, rtol=0,
                                    err_msg=f"decode logits, step {step}")
