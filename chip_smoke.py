@@ -12,14 +12,17 @@ Phases, each printed as a JSON line:
      geometries and at the main paths' shapes (the training kernels and
      wkv6 with gradients), then timed (CUDA events) at the main paths'
      shapes beside its plain version and its bound: the fused serving
-     kernels at the smollm-135m serving shape, the training kernels at
-     its training shapes, the two-stage kernels (prf_decode_step and the
-     carried scan, also chained over three uneven chunks) at the serving
-     shape, and wkv6 at the rwkv6-7b geometry;
+     kernels at the smollm-135m serving shape (prf_fused_prefill held
+     against its plain version and timed at each of the packer's four
+     grants, 8 x 32 to 1 x 256, and held at L = 300, a partial second
+     T-chunk), the training kernels at its training shapes, the
+     two-stage kernels (prf_decode_step and the carried scan, also
+     chained over three uneven chunks) at the serving shape, and wkv6 at
+     the rwkv6-7b geometry;
   3. main path: smollm-135m at full width (random weights from a seed)
      served by the port's ``ServingEngine`` through the fused kernels,
      with every kernel's launch count checked against the engine's
-     calls;
+     calls and the histogram of prf_fused_prefill's call shapes;
      3b. two-stage serving: the same traffic with the LM's serve entry
      points pinned to ``fused=False`` (B4 per prefill call, B3 per decode
      step, no fused launch); throughput, TTFT and TPOT beside phase 3's,
@@ -49,6 +52,7 @@ or any phase fails. Imports neither JAX nor the reference package.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import subprocess
@@ -216,9 +220,14 @@ def phase_kernels(torch, dev, kd, kp):
                       state, eps=1e-8)
     err["prf_fused_decode"] = max(err["prf_fused_decode"], e)
     cases.append({"case": "decode main-path bf16", "max_abs_err": e})
-    for l, vl in ((32, [32] * 8), (256, [256, 200, 17, 1, 0, 0, 0, 0])):
-        name = f"prefill main-path bf16 L={l} valid_len={vl}"
-        args = kc.make_inputs(dev, 8, 3, 3, 64, 256, 64, l, True,
+    # the packer's grants (8 x 32, 4 x 64, 2 x 128, 1 x 256), ragged rows,
+    # and L = 300: a second, partial T-chunk
+    for b, l, vl in ((8, 32, [32] * 8),
+                     (8, 256, [256, 200, 17, 1, 0, 0, 0, 0]),
+                     (4, 64, [64, 1, 0, 40]), (2, 128, [128, 1]),
+                     (1, 256, [256]), (4, 300, [300, 0, 257, 1])):
+        name = f"prefill main-path bf16 B={b} L={l} valid_len={vl}"
+        args = kc.make_inputs(dev, b, 3, 3, 64, 256, 64, l, True,
                               seed=101 + l, dtype=torch.bfloat16)
         vlt = torch.tensor(vl, dtype=torch.int32, device=dev)
         e = kc.check_case(name, lambda: kp.launches, kp.fused_prf_prefill,
@@ -233,8 +242,9 @@ def phase_kernels(torch, dev, kd, kp):
 
 def phase_timing(torch, dev, kd, kp):
     """Phase 2b: kernel and plain times at the smollm-135m serving shape
-    (8 slots; prefill 8 rows of 32 tokens, the packer's grant at 8 staged
-    admissions and chunk_tokens=256), with the bound of each."""
+    (8 slots; prefill at each of the packer's grants for chunk_tokens=256:
+    8 rows of 32 tokens, 4 x 64, 2 x 128 and 1 x 256), with the bound of
+    each."""
     from repro_torch.kernels import check as kc
 
     b, g, hg, d, m, dv = 8, 3, 3, 64, 256, 64
@@ -254,35 +264,62 @@ def phase_timing(torch, dev, kd, kp):
         "plain_ms": time_ms(torch, lambda: kd.prf_fused_decode_plain(
             *args, eps=1e-8), 50),
         "bound_ms": bms, "bound_by": by, "bytes": byts, "flops": flops}
-    l = 32
-    args = kc.make_inputs(dev, b, g, hg, d, m, dv, l, True, seed=8,
-                          dtype=torch.bfloat16)
-    q, k, v, a, mm, s, z, c = args
-    vl = torch.full((b,), l, dtype=torch.int32, device=dev)
-    n_valid = int(vl.sum())
-    byts = (nbytes(q, k, v, a, mm, vl) + 2 * nbytes(s, z, c)
-            + nbytes(v) * hg)
-    flops = (feature_flops(n_valid * g * hg, n_valid * g, d, d, m, True)
-             + n_valid * g * hg * (4 * m * dv + 4 * m))
-    bms, by = bound(byts, flops)
-    out["prf_fused_prefill"] = {
-        "shape": f"B={b} L={l} G={g} Hg={hg} d={d} m={m} dv={dv} bf16",
-        **kernel_times(torch, lambda: kp.fused_prf_prefill(
-            *args, vl, eps=1e-8), 50),
-        "plain_ms": time_ms(torch, lambda: kp.prf_fused_prefill_plain(
-            *args, vl, eps=1e-8), 20),
-        "bound_ms": bms, "bound_by": by, "bytes": byts, "flops": flops}
+    out.update(prefill_grant_timing(torch, dev, kp))
     emit({"phase": "kernel_timing", **out})
     return out
 
 
-def serve(torch, dev, cfg, params, counters):
+# the packer's grants at chunk_tokens=256 (rows x tokens; B2's calls in
+# phase 3): "prf_fused_prefill" is the 8 x 32 one
+GRANTS = ((8, 32), (4, 64), (2, 128), (1, 256))
+
+
+def prefill_grant_timing(torch, dev, kp):
+    """B2 timed (CUDA events and device time) at each of the packer's
+    grant shapes for smollm-135m (bf16 q/k/v, all rows full), beside its
+    plain version and its bound: operations of the features and of the
+    token-serial scan, bytes of the inputs, S, z and c in and out, and
+    the output. Keys: "prf_fused_prefill" for 8 x 32, then
+    "prf_fused_prefill_<B>x<L>"."""
+    from repro_torch.kernels import check as kc
+
+    g, hg, d, m, dv = 3, 3, 64, 256, 64
+    out = {}
+    for b, l in GRANTS:
+        args = kc.make_inputs(dev, b, g, hg, d, m, dv, l, True, seed=8,
+                              dtype=torch.bfloat16)
+        q, k, v, a, mm, s, z, c = args
+        vl = torch.full((b,), l, dtype=torch.int32, device=dev)
+        n_valid = int(vl.sum())
+        byts = (nbytes(q, k, v, a, mm, vl) + 2 * nbytes(s, z, c)
+                + nbytes(v) * hg)
+        flops = (feature_flops(n_valid * g * hg, n_valid * g, d, d, m, True)
+                 + n_valid * g * hg * (4 * m * dv + 4 * m))
+        bms, by = bound(byts, flops)
+        key = ("prf_fused_prefill" if (b, l) == GRANTS[0]
+               else f"prf_fused_prefill_{b}x{l}")
+        out[key] = {
+            "shape": f"B={b} L={l} G={g} Hg={hg} d={d} m={m} dv={dv} bf16",
+            **kernel_times(torch, lambda: kp.fused_prf_prefill(
+                *args, vl, eps=1e-8), 50),
+            "plain_ms": time_ms(torch, lambda: kp.prf_fused_prefill_plain(
+                *args, vl, eps=1e-8), 20),
+            "bound_ms": bms, "bound_by": by, "bytes": byts, "flops": flops}
+    return out
+
+
+def serve(torch, dev, cfg, params, counters, shapes=None):
     """The 16 requests of the serving phases (prompts of 64-512 tokens,
     32-64 new ones, 8 slots, chunk_tokens 256) through the port's
     ``ServingEngine``, after a short warm-up engine (cuBLAS, allocator,
     libraries). Every count of ``counters`` is set to 0 just before the
-    run and read just after. Returns (the phase's JSON fields, the
-    launches, each request's tokens in submission order, engine stats)."""
+    run and read just after; ``shapes``, a Counter, gets one count per
+    B2 call of the run under its "<rows>x<tokens>". Returns (the phase's
+    JSON fields, the launches, each request's tokens in submission
+    order, engine stats)."""
+    import contextlib
+    from unittest import mock
+    from repro_torch import kernels as kops
     from repro_torch.serving import ServingEngine, synthetic_requests
 
     def engine():
@@ -301,12 +338,21 @@ def serve(torch, dev, cfg, params, counters):
     for r in reqs:
         eng.submit(r)
     torch.cuda.synchronize()
+    record = contextlib.nullcontext()
+    if shapes is not None:
+        fused_prefill = kops.fused_prf_prefill
+
+        def counted(q, *args, **kw):
+            shapes[f"{q.shape[0]}x{q.shape[3]}"] += 1
+            return fused_prefill(q, *args, **kw)
+        record = mock.patch.object(kops, "fused_prf_prefill", counted)
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
-    t0 = time.perf_counter()
-    results = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with record:
+        t0 = time.perf_counter()
+        results = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
     st = eng.stats
     by_uid = {r.uid: r for r in results}
@@ -346,12 +392,15 @@ def phase_main_path(torch, dev, counters):
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=0, device=dev)
     init_s = time.perf_counter() - t0
-    fields, launches, streams, st = serve(torch, dev, cfg, params, counters)
+    shapes = collections.Counter()
+    fields, launches, streams, st = serve(torch, dev, cfg, params, counters,
+                                          shapes)
     emit({"phase": "main_path", **fields, "param_init_s": init_s,
           "launches_per_prefill_call":
               launches["prf_fused_prefill"] / st["prefill_calls"],
           "launches_per_decode_step":
-              launches["prf_fused_decode"] / st["decode_steps"]})
+              launches["prf_fused_decode"] / st["decode_steps"],
+          "prefill_call_shapes": dict(sorted(shapes.items()))})
     if st["prefill_path"] != "fused_kernel" or \
             st["decode_path"] != "fused_kernel":
         fail(f"main path ran {st['prefill_path']}/{st['decode_path']}")
@@ -361,6 +410,9 @@ def phase_main_path(torch, dev, counters):
     if launches != want:
         fail(f"main path: launches {launches}, expected {want} (prefill "
              f"calls and decode steps x {cfg.n_layers} layers)")
+    if sum(shapes.values()) != want["prf_fused_prefill"]:
+        fail(f"main path: B2 call shapes {dict(shapes)} do not add up to "
+             f"its {want['prf_fused_prefill']} launches")
     return cfg, params, launches, streams, fields
 
 

@@ -66,7 +66,9 @@ __device__ float block_sum(float v, float* scratch) {
 
 // Raw PRF logits of the n rows of xs (n <= NMAX, row stride d, shared
 // memory): raw[t*m + i] = sum_e xs[t][e] a[e][i] - ||M xs[t]||^2 / 2,
-// with ||xs[t]||^2 / 2 when mm is null (isotropic kinds).
+// with ||xs[t]||^2 / 2 when mm is null (isotropic kinds). Used by
+// prf_fused_decode.cu alone: the prefill kernel computes its logits as
+// register tiles of its own.
 // a: (d, m) and mm: (r, d) of this KV group, f32 in device memory.
 // xt: n*r floats and nrm: n floats of shared scratch. Ends synchronised.
 template <int NMAX>

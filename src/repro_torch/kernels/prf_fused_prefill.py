@@ -20,7 +20,10 @@ oracle (port of ``repro.kernels.ref.prf_fused_prefill_ref``) T tokens
 at a time, as the kernel does.
 
 A CPU tensor runs :func:`prf_fused_prefill_plain`; a CUDA tensor
-launches the kernel (or raises). ``launches`` counts kernel launches.
+launches the kernel (or raises): per T-chunk three launches (logits,
+outputs, state), four with a prefix launch when the T-chunk holds more
+than 64 tokens; the C entry point checks for an error after each.
+``launches`` counts the wrapper's calls that launched them.
 """
 from __future__ import annotations
 
@@ -35,8 +38,8 @@ from repro_torch.kernels._launch import (F, I, INPUT_DTYPES, P, check_cuda,
                                          expect, ptr, stream)
 
 F32 = (torch.float32,)
-TILE_COLS = 64                       # output columns per CUDA block
 FEATURE_COUNTS = (16, 32, 64, 128, 256)   # m the kernel is built for
+PREFIX_STEP = 64                     # tokens a prefix step (kSub in the .cu)
 NEG = torch.finfo(torch.float32).min
 launches = 0
 
@@ -103,7 +106,7 @@ def prf_fused_prefill_plain(q, k, v, a, m_mat, s, z, c, valid_len=None, *,
 @functools.cache
 def _c_fn():
     fn = _build.load("prf_fused_prefill").prf_fused_prefill
-    fn.argtypes = [P] * 12 + [I] * 11 + [F, F, P]
+    fn.argtypes = [P] * 11 + [I] * 11 + [F, F, P]
     fn.restype = I
     return fn
 
@@ -121,8 +124,10 @@ def fused_prf_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m) f32 precomposed (W M)^T; m_mat: (G, r, d) f32 or None; s: (B, G,
     Hg, m, dv), z: (B, G, Hg, m), c: (B, G), all f32 and updated in
     place; valid_len: (B,) int32 or None (all rows full). Every tensor
-    must be contiguous. Returns (out (B, G, Hg, L, dv) in v.dtype, s, z,
-    c).
+    must be contiguous. The kernel also takes a, v, s and z on 16-byte
+    boundaries, a row of v in whole 16-byte pieces (dv a multiple of 8
+    in bf16, of 4 in f32) and r <= 256. Returns (out (B, G, Hg, L, dv) in
+    v.dtype, s, z, c).
     """
     b, g, hg, l, d = q.shape
     m = a.shape[-1]
@@ -152,15 +157,28 @@ def fused_prf_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if m not in FEATURE_COUNTS:
         raise ValueError(f"prf_fused_prefill is built for m in "
                          f"{FEATURE_COUNTS}, got m={m}")
+    if dv * v.element_size() % 16 or (m_mat is not None and r > 256):
+        raise ValueError(f"prf_fused_prefill takes rows of v in 16-byte "
+                         f"pieces and r <= 256, got dv={dv} of {v.dtype}, "
+                         f"r={r}")
+    for name, t in (("a", a), ("v", v), ("s", s), ("z", z)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the "
+                             "kernel copies it in 16-byte pieces)")
     global launches
     out = torch.empty((b, g, hg, l, dv), dtype=v.dtype, device=dev)
-    c_old = torch.empty_like(c)
-    # blocks of one head split dv into tiles; all of them read z, so
-    # they read a snapshot when there is more than one tile
-    z_old = z if dv <= TILE_COLS else torch.empty_like(z)
+    # reused by every T-chunk of the call: the raw q and k logits (B, G,
+    # Hg + 1, T, m); kf^T v and sum kf of the prefix steps (64 tokens a
+    # step) but the last; the running-max slots (B, G, Hg + 1); c' and
+    # rho per (b, g)
+    t = min(chunk, l)
+    steps = -(-t // PREFIX_STEP) - 1
+    scratch = torch.empty(
+        b * g * ((hg + 1) * t * m + steps * m * (dv + 1) + hg + 3),
+        dtype=torch.float32, device=dev)
     err = _c_fn()(ptr(q), ptr(k), ptr(v), ptr(a), ptr(m_mat),
-                  ptr(valid_len), ptr(s), ptr(z), ptr(c), ptr(z_old),
-                  ptr(c_old), ptr(out), b, g, hg, l, d, r, m, dv, chunk,
+                  ptr(valid_len), ptr(s), ptr(z), ptr(c), ptr(scratch),
+                  ptr(out), b, g, hg, l, d, r, m, dv, chunk,
                   int(q.dtype == torch.bfloat16), int(stabilize),
                   eps, inv_sqrt(m), stream(dev))
     check_cuda(err, "prf_fused_prefill")

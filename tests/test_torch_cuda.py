@@ -44,21 +44,27 @@ def test_decode_kernel_matches_plain(dev, b, g, hg, d, m, dv, dark, stab):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,g,hg,d,m,dv,l,dark,stab,valid_len", [
+@pytest.mark.parametrize("b,g,hg,d,m,dv,l,dark,stab,valid_len,chunk", [
     (8, 3, 3, 64, 256, 64, 512, True, True,
-     (512, 0, 300, 257, 256, 1, 511, 100)),
-    (8, 3, 3, 64, 256, 64, 32, False, False, None),
-    (4, 1, 8, 256, 256, 256, 300, True, True, (300, 0, 299, 17)),
-    (3, 2, 2, 16, 32, 16, 20, True, False, (20, 5, 0)),
+     (512, 0, 300, 257, 256, 1, 511, 100), 256),
+    (8, 3, 3, 64, 256, 64, 32, False, False, None, 256),
+    (4, 1, 8, 256, 256, 256, 300, True, True, (300, 0, 299, 17), 256),
+    (3, 2, 2, 16, 32, 16, 20, True, False, (20, 5, 0), 256),
+    # the other feature counts the kernel is built for
+    (2, 1, 2, 32, 16, 32, 70, True, True, (70, 33), 256),
+    (2, 2, 1, 64, 64, 64, 100, False, True, None, 256),
+    (1, 1, 4, 128, 128, 128, 257, True, False, (257,), 256),
+    # T-chunks of 100 tokens: two prefix steps, the second partial
+    (2, 3, 3, 64, 256, 64, 250, True, True, (250, 130), 100),
 ])
 def test_prefill_kernel_matches_plain(dev, b, g, hg, d, m, dv, l, dark,
-                                      stab, valid_len):
+                                      stab, valid_len, chunk):
     args = check.make_inputs(dev, b, g, hg, d, m, dv, l, dark, seed=b + l)
     vl = (None if valid_len is None
           else torch.tensor(valid_len, dtype=torch.int32, device=dev))
     check.check_case("prefill", lambda: kp.launches, kp.fused_prf_prefill,
                      kp.prf_fused_prefill_plain, args, (5, 6, 7), vl,
-                     stabilize=stab)
+                     stabilize=stab, chunk=chunk)
 
 
 @pytest.mark.cuda
@@ -73,6 +79,58 @@ def test_bf16_inputs_match_plain(dev):
     assert got[0].dtype == torch.bfloat16
     # bf16 outputs within check.BF16_OUT_TOL, the state within F32_TOL
     check.max_error("prefill bf16", got, exp, vl)
+
+
+# the serving packer's grants for smollm-135m at chunk_tokens=256 (rows x
+# tokens), ragged; and L = 300, whose second T-chunk is partial
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,valid_len", [
+    (4, 64, (64, 1, 0, 40)),
+    (2, 128, (128, 1)),
+    (2, 128, (0, 77)),
+    (1, 256, (256,)),
+    (1, 256, (1,)),
+    (1, 256, (0,)),
+    (4, 300, (300, 0, 257, 1)),
+])
+def test_prefill_kernel_at_grant_shapes(dev, b, l, valid_len):
+    """B2 at the main path's shapes and input type (bf16 q/k/v, f32
+    state) against its plain version; rows with valid_len 0 keep their
+    state bitwise."""
+    args = check.make_inputs(dev, b, 3, 3, 64, 256, 64, l, True, seed=b + l,
+                             dtype=torch.bfloat16)
+    before = check.clone(args[5:])
+    vl = torch.tensor(valid_len, dtype=torch.int32, device=dev)
+    check.check_case("prefill grant", lambda: kp.launches,
+                     kp.fused_prf_prefill, kp.prf_fused_prefill_plain, args,
+                     (5, 6, 7), vl, eps=1e-8)
+    for row, n in enumerate(valid_len):
+        if n == 0:
+            for got, old in zip(args[5:], before):
+                assert torch.equal(got[row], old[row])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l", [(8, 32), (4, 64), (2, 128), (1, 256)])
+def test_prefill_kernel_updates_in_place_without_pool_copies(dev, b, l):
+    """s, z and c stay where they lie, and the call allocates less than the
+    S of the engine's 8-slot pool (smollm-135m, 4.7 MB): the output and
+    the chunk-sized scratch of raw logits, no snapshot of the state."""
+    args = check.make_inputs(dev, b, 3, 3, 64, 256, 64, l, True, seed=l,
+                             dtype=torch.bfloat16)
+    s, z, c = args[5:]
+    ptrs = [t.data_ptr() for t in (s, z, c)]
+    pool_s_bytes = 8 * 3 * 3 * 256 * 64 * 4
+    vl = torch.full((b,), l, dtype=torch.int32, device=dev)
+    kp.fused_prf_prefill(*args, vl, eps=1e-8)    # built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    got = kp.fused_prf_prefill(*args, vl, eps=1e-8)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(dev) - base
+    assert [t.data_ptr() for t in got[1:]] == ptrs
+    assert extra < pool_s_bytes, (extra, pool_s_bytes)
 
 
 @pytest.mark.cuda
