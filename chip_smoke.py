@@ -10,12 +10,15 @@ Phases, each printed as a JSON line:
   2. kernels vs plain: each CUDA kernel held against its plain PyTorch
      version on the card, at the smollm-135m and darkformer-2b head
      geometries and at the main paths' shapes (the training kernels and
-     wkv6 with gradients), then timed (CUDA events) at the main paths'
-     shapes beside its plain version and its bound: the fused serving
-     kernels at the smollm-135m serving shape (prf_fused_prefill held
-     against its plain version and timed at each of the packer's four
-     grants, 8 x 32 to 1 x 256, and held at L = 300, a partial second
-     T-chunk), the training kernels at its training shapes, the
+     wkv6 with gradients), then timed (CUDA events, and device time
+     from the profiler) at the main paths' shapes beside its plain
+     version and its bound: the fused serving kernels at the smollm-135m
+     serving shape (prf_fused_decode also at 1, 2 and 5 active slots,
+     and timed at 8 slots with the L2 cold, over 30 pools as a decode
+     step meets them, and warm; prf_fused_prefill held against its plain
+     version and timed at each of the packer's four grants, 8 x 32 to
+     1 x 256, and held at L = 300, a partial second T-chunk), the
+     training kernels at its training shapes, the
      two-stage kernels (prf_decode_step and the carried scan, also
      chained over three uneven chunks) at the serving shape, and wkv6 at
      the rwkv6-7b geometry;
@@ -46,7 +49,8 @@ Phases, each printed as a JSON line:
      path), same params and batch; a planted fault (each layer's kernel
      call fed the next layer's key features) must fail the same check.
 Then the kernels line (all seven kernels: launches on their path, max
-error, time, plain time, bound) and, last, the ``{"ok": true, ...}``
+error, time and device time, prf_fused_decode's cold, plain time,
+bound) and, last, the ``{"ok": true, ...}``
 line. Exits non-zero, without that line, when there is no CUDA device
 or any phase fails. Imports neither JAX nor the reference package.
 """
@@ -54,7 +58,9 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -132,6 +138,26 @@ def kernel_times(torch, fn, iters):
     return {"ms": ms, "device_ms": busy / 1e3 / iters if end else None}
 
 
+def device_ms_by_kernel(torch, fn, iters):
+    """Device ms per call of each kernel (and copy or memset) that ``fn``
+    launches: the profiler's device intervals of ``iters`` calls, after
+    one unprofiled call, summed by the kernel's unqualified name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ms = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.split("(")[0].split("<")[0].split("::")[-1]
+            ms[name] += (e.time_range.end - e.time_range.start) / 1e3
+    return {n: t / iters for n, t in sorted(ms.items())}
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -187,10 +213,13 @@ def phase_kernels(torch, dev, kd, kp):
             "darkformer-2b": (4, 1, 8, 256, 256, 256)}
     cases = []
     for gname, (b, g, hg, d, m, dv) in geos.items():
-        for dark, stab in ((True, True), (True, False), (False, True)):
-            name = f"decode {gname} dark={dark} stabilize={stab} f32"
+        for (dark, stab), dt in itertools.product(
+                ((True, True), (True, False), (False, True)),
+                (torch.float32, torch.bfloat16)):
+            name = (f"decode {gname} dark={dark} stabilize={stab} "
+                    f"{str(dt).split('.')[-1]}")
             args = kc.make_inputs(dev, b, g, hg, d, m, dv, None, dark,
-                                  seed=len(cases))
+                                  seed=len(cases), dtype=dt)
             e = kc.check_case(name, lambda: kd.launches,
                               kd.fused_prf_decode, kd.prf_fused_decode_plain,
                               args, state, stabilize=stab)
@@ -212,14 +241,16 @@ def phase_kernels(torch, dev, kd, kp):
                               stabilize=stab)
             err["prf_fused_prefill"] = max(err["prf_fused_prefill"], e)
             cases.append({"case": name, "max_abs_err": e})
-    # the main path's shapes and input type: smollm-135m, 8 slots, bf16
-    args = kc.make_inputs(dev, 8, 3, 3, 64, 256, 64, None, True, seed=100,
-                          dtype=torch.bfloat16)
-    e = kc.check_case("decode main-path bf16", lambda: kd.launches,
-                      kd.fused_prf_decode, kd.prf_fused_decode_plain, args,
-                      state, eps=1e-8)
-    err["prf_fused_decode"] = max(err["prf_fused_decode"], e)
-    cases.append({"case": "decode main-path bf16", "max_abs_err": e})
+    # the main path's shapes and input type: smollm-135m, bf16, at 8 slots
+    # and at the active-slot counts the engine decodes when slots are idle
+    for b in (8, 1, 2, 5):
+        name = f"decode main-path bf16 B={b}"
+        args = kc.make_inputs(dev, b, 3, 3, 64, 256, 64, None, True,
+                              seed=100 + b, dtype=torch.bfloat16)
+        e = kc.check_case(name, lambda: kd.launches, kd.fused_prf_decode,
+                          kd.prf_fused_decode_plain, args, state, eps=1e-8)
+        err["prf_fused_decode"] = max(err["prf_fused_decode"], e)
+        cases.append({"case": name, "max_abs_err": e})
     # the packer's grants (8 x 32, 4 x 64, 2 x 128, 1 x 256), ragged rows,
     # and L = 300: a second, partial T-chunk
     for b, l, vl in ((8, 32, [32] * 8),
@@ -242,31 +273,64 @@ def phase_kernels(torch, dev, kd, kp):
 
 def phase_timing(torch, dev, kd, kp):
     """Phase 2b: kernel and plain times at the smollm-135m serving shape
-    (8 slots; prefill at each of the packer's grants for chunk_tokens=256:
-    8 rows of 32 tokens, 4 x 64, 2 x 128 and 1 x 256), with the bound of
-    each."""
+    (B1 at 8 slots, cold and warm L2: :func:`decode_row_timing`; B2 at
+    each of the packer's grants for chunk_tokens=256: 8 rows of 32
+    tokens, 4 x 64, 2 x 128 and 1 x 256), with the bound of each."""
+    out = {"prf_fused_decode": decode_row_timing(torch, dev, kd, 8)}
+    out.update(prefill_grant_timing(torch, dev, kp))
+    emit({"phase": "kernel_timing", **out})
+    return out
+
+
+# S that B1's cold timing rotates over at least: twice the H100's 50 MB L2
+COLD_S_BYTES = 100e6
+DECODE_POOLS = 30               # smollm-135m's layers: a decode step's pools
+
+
+def decode_pools(torch, dev, b):
+    """Independent copies of one B1 call's inputs at ``b`` active slots of
+    smollm-135m (bf16 q/k/v, f32 state): 30, one for each of a decode
+    step's layers, or as many as hold COLD_S_BYTES of S."""
     from repro_torch.kernels import check as kc
 
-    b, g, hg, d, m, dv = 8, 3, 3, 64, 256, 64
-    out = {}
-    args = kc.make_inputs(dev, b, g, hg, d, m, dv, None, True, seed=7,
+    args = kc.make_inputs(dev, b, 3, 3, 64, 256, 64, None, True, seed=7,
                           dtype=torch.bfloat16)
+    n = max(DECODE_POOLS, math.ceil(COLD_S_BYTES / nbytes(args[5])))
+    return [args] + [kc.clone(args) for _ in range(n - 1)]
+
+
+def decode_row_timing(torch, dev, kd, b):
+    """B1 timed at ``b`` active slots of smollm-135m (bf16 q/k/v, f32
+    state) beside its plain version (warm) and its bound: bytes of the
+    inputs, S, z and c in and out, and the output; operations of the
+    features and the state update. ``ms``/``device_ms`` (CUDA events;
+    the profiler's device time) are taken cold: one call per pool in
+    turn over independent copies of the inputs, 30 as a decode step's
+    30 layers, or as many as hold 100 MB of S, so each call finds its S
+    in device memory, as a step over 30 layers' 8-slot pools (141 MB)
+    does. ``ms_warm``/``device_ms_warm`` call one pool 200 times; its S
+    stays in the 50 MB L2."""
+    g, hg, d, m, dv = 3, 3, 64, 256, 64
+    pools = decode_pools(torch, dev, b)
+    args = pools[0]
     q, k, v, a, mm, s, z, c = args
+    turn = itertools.cycle(pools)
     byts = nbytes(q, k, v, a, mm) + 2 * nbytes(s, z, c) + \
         b * g * hg * dv * 4
     flops = (feature_flops(b * g * hg, b * g, d, d, m, True)
              + b * g * hg * (4 * m * dv + 4 * m))
     bms, by = bound(byts, flops)
-    out["prf_fused_decode"] = {
+    cold = kernel_times(
+        torch, lambda: kd.fused_prf_decode(*next(turn), eps=1e-8), 200)
+    warm = kernel_times(torch, lambda: kd.fused_prf_decode(*args, eps=1e-8),
+                        200)
+    return {
         "shape": f"B={b} G={g} Hg={hg} d={d} m={m} dv={dv} bf16",
-        **kernel_times(torch, lambda: kd.fused_prf_decode(*args, eps=1e-8),
-                       200),
+        **cold, "ms_warm": warm["ms"], "device_ms_warm": warm["device_ms"],
+        "cold_pools": len(pools),
         "plain_ms": time_ms(torch, lambda: kd.prf_fused_decode_plain(
             *args, eps=1e-8), 50),
         "bound_ms": bms, "bound_by": by, "bytes": byts, "flops": flops}
-    out.update(prefill_grant_timing(torch, dev, kp))
-    emit({"phase": "kernel_timing", **out})
-    return out
 
 
 # the packer's grants at chunk_tokens=256 (rows x tokens; B2's calls in
@@ -1063,6 +1127,7 @@ def main() -> int:
          "source": f"src/repro_torch/kernels/csrc/{src}.cu",
          "replaces": replaces, "launches": launches[n],
          "max_abs_err": errs[n], "ms": timing[n]["ms"],
+         "device_ms": timing[n]["device_ms"],
          "plain_ms": timing[n]["plain_ms"],
          "bound_ms": timing[n]["bound_ms"],
          "bound_by": timing[n]["bound_by"], "library_ms": None}

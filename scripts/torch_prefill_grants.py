@@ -17,7 +17,6 @@ timed on one card, in turns. Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
-import collections
 import json
 import subprocess
 import sys
@@ -65,10 +64,7 @@ def main() -> int:
 
 def by_kernel(torch, dev, kp, iters=20):
     """Device ms per call of each kernel (and memset) that one B2 call
-    launches, at each grant: the profiler's device intervals summed by
-    the kernel's unqualified name over ``iters`` calls."""
-    from torch.profiler import ProfilerActivity, profile
-
+    launches, at each grant (``chip_smoke.device_ms_by_kernel``)."""
     import chip_smoke
     from repro_torch.kernels import check as kc
 
@@ -77,18 +73,8 @@ def by_kernel(torch, dev, kp, iters=20):
         args = kc.make_inputs(dev, b, 3, 3, 64, 256, 64, l, True, seed=8,
                               dtype=torch.bfloat16)
         vl = torch.full((b,), l, dtype=torch.int32, device=dev)
-        kp.fused_prf_prefill(*args, vl, eps=1e-8)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                kp.fused_prf_prefill(*args, vl, eps=1e-8)
-            torch.cuda.synchronize()
-        ms = collections.defaultdict(float)
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                name = e.name.split("(")[0].split("<")[0].split("::")[-1]
-                ms[name] += (e.time_range.end - e.time_range.start) / 1e3
-        out[f"{b}x{l}"] = {n: t / iters for n, t in sorted(ms.items())}
+        out[f"{b}x{l}"] = chip_smoke.device_ms_by_kernel(
+            torch, lambda: kp.fused_prf_prefill(*args, vl, eps=1e-8), iters)
     return out
 
 

@@ -7,6 +7,7 @@ from typing import Optional
 import torch
 
 INPUT_DTYPES = (torch.float32, torch.bfloat16)
+FEATURE_COUNTS = (16, 32, 64, 128, 256)   # m the fused kernels are built for
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
@@ -43,3 +44,13 @@ def check_cuda(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch "
                            f"({torch.cuda.get_device_name()})")
+
+
+def expect_aligned(kernel: str, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (``kernel``
+    copies it in 16-byte pieces)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must start on a 16-byte "
+                             "boundary (the kernel copies it in 16-byte "
+                             "pieces)")

@@ -1,6 +1,6 @@
 // Device helpers shared by the port's kernels (csrc/*.cu): type
-// conversion, warp and block reductions and the raw PRF logits through the
-// precomposed projection A = (W M)^T.
+// conversion, warp and block reductions, cp.async staging, 16-byte loads
+// and programmatic dependent launch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -9,8 +9,6 @@
 namespace prf {
 
 constexpr int kThreads = 256;                  // threads per block
-constexpr int kRowGroups = 4;                  // threads sharing a column
-constexpr int kTileCols = kThreads / kRowGroups;   // dv columns per block
 constexpr float kNeg = -3.402823466e+38f;      // finfo(float32).min
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -32,24 +30,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Sum over the kRowGroups neighbouring lanes that share one output column.
+// Sum over the four neighbouring lanes that share one output column.
 __device__ __forceinline__ float group_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   v += __shfl_xor_sync(0xffffffffu, v, 2);
-  return v;
-}
-
-// Block-wide max; every thread gets the result. scratch: >= 32 floats.
-__device__ float block_max(float v, float* scratch) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();                     // scratch may still be read
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  v = lane < (int)(blockDim.x >> 5) ? scratch[lane] : kNeg;
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -64,57 +48,61 @@ __device__ float block_sum(float v, float* scratch) {
   return warp_sum(v);
 }
 
-// Raw PRF logits of the n rows of xs (n <= NMAX, row stride d, shared
-// memory): raw[t*m + i] = sum_e xs[t][e] a[e][i] - ||M xs[t]||^2 / 2,
-// with ||xs[t]||^2 / 2 when mm is null (isotropic kinds). Used by
-// prf_fused_decode.cu alone: the prefill kernel computes its logits as
-// register tiles of its own.
-// a: (d, m) and mm: (r, d) of this KV group, f32 in device memory.
-// xt: n*r floats and nrm: n floats of shared scratch. Ends synchronised.
-template <int NMAX>
-__device__ void featurize(const float* xs, int n, const float* __restrict__ a,
-                          const float* __restrict__ mm, int d, int r, int m,
-                          float* xt, float* nrm, float* raw) {
-  const int tid = threadIdx.x;
-  if (mm != nullptr) {
-    for (int idx = tid; idx < n * r; idx += blockDim.x) {
-      const int t = idx / r, rr = idx - t * r;
-      const float* mrow = mm + (size_t)rr * d;
-      const float* x = xs + t * d;
-      float acc = 0.f;
-      for (int e = 0; e < d; ++e) acc += mrow[e] * x[e];
-      xt[idx] = acc;
-    }
-    __syncthreads();
-  }
-  const float* src = mm != nullptr ? xt : xs;
-  const int w = mm != nullptr ? r : d;
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int t = warp; t < n; t += blockDim.x >> 5) {
-    float acc = 0.f;
-    for (int e = lane; e < w; e += 32) {
-      const float u = src[t * w + e];
-      acc += u * u;
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) nrm[t] = 0.5f * acc;
-  }
-  __syncthreads();
-  for (int i = tid; i < m; i += blockDim.x) {
-    float acc[NMAX];
-#pragma unroll
-    for (int t = 0; t < NMAX; ++t) acc[t] = 0.f;
-    for (int e = 0; e < d; ++e) {
-      const float av = a[(size_t)e * m + i];
-#pragma unroll
-      for (int t = 0; t < NMAX; ++t)
-        if (t < n) acc[t] += xs[t * d + e] * av;
-    }
-#pragma unroll
-    for (int t = 0; t < NMAX; ++t)
-      if (t < n) raw[t * m + i] = acc[t] - nrm[t];
-  }
-  __syncthreads();
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Programmatic dependent launch: a kernel launched by launch_after() may
+// start while the kernel before it in the stream finishes; it waits here,
+// before its first read of device memory, until that kernel has finished
+// and its writes are visible (a no-op for a plain launch). A kernel lets
+// its dependent start launching once every block has passed
+// grid_dependents_launch().
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void grid_dependents_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Launch `kern` on `st` so that it may start while the kernel before it
+// finishes (it waits in grid_dependency_wait()).
+template <typename... Params, typename... Args>
+int launch_after(void (*kern)(Params...), dim3 grid, int threads,
+                 size_t smem, cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, args...);
 }
 
 }  // namespace prf

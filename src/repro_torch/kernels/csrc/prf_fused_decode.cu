@@ -10,137 +10,430 @@
 //
 // What bounds it on the H100: the bytes of the state. Each call reads and
 //   writes S (B*G*Hg*m*dv f32) and z (B*G*Hg*m f32) once: for smollm-135m
-//   at 8 slots (G=3, Hg=3, m=256, dv=64) that is 2 * 4.72 MB = 9.4 MB,
-//   2.8 us at 3.35 TB/s, against 0.009 GFLOP of arithmetic (features and
-//   state update), 0.13 us at the 67 TFLOP/s of f32.
+//   at 8 slots (G=3, Hg=3, m=256, dv=64) that is 2 * 4.8 MB, 9.9 MB with
+//   the inputs, 2.9 us at 3.35 TB/s, against 0.009 GFLOP of arithmetic
+//   (features and state update), 0.13 us at the 67 TFLOP/s of f32. On the
+//   main path each layer's S is cold: the 30 layers' pools (141 MB at 8
+//   slots) pass through the 50 MB L2 every step.
 //
-// Design: one block per (b, g, h, 64-column tile of dv). The block
-//   computes both feature vectors (m floats each) into shared memory, then
-//   streams its m x 64 slice of S exactly once: each element is read,
-//   rescaled, updated and written back while its contribution to the
-//   readout is summed, so S makes one round trip through device memory.
-//   Four threads share a column (neighbouring lanes) and reduce by
-//   shuffles. c is shared by the Hg heads of a group and z by the tiles of
-//   a head, so blocks read c (and, with several tiles, z) from snapshots
-//   copied here before the launch; (h = 0, tile 0) writes c, tile 0 writes z.
+// Design: two launches in stream order, no snapshot of the state.
+//   1. features: a cluster of 4 blocks per (b, g), each over a quarter of
+//      the m columns of A and a quarter of the rows of M, so no SM pulls
+//      more than a quarter of the group's A (64 KB at smollm-135m) and the
+//      k features are computed once per KV group, not once per head. A
+//      block stages its columns of A and z and its rows of M in shared
+//      memory by 16-byte cp.async, with the group's Hg q rows and its k
+//      row; it sums x A (a thread a column and a share of d) and |M x|^2
+//      (a warp a row of M), and the four blocks combine the rows' maxima
+//      and norms through distributed shared memory. The cluster then owns
+//      z and c: each block writes z' = rho z + kf for its columns of the
+//      Hg heads in place, rank 0 writes c', being their only readers, and
+//      leaves qf, kf and rho in a per-call scratch of B G ((Hg + 1) m + 1)
+//      floats (0.1 MB at 8 slots). Its first act lets launch 2 start.
+//   2. stream: one block per (b, g, h, 16 columns of dv): 288 blocks at 8
+//      slots, several per SM. A thread holds 4 rows x 4 columns of S. The
+//      block issues its S tile's 16-byte loads (and v) before it waits
+//      for launch 1 (programmatic dependent launch), so the S stream
+//      overlaps the features; then it reads the scratch and z' and writes
+//      S' = rho S + kf v^T over the loaded tile, once, and sums num =
+//      qf.S' per column and den = qf.z' by shuffles and over its 8 warps
+//      in shared memory: out = num / (den + eps). Each block holds all m
+//      rows of its columns, so no sum crosses blocks.
+//   The host sets the shared-memory limit once per kernel and process.
+#include <cooperative_groups.h>
+
 #include "prf_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace prf {
+namespace decode {
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) prf_fused_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ a, const float* __restrict__ mm, float* s,
-    float* z, const float* z_old, float* c, const float* c_old,
-    float* __restrict__ out, int G, int Hg, int d, int r, int m, int dv,
-    int stabilize, float eps, float inv_sqrt_m) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x;
-  const int tile = blockIdx.x, h = blockIdx.y, bg = blockIdx.z;
-  const int g = bg % G;
-  const size_t head = (size_t)bg * Hg + h;        // flat (b, g, h)
-  float* xs = smem;                              // (2, d): q row, k row
-  float* xt = xs + 2 * d;                        // (2, r)
-  float* nrm = xt + 2 * r;                       // (2) padded to 32
-  float* feat = nrm + 32;                        // (2, m): qf, kf
-  float* scratch = feat + 2 * m;                 // (32)
+constexpr int kCluster = 4;    // features blocks per (b, g): a cluster
+constexpr int kRowTile = 4;    // rows summed at once (independent chains)
+constexpr int kWarps = kThreads / 32;
+constexpr int kFeatThreads = 256;  // a features block
+constexpr int kFeatWarps = kFeatThreads / 32;
+constexpr int kCols = 16;      // dv columns per stream block
+constexpr int kMaxSmem = 232448;   // a block's shared memory on Hopper
 
-  for (int e = tid; e < d; e += blockDim.x) {
-    xs[e] = to_f(q[head * d + e]);
-    xs[d + e] = to_f(k[(size_t)bg * d + e]);
+// Thread block cluster barrier halves: arrive releases this thread's
+// writes (shared memory included) to the cluster, wait acquires the
+// others'. Between them a block may work; it must not exit while another
+// block may still read its shared memory.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Launch 1: features of one (b, g) by a cluster of kCluster blocks, each
+// over M / kCluster columns of m and a share of the rows of M; z and c
+// advanced in place.
+template <typename T, int M>
+__global__ void __cluster_dims__(kCluster, 1, 1)
+    __launch_bounds__(kFeatThreads) features_kernel(
+        const T* __restrict__ q, const T* __restrict__ k,
+        const float* __restrict__ a, const float* __restrict__ mm,
+        float* __restrict__ z, float* __restrict__ c,
+        float* __restrict__ feat, float* __restrict__ rho_out, int G,
+        int Hg, int d, int r, int stabilize, float inv_sqrt_m) {
+  constexpr int MC = M / kCluster;         // columns of m a block
+  constexpr int EG = kFeatThreads / MC;    // shares of d a column's sum
+  extern __shared__ __align__(16) float smem[];
+  grid_dependents_launch();          // launch 2 reads S and v until it waits
+  const int n = Hg + 1;                             // q rows, then the k row
+  const int dp = (d + 3) / 4 * 4;                   // a row of x, padded
+  const int cr = blockIdx.x;                        // rank in the cluster
+  const int rb = mm != nullptr ? (r + kCluster - 1) / kCluster : 0;
+  const int rr0 = min(r, cr * rb);
+  const int nr = mm != nullptr ? min(r, rr0 + rb) - rr0 : 0;  // rows of M
+  float* as = smem;                        // (d, MC) the block's A columns
+  float* ms = as + d * MC;                 // (rb, d) the block's rows of M
+  float* xs = ms + rb * d;                 // (n, dp) the rows
+  float* part = xs + n * dp;               // (EG, n, MC) partial x A
+  float* raw = part + EG * n * MC;         // (n, MC) x A
+  float* zs = raw + n * MC;                // (Hg, MC) the heads' z
+  float* wsq = zs + Hg * MC;               // (kFeatWarps, n) part of |Mx|^2
+  float* red = wsq + kFeatWarps * n;       // (2, n) the block's max, |Mx|^2
+  float* tot = red + 2 * n;                // (2, n) row max of the logits, nrm
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bg = blockIdx.y, g = bg % G, i0 = cr * MC;
+  const float c_in = c[bg];
+
+  // A's and z's columns i0 .. i0 + MC, the block's rows of M: cp.async
+  const float* ag = a + (size_t)g * d * M + i0;
+  for (int idx = tid; idx < d * (MC / 4); idx += kFeatThreads) {
+    const int e = idx / (MC / 4), c4 = idx - e * (MC / 4);
+    cp_async16(as + e * MC + 4 * c4, ag + (size_t)e * M + 4 * c4);
+  }
+  if (nr > 0) {
+    const float* mg = mm + ((size_t)g * r + rr0) * d;
+    for (int idx = tid; idx < nr * d / 4; idx += kFeatThreads)
+      cp_async16(ms + 4 * idx, mg + 4 * idx);
+  }
+  const float* zg = z + (size_t)bg * Hg * M + i0;
+  for (int idx = tid; idx < Hg * (MC / 4); idx += kFeatThreads) {
+    const int h = idx / (MC / 4), c4 = idx - h * (MC / 4);
+    cp_async16(zs + h * MC + 4 * c4, zg + (size_t)h * M + 4 * c4);
+  }
+  cp_async_commit();
+#pragma unroll 4
+  for (int idx = tid; idx < n * dp; idx += kFeatThreads) {
+    const int t = idx / dp, e = idx - t * dp;
+    float x = 0.f;
+    if (e < d)
+      x = to_f(t < Hg ? q[((size_t)bg * Hg + t) * d + e]
+                      : k[(size_t)bg * d + e]);
+    xs[idx] = x;
+  }
+  for (int idx = tid; idx < kFeatWarps * n; idx += kFeatThreads)
+    wsq[idx] = 0.f;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // x A over the block's columns: a thread a column and every EG-th run
+  // of 4 values of e, kRowTile rows at a time
+  {
+    const int eg = tid / MC, cc = tid - eg * MC;
+    for (int t0 = 0; t0 < n; t0 += kRowTile) {
+      float acc[kRowTile];
+#pragma unroll
+      for (int u = 0; u < kRowTile; ++u) acc[u] = 0.f;
+      for (int e = 4 * eg; e < d; e += 4 * EG) {
+        float av[4];
+#pragma unroll
+        for (int w = 0; w < 4; ++w) av[w] = as[(e + w) * MC + cc];
+#pragma unroll
+        for (int u = 0; u < kRowTile; ++u) {
+          const float4 xv = ld4(xs + min(t0 + u, n - 1) * dp + e);
+          acc[u] += xv.x * av[0] + xv.y * av[1] + xv.z * av[2] +
+                    xv.w * av[3];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRowTile; ++u)
+        if (t0 + u < n) part[(eg * n + t0 + u) * MC + cc] = acc[u];
+    }
+  }
+  // |M x|^2 over the block's rows of M (a warp a row, lanes along d), or
+  // |x|^2 over the block's share of e for the isotropic kinds
+  if (mm != nullptr) {
+    for (int lr = warp; lr < nr; lr += kFeatWarps) {
+      const float* mrow = ms + lr * d;
+      for (int t0 = 0; t0 < n; t0 += kRowTile) {
+        float pv[kRowTile];
+#pragma unroll
+        for (int u = 0; u < kRowTile; ++u) pv[u] = 0.f;
+        for (int e = 4 * lane; e < d; e += 128) {
+          const float4 mv = ld4(mrow + e);
+#pragma unroll
+          for (int u = 0; u < kRowTile; ++u) {
+            const float4 xv = ld4(xs + min(t0 + u, n - 1) * dp + e);
+            pv[u] += xv.x * mv.x + xv.y * mv.y + xv.z * mv.z + xv.w * mv.w;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kRowTile; ++u) pv[u] = warp_sum(pv[u]);
+        if (lane == 0) {
+#pragma unroll
+          for (int u = 0; u < kRowTile; ++u)
+            if (t0 + u < n) wsq[warp * n + t0 + u] += pv[u] * pv[u];
+        }
+      }
+    }
+  } else {
+    const int eb = (d + kCluster - 1) / kCluster;
+    for (int t = warp; t < n; t += kFeatWarps) {
+      float acc = 0.f;
+      for (int e = cr * eb + lane; e < min(d, (cr + 1) * eb); e += 32)
+        acc += xs[t * dp + e] * xs[t * dp + e];
+      acc = warp_sum(acc);
+      if (lane == 0) wsq[warp * n + t] = acc;
+    }
   }
   __syncthreads();
-  featurize<2>(xs, 2, a + (size_t)g * d * m,
-               mm != nullptr ? mm + (size_t)g * r * d : nullptr, d, r, m, xt,
-               nrm, feat);
-
-  float qm = kNeg, km = kNeg;
-  for (int i = tid; i < m; i += blockDim.x) {
-    qm = fmaxf(qm, feat[i]);
-    km = fmaxf(km, feat[m + i]);
+  for (int idx = tid; idx < n * MC; idx += kFeatThreads) {
+    float acc = 0.f;
+    for (int eg = 0; eg < EG; ++eg) acc += part[eg * n * MC + idx];
+    raw[idx] = acc;
   }
-  qm = block_max(qm, scratch);
-  km = block_max(km, scratch);
-  const float c_in = c_old[bg];
-  float c_new, rho, qshift;
+  if (tid < n) {
+    float sq = 0.f;
+    for (int w = 0; w < kFeatWarps; ++w) sq += wsq[w * n + tid];
+    red[n + tid] = sq;
+  }
+  __syncthreads();
+  for (int t = warp; t < n; t += kFeatWarps) {   // the block's row maxima
+    float mxv = kNeg;
+    for (int cc = lane; cc < MC; cc += 32) mxv = fmaxf(mxv, raw[t * MC + cc]);
+    for (int o = 16; o > 0; o >>= 1)
+      mxv = fmaxf(mxv, __shfl_xor_sync(0xffffffffu, mxv, o));
+    if (lane == 0) red[t] = mxv;
+  }
+
+  // over the cluster: each row's max over m and |M x|^2 / 2
+  cluster_arrive();
+  cluster_wait();
+  if (tid < n) {
+    cg::cluster_group cluster = cg::this_cluster();
+    float mxv = kNeg, sq = 0.f;
+    for (int rk = 0; rk < kCluster; ++rk) {
+      const float* rr = cluster.map_shared_rank(red, rk);
+      mxv = fmaxf(mxv, rr[tid]);
+      sq += rr[n + tid];
+    }
+    tot[n + tid] = 0.5f * sq;
+    tot[tid] = mxv - 0.5f * sq;     // the max over m of the row's logits
+  }
+  cluster_arrive();                 // the cluster's shared memory is read
+  __syncthreads();
+
+  const float* rmx = tot;
+  const float* nrm = tot + n;
+  float c_new, rho;
   if (stabilize) {
-    c_new = fmaxf(c_in, km);
+    c_new = fmaxf(c_in, rmx[Hg]);
     rho = expf(c_in - c_new);
-    qshift = qm;
   } else {
     c_new = 0.f;
     rho = expf(c_in);
-    qshift = 0.f;
   }
-  for (int i = tid; i < m; i += blockDim.x) {
-    feat[i] = expf(feat[i] - qshift) * inv_sqrt_m;
-    feat[m + i] = expf(feat[m + i] - c_new) * inv_sqrt_m;
-  }
-  __syncthreads();
-  const float* qf = feat;
-  const float* kf = feat + m;
-
-  const int rg = tid & (kRowGroups - 1);
-  const int j = tile * kTileCols + tid / kRowGroups;
-  const bool col = j < dv;
-  const float vj = col ? to_f(v[(size_t)bg * dv + j]) : 0.f;
-  float* sh = s + head * m * dv;
-  const float* zh = z_old + head * m;
-  float num = 0.f, den = 0.f;
-  for (int i = rg; i < m; i += kRowGroups) {
-    const float kfi = kf[i], qfi = qf[i];
-    if (col) {
-      const float sv = sh[(size_t)i * dv + j] * rho + kfi * vj;
-      sh[(size_t)i * dv + j] = sv;
-      num += qfi * sv;
+  // the features of the block's columns to the scratch, z' = rho z + kf
+  // in place: an element (row t, column i0 + cc) a thread
+  float* fb = feat + (size_t)bg * n * M + i0;
+  for (int idx = tid; idx < n * MC; idx += kFeatThreads) {
+    const int t = idx / MC, cc = idx - t * MC;
+    const float kf =
+        expf((raw[Hg * MC + cc] - nrm[Hg]) - c_new) * inv_sqrt_m;
+    if (t == Hg) {
+      fb[(size_t)t * M + cc] = kf;
+    } else {
+      fb[(size_t)t * M + cc] =
+          expf((raw[idx] - nrm[t]) - (stabilize ? rmx[t] : 0.f)) *
+          inv_sqrt_m;
+      z[((size_t)bg * Hg + t) * M + i0 + cc] = zs[idx] * rho + kf;
     }
-    den += qfi * (zh[i] * rho + kfi);
   }
-  num = group_sum(num);
-  den = group_sum(den);
-  if (rg == 0 && col) out[head * dv + j] = num / (den + eps);
-  if (tile == 0) {
-    __syncthreads();                   // every read of z_old (maybe z) done
-    for (int i = tid; i < m; i += blockDim.x)
-      z[head * m + i] = zh[i] * rho + kf[i];
-    if (h == 0 && tid == 0) c[bg] = c_new;
+  if (cr == 0 && tid == 0) {          // the cluster read c before arriving
+    rho_out[bg] = rho;
+    c[bg] = c_new;
+  }
+  cluster_wait();
+}
+
+// RPT consecutive floats (16-byte aligned when RPT is 4).
+template <int RPT>
+__device__ __forceinline__ void load_rows(const float* p, float* out) {
+  if constexpr (RPT == 4) {
+    const float4 t = ld4(p);
+    out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
+  } else {
+#pragma unroll
+    for (int u = 0; u < RPT; ++u) out[u] = p[u];
   }
 }
 
+// Launch 2: S' = rho S + kf v^T over all m rows of 16 columns of one
+// (b, g, h), and out = qf.S' / (qf.z' + eps) for those columns.
+template <typename T, int M>
+__global__ void __launch_bounds__(kThreads) stream_kernel(
+    const T* __restrict__ v, const float* __restrict__ feat,
+    const float* __restrict__ rho_in, const float* __restrict__ z,
+    float* __restrict__ s, float* __restrict__ out, int Hg, int dv,
+    float eps) {
+  constexpr int RPT = M >= 64 ? M / 64 : 1;       // rows of S a thread
+  constexpr int LANES = M / RPT;                   // row lanes, <= 64
+  __shared__ float red[kWarps][kCols + 1];             // num, then den
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int quad = tid & 3, rl = tid >> 2;
+  const int h = blockIdx.y, bg = blockIdx.z;
+  const int j = blockIdx.x * kCols + 4 * quad;     // the thread's columns
+  const bool act = rl < LANES && j < dv;           // dv % 4 == 0
+  const size_t head = (size_t)bg * Hg + h;
+  const int i0 = rl * RPT;
+  float* sp = s + (head * M + i0) * dv + j;
+  float4 sv[RPT];
+  float vv[4] = {0.f, 0.f, 0.f, 0.f};
+  if (act) {
+#pragma unroll
+    for (int p = 0; p < RPT; ++p) sv[p] = ld4(sp + (size_t)p * dv);
+    const T* vp = v + (size_t)bg * dv + j;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) vv[u] = to_f(vp[u]);
+  }
+  grid_dependency_wait();            // launch 1's features, z' are written
+  float num[4] = {0.f, 0.f, 0.f, 0.f};
+  float den = 0.f;
+  if (act) {
+    const float* fb = feat + (size_t)bg * (Hg + 1) * M;
+    float qf[RPT], kf[RPT];
+    load_rows<RPT>(fb + h * M + i0, qf);
+    load_rows<RPT>(fb + Hg * M + i0, kf);
+    if (quad == 0) {                 // den = qf.z' once per row
+      float zn[RPT];
+      load_rows<RPT>(z + head * M + i0, zn);
+#pragma unroll
+      for (int p = 0; p < RPT; ++p) den += qf[p] * zn[p];
+    }
+    const float rho = rho_in[bg];
+#pragma unroll
+    for (int p = 0; p < RPT; ++p) {
+      float4 x = sv[p];
+      x.x = x.x * rho + kf[p] * vv[0];
+      x.y = x.y * rho + kf[p] * vv[1];
+      x.z = x.z * rho + kf[p] * vv[2];
+      x.w = x.w * rho + kf[p] * vv[3];
+      *reinterpret_cast<float4*>(sp + (size_t)p * dv) = x;
+      num[0] += qf[p] * x.x;
+      num[1] += qf[p] * x.y;
+      num[2] += qf[p] * x.z;
+      num[3] += qf[p] * x.w;
+    }
+  }
+  // over the row lanes of a column: the 8 lanes of a quad, then the warps
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      num[u] += __shfl_xor_sync(0xffffffffu, num[u], o);
+    den += __shfl_xor_sync(0xffffffffu, den, o);
+  }
+  if (lane < 4) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) red[warp][4 * lane + u] = num[u];
+  }
+  if (lane == 0) red[warp][kCols] = den;
+  __syncthreads();
+  const int col = blockIdx.x * kCols + tid;
+  if (tid < kCols && col < dv) {
+    float acc = 0.f, dsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      acc += red[w][tid];
+      dsum += red[w][kCols];
+    }
+    out[head * dv + col] = acc / (dsum + eps);
+  }
+}
+
+template <typename T, int M>
+int run(const void* q, const void* k, const void* v, const float* a,
+        const float* m_mat, float* s, float* z, float* c, float* scratch,
+        float* out, int B, int G, int Hg, int d, int r, int dv,
+        int stabilize, float eps, float inv_sqrt_m, cudaStream_t st) {
+  constexpr int MC = M / kCluster, EG = kFeatThreads / MC;
+  const int n = Hg + 1;
+  const int dp = (d + 3) / 4 * 4;
+  const int rb = m_mat != nullptr ? (r + kCluster - 1) / kCluster : 0;
+  const size_t sh1 =
+      sizeof(float) * ((size_t)d * MC + (size_t)rb * d + (size_t)n * dp +
+                       (size_t)(EG + 1) * n * MC + (size_t)Hg * MC +
+                       (size_t)(kFeatWarps + 4) * n);
+  if (sh1 > (size_t)kMaxSmem || d % 4) return (int)cudaErrorInvalidValue;
+  static const bool limit_set = [] {  // once per kernel and process
+    cudaFuncSetAttribute(features_kernel<T, M>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kMaxSmem);
+    return true;
+  }();
+  (void)limit_set;
+  float* feat = scratch;
+  float* rho = scratch + (size_t)B * G * n * M;
+  features_kernel<T, M><<<dim3(kCluster, B * G), kFeatThreads, sh1, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), a, m_mat, z, c,
+      feat, rho, G, Hg, d, r, stabilize, inv_sqrt_m);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  return launch_after(stream_kernel<T, M>,
+                      dim3((dv + kCols - 1) / kCols, Hg, B * G), kThreads, 0,
+                      st, static_cast<const T*>(v), (const float*)feat,
+                      (const float*)rho, (const float*)z, s, out, Hg, dv,
+                      eps);
+}
+
+template <typename T>
+int dispatch_m(int m, const void* q, const void* k, const void* v,
+               const float* a, const float* m_mat, float* s, float* z,
+               float* c, float* scratch, float* out, int B, int G, int Hg,
+               int d, int r, int dv, int stabilize, float eps,
+               float inv_sqrt_m, cudaStream_t st) {
+#define PRF_DECODE_CASE(MM)                                                  \
+  case MM:                                                                   \
+    return run<T, MM>(q, k, v, a, m_mat, s, z, c, scratch, out, B, G, Hg, d, \
+                      r, dv, stabilize, eps, inv_sqrt_m, st);
+  switch (m) {
+    PRF_DECODE_CASE(16)
+    PRF_DECODE_CASE(32)
+    PRF_DECODE_CASE(64)
+    PRF_DECODE_CASE(128)
+    PRF_DECODE_CASE(256)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef PRF_DECODE_CASE
+}
+
+}  // namespace decode
 }  // namespace prf
 
+// scratch: B G ((Hg + 1) m + 1) floats, 16-byte aligned: per (b, g) the
+// features (qf of the Hg heads, then kf), then rho per (b, g). a, s and z
+// 16-byte aligned, d and dv multiples of 4.
 extern "C" int prf_fused_decode(const void* q, const void* k, const void* v,
                                 const float* a, const float* m_mat, float* s,
-                                float* z, float* c, float* z_old, float* c_old,
-                                float* out, int B, int G, int Hg, int d, int r,
-                                int m, int dv, int bf16_inputs, int stabilize,
+                                float* z, float* c, float* scratch, float* out,
+                                int B, int G, int Hg, int d, int r, int m,
+                                int dv, int bf16_inputs, int stabilize,
                                 float eps, float inv_sqrt_m, void* stream) {
-  using namespace prf;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaMemcpyAsync(c_old, c, sizeof(float) * B * G, cudaMemcpyDeviceToDevice,
-                  st);
-  if (z_old != z)
-    cudaMemcpyAsync(z_old, z, sizeof(float) * B * G * Hg * m,
-                    cudaMemcpyDeviceToDevice, st);
-  const dim3 grid((dv + kTileCols - 1) / kTileCols, Hg, B * G);
-  const size_t shmem = sizeof(float) * (2 * d + 2 * r + 32 + 2 * m + 32);
-  if (bf16_inputs) {
-    auto kern = prf_fused_decode_kernel<__nv_bfloat16>;
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)shmem);
-    kern<<<grid, kThreads, shmem, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), a, m_mat, s, z, z_old, c, c_old,
-        out, G, Hg, d, r, m, dv, stabilize, eps, inv_sqrt_m);
-  } else {
-    auto kern = prf_fused_decode_kernel<float>;
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)shmem);
-    kern<<<grid, kThreads, shmem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), a, m_mat, s, z, z_old, c, c_old, out, G,
-        Hg, d, r, m, dv, stabilize, eps, inv_sqrt_m);
-  }
-  return (int)cudaGetLastError();
+  if (bf16_inputs)
+    return prf::decode::dispatch_m<__nv_bfloat16>(
+        m, q, k, v, a, m_mat, s, z, c, scratch, out, B, G, Hg, d, r, dv,
+        stabilize, eps, inv_sqrt_m, st);
+  return prf::decode::dispatch_m<float>(m, q, k, v, a, m_mat, s, z, c,
+                                        scratch, out, B, G, Hg, d, r, dv,
+                                        stabilize, eps, inv_sqrt_m, st);
 }

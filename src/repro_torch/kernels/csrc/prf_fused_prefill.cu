@@ -95,45 +95,6 @@ __device__ __forceinline__ float decode_max(unsigned u) {
   return __int_as_float(o >= 0 ? o : o ^ 0x7fffffff);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Programmatic dependent launch: a kernel launched by launch_after() may
-// start while the kernel before it in the stream finishes; it waits here,
-// before its first read of device memory, until that kernel has finished
-// and its writes are visible (a no-op for a plain launch). A kernel lets
-// its dependent start launching once every block has passed
-// grid_dependents_launch().
-__device__ __forceinline__ void grid_dependency_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void grid_dependents_launch() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
 // V consecutive floats from shared memory (16- or 8-byte loads).
 template <int V>
 __device__ __forceinline__ void load_vec(const float* p, float* out) {
@@ -922,24 +883,6 @@ __global__ void __launch_bounds__(kThreads) state_kernel(
   }
   if (blockIdx.x == 0 && blockIdx.z == 0 && tid == 0) c[bg] = c_new;
   grid_dependents_launch();
-}
-
-// Launch `kern` on `st` so that it may start while the kernel before it
-// finishes (it waits in grid_dependency_wait()).
-template <typename... Params, typename... Args>
-int launch_after(void (*kern)(Params...), dim3 grid, int threads,
-                 size_t smem, cudaStream_t st, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kern, args...);
 }
 
 template <typename T, int M>

@@ -15,7 +15,10 @@ and writes S, z and c in place. ``stabilize=False`` drops the maxes
 (c' = 0, ρ = exp(c)); ``m_mat=None`` is the isotropic kind (norm of x).
 
 A CPU tensor runs :func:`prf_fused_decode_plain`; a CUDA tensor launches
-the kernel (or raises). ``launches`` counts kernel launches.
+the kernel (or raises): two launches a call, the features once per KV
+group (z and c advanced in place) and then the stream of S, each S
+element read and written once. ``launches`` counts the wrapper's calls
+that launched them.
 """
 from __future__ import annotations
 
@@ -26,11 +29,11 @@ import torch
 
 from repro_torch.core.feature_maps import inv_sqrt, raw_features
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import (F, I, INPUT_DTYPES, P, check_cuda,
-                                         expect, ptr, stream)
+from repro_torch.kernels._launch import (F, FEATURE_COUNTS, I, INPUT_DTYPES,
+                                         P, check_cuda, expect,
+                                         expect_aligned, ptr, stream)
 
 F32 = (torch.float32,)
-TILE_COLS = 64                       # output columns per CUDA block
 launches = 0
 
 
@@ -66,7 +69,7 @@ def prf_fused_decode_plain(q, k, v, a, m_mat, s, z, c, *,
 @functools.cache
 def _c_fn():
     fn = _build.load("prf_fused_decode").prf_fused_decode
-    fn.argtypes = [P] * 11 + [I] * 9 + [F, F, P]
+    fn.argtypes = [P] * 10 + [I] * 9 + [F, F, P]
     fn.restype = I
     return fn
 
@@ -80,8 +83,9 @@ def fused_prf_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, G, Hg, d); k, v: (B, G, d|dv) in f32 or bf16; a: (G, d, m)
     f32 precomposed (W M)^T; m_mat: (G, r, d) f32 or None; s: (B, G, Hg,
     m, dv), z: (B, G, Hg, m), c: (B, G), all f32 and updated in place.
-    Every tensor must be contiguous. Returns (out (B, G, Hg, dv) f32,
-    s, z, c).
+    Every tensor must be contiguous. On CUDA the kernel also takes m in
+    ``FEATURE_COUNTS``, d and dv multiples of 4 and a, m_mat, s and z on
+    16-byte boundaries. Returns (out (B, G, Hg, dv) f32, s, z, c).
     """
     b, g, hg, d = q.shape
     m = a.shape[-1]
@@ -103,14 +107,20 @@ def fused_prf_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                       stabilize=stabilize, eps=eps)
     if dev.type != "cuda":
         raise ValueError(f"fused_prf_decode runs on cuda or cpu, not {dev}")
+    if m not in FEATURE_COUNTS or d % 4 or dv % 4:
+        raise ValueError(f"prf_fused_decode is built for m in "
+                         f"{FEATURE_COUNTS} and d, dv multiples of 4, got "
+                         f"m={m}, d={d}, dv={dv}")
+    expect_aligned("prf_fused_decode", a=a, s=s, z=z,
+                   **({} if m_mat is None else {"m_mat": m_mat}))
     global launches
     out = torch.empty((b, g, hg, dv), dtype=torch.float32, device=dev)
-    c_old = torch.empty_like(c)
-    # blocks of one head split dv into tiles; all of them read z, so
-    # they read a snapshot when there is more than one tile
-    z_old = z if dv <= TILE_COLS else torch.empty_like(z)
+    # per (b, g) the features (qf of the Hg heads, then kf), then ρ per
+    # (b, g)
+    scratch = torch.empty(b * g * ((hg + 1) * m + 1), dtype=torch.float32,
+                          device=dev)
     err = _c_fn()(ptr(q), ptr(k), ptr(v), ptr(a), ptr(m_mat), ptr(s),
-                  ptr(z), ptr(c), ptr(z_old), ptr(c_old), ptr(out),
+                  ptr(z), ptr(c), ptr(scratch), ptr(out),
                   b, g, hg, d, r, m, dv, int(q.dtype == torch.bfloat16),
                   int(stabilize), eps, inv_sqrt(m), stream(dev))
     check_cuda(err, "prf_fused_decode")

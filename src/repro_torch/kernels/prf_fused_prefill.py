@@ -34,11 +34,11 @@ import torch
 
 from repro_torch.core.feature_maps import inv_sqrt, raw_features
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import (F, I, INPUT_DTYPES, P, check_cuda,
-                                         expect, ptr, stream)
+from repro_torch.kernels._launch import (F, FEATURE_COUNTS, I, INPUT_DTYPES,
+                                         P, check_cuda, expect,
+                                         expect_aligned, ptr, stream)
 
 F32 = (torch.float32,)
-FEATURE_COUNTS = (16, 32, 64, 128, 256)   # m the kernel is built for
 PREFIX_STEP = 64                     # tokens a prefix step (kSub in the .cu)
 NEG = torch.finfo(torch.float32).min
 launches = 0
@@ -161,10 +161,7 @@ def fused_prf_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"prf_fused_prefill takes rows of v in 16-byte "
                          f"pieces and r <= 256, got dv={dv} of {v.dtype}, "
                          f"r={r}")
-    for name, t in (("a", a), ("v", v), ("s", s), ("z", z)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary (the "
-                             "kernel copies it in 16-byte pieces)")
+    expect_aligned("prf_fused_prefill", a=a, v=v, s=s, z=z)
     global launches
     out = torch.empty((b, g, hg, l, dv), dtype=v.dtype, device=dev)
     # reused by every T-chunk of the call: the raw q and k logits (B, G,

@@ -30,17 +30,67 @@ def dev():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,g,hg,d,m,dv,dark,stab", [
-    (8, 3, 3, 64, 256, 64, True, True),       # smollm-135m heads
-    (8, 3, 3, 64, 256, 64, False, False),
-    (4, 1, 8, 256, 256, 256, True, True),     # darkformer-2b heads
-    (3, 2, 2, 16, 32, 16, True, False),
+@pytest.mark.parametrize("b,g,hg,d,m,dv,dark,stab,dtype", [
+    (8, 3, 3, 64, 256, 64, True, True, torch.float32),    # smollm-135m heads
+    (8, 3, 3, 64, 256, 64, False, False, torch.float32),
+    # the engine decodes only its active slots: 1, 2 and 5 of 8
+    (1, 3, 3, 64, 256, 64, True, True, torch.bfloat16),
+    (2, 3, 3, 64, 256, 64, True, False, torch.bfloat16),
+    (5, 3, 3, 64, 256, 64, True, True, torch.bfloat16),
+    (8, 3, 3, 64, 256, 64, True, True, torch.bfloat16),   # the main path's
+    (4, 1, 8, 256, 256, 256, True, True, torch.float32),  # darkformer-2b
+    (4, 1, 8, 256, 256, 256, False, True, torch.bfloat16),
+    (3, 2, 2, 16, 32, 16, True, False, torch.float32),
+    (2, 2, 3, 32, 64, 40, True, True, torch.float32),     # a partial tile
 ])
-def test_decode_kernel_matches_plain(dev, b, g, hg, d, m, dv, dark, stab):
-    args = check.make_inputs(dev, b, g, hg, d, m, dv, None, dark, seed=b + m)
+def test_decode_kernel_matches_plain(dev, b, g, hg, d, m, dv, dark, stab,
+                                     dtype):
+    """B1 against its plain version (f32 state and outputs within
+    F32_TOL; outputs are f32 for bf16 inputs too)."""
+    args = check.make_inputs(dev, b, g, hg, d, m, dv, None, dark, seed=b + m,
+                             dtype=dtype)
     check.check_case("decode", lambda: kd.launches, kd.fused_prf_decode,
                      kd.prf_fused_decode_plain, args, (5, 6, 7),
                      stabilize=stab)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c0", [40.0, -40.0])
+def test_decode_kernel_owns_the_stabilizer(dev, c0):
+    """c far above the new keys' maxima (rho = 1, c kept) and far below
+    (rho = e^-40-ish, S and z all but replaced): launch 1 reads the old
+    c and z and writes the new ones, launch 2 rescales S by the same
+    rho."""
+    args = check.make_inputs(dev, 8, 3, 3, 64, 256, 64, None, True, seed=3,
+                             dtype=torch.bfloat16)
+    args[7].fill_(c0)
+    check.check_case("decode rho", lambda: kd.launches, kd.fused_prf_decode,
+                     kd.prf_fused_decode_plain, args, (5, 6, 7), eps=1e-8)
+    if c0 > 0:
+        assert bool((args[7] == c0).all())
+    else:
+        assert bool((args[7] > -10).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8])
+def test_decode_kernel_updates_in_place_without_pool_copies(dev, b):
+    """s, z and c stay where they lie, and the call allocates less than
+    1 MB, the output and the scratch of features (0.1 MB at 8 slots), no
+    copy of c or z: the 8-slot pool's S is 4.7 MB."""
+    args = check.make_inputs(dev, b, 3, 3, 64, 256, 64, None, True, seed=b,
+                             dtype=torch.bfloat16)
+    s, z, c = args[5:]
+    ptrs = [t.data_ptr() for t in (s, z, c)]
+    kd.fused_prf_decode(*args, eps=1e-8)         # built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    got = kd.fused_prf_decode(*args, eps=1e-8)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(dev) - base
+    assert [t.data_ptr() for t in got[1:]] == ptrs
+    assert extra < 2 ** 20, extra
 
 
 @pytest.mark.cuda

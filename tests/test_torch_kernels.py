@@ -75,6 +75,9 @@ DECODE_CASES = [  # b, g, hg, d, r, m, dv, dark, stabilize
     (2, 1, 4, 8, 8, 16, 8, False, True),      # MQA, isotropic
     (4, 3, 1, 8, 4, 16, 8, True, False),      # no stabilizer
     (2, 2, 3, 16, 16, 32, 16, False, False),  # isotropic, no stabilizer
+    (1, 3, 3, 8, 8, 16, 8, True, True),       # one active slot
+    (2, 2, 2, 8, 4, 16, 40, True, True),      # dv past one 16-column tile
+    (2, 1, 8, 16, 16, 32, 8, True, False),    # Hg 8, no stabilizer
 ]
 
 PREFILL_CASES = [  # b, g, hg, d, r, m, dv, l, dark, stab, chunk, valid_len
