@@ -50,7 +50,9 @@ Phases, each printed as a JSON line:
      call fed the next layer's key features) must fail the same check.
 Then the kernels line (all seven kernels: launches on their path, max
 error, time and device time, prf_fused_decode's cold, plain time,
-bound) and, last, the ``{"ok": true, ...}``
+bound: bytes at 3.35 TB/s or operations at 67 TFLOP/s of f32, for
+linear_attention_causal, which runs on the tensor cores, at 495 TFLOP/s
+of TF32) and, last, the ``{"ok": true, ...}``
 line. Exits non-zero, without that line, when there is no CUDA device
 or any phase fails. Imports neither JAX nor the reference package.
 """
@@ -73,6 +75,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_FLOPS = 67e12               # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 495e12             # H100 SXM TF32 on the tensor cores, dense
 # phase 4, card (kernels) vs CPU (plain path), both bf16 after 30 layers:
 # the largest |logit| gap over max |logit|, and over each layer's S and z
 # (stabilizer factored out) the largest gap over max |S|, max |z|
@@ -162,7 +165,7 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def lin_attn_flops(rows, kv_rows, l, m, dv, chunk=256):
+def lin_attn_flops(rows, kv_rows, l, m, dv, chunk=64):
     """Operations causal linear attention needs from a zero state: the
     fewer of its two exact forms on these shapes. Token-serial: per
     token, the state update S += k vᵀ, z += k once per KV row (shared by
@@ -185,9 +188,9 @@ def lin_attn_flops(rows, kv_rows, l, m, dv, chunk=256):
     return min(serial, chunked)
 
 
-def bound(byte_count, flops):
+def bound(byte_count, flops, peak=F32_FLOPS):
     t_bytes = byte_count / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOPS
+    t_ops = flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -643,18 +646,22 @@ def phase_train_kernels(torch, dev, kl, kf):
 
     err = {"linear_attention_causal": 0.0, "prf_featmap": 0.0}
     cases = []
-    for b, g, hg, l, m, dv, dt in (
-            (8, 3, 3, 512, 256, 64, torch.bfloat16),   # the main path's
-            (8, 3, 3, 512, 256, 64, torch.float32),
-            (2, 3, 3, 777, 256, 64, torch.float32),
-            (4, 3, 3, 256, 256, 64, torch.bfloat16),
-            (4, 3, 3, 100, 256, 64, torch.float32),
-            (8, 3, 3, 1, 256, 64, torch.bfloat16),
-            (2, 1, 8, 300, 256, 256, torch.float32)):  # darkformer-2b
-        name = (f"linear_attention_causal N={b * g * hg} L={l} m={m} "
-                f"dv={dv} v={str(dt).split('.')[-1]}")
+    for b, g, hg, hk, l, m, dv, dt in (
+            (8, 3, 3, 1, 512, 256, 64, torch.bfloat16),   # the main path's
+            (8, 3, 3, 1, 512, 256, 64, torch.float32),
+            (2, 3, 3, 1, 777, 256, 64, torch.float32),
+            (4, 3, 3, 1, 256, 256, 64, torch.bfloat16),
+            (4, 3, 3, 1, 100, 256, 64, torch.float32),
+            (8, 3, 3, 1, 1, 256, 64, torch.bfloat16),
+            (4, 3, 3, 1, 64, 256, 64, torch.float32),     # one tile
+            (4, 3, 3, 1, 65, 256, 64, torch.bfloat16),    # a key past it
+            (2, 3, 3, 1, 2048, 256, 64, torch.bfloat16),  # 31 prefixes
+            (2, 3, 3, 3, 300, 256, 64, torch.float32),    # Hk = H
+            (2, 1, 8, 1, 300, 256, 256, torch.float32)):  # darkformer-2b
+        name = (f"linear_attention_causal N={b * g * hg} Hk={hk} L={l} "
+                f"m={m} dv={dv} v={str(dt).split('.')[-1]}")
         args = kc.make_lin_attn_inputs(dev, b, g, hg, l, m, dv,
-                                       seed=len(cases), dtype=dt)
+                                       seed=len(cases), dtype=dt, hk=hk)
         fwd, grad = kc.check_autograd(
             name, kl, lambda q, k, v: kl.linear_attention_causal(
                 q, k, v, eps=1e-8),
@@ -684,31 +691,47 @@ def phase_train_kernels(torch, dev, kl, kf):
     return err
 
 
+def lin_attn_timing(torch, dev, kl, b, g, hg, l, m, dv, dtype, iters=20):
+    """B5's forward at one shape (qf (B, G, Hg, L, m), kf and v per KV
+    group): CUDA events and device time (:func:`kernel_times`) beside its
+    plain version and two bounds, each max(bytes / 3.35 TB/s, operations
+    / peak): ``bound_ms`` at the 495 TFLOP/s of TF32 on the tensor cores,
+    where the kernel computes, ``bound_f32_simt_ms`` at the 67 TFLOP/s of
+    f32 outside them (operations: :func:`lin_attn_flops`; bytes: qf, kf,
+    v read once, out written once)."""
+    from repro_torch.kernels import check as kc
+
+    args = kc.make_lin_attn_inputs(dev, b, g, hg, l, m, dv, seed=11,
+                                   dtype=dtype)
+    rows, kv_rows = b * g * hg, b * g
+    flops = lin_attn_flops(rows, kv_rows, l, m, dv)
+    byts = nbytes(*args) + rows * l * dv * args[2].element_size()
+    bms, by = bound(byts, flops, TF32_FLOPS)
+    with torch.no_grad():
+        return {
+            "shape": (f"B={b} G={g} Hg={hg} L={l} m={m} dv={dv} "
+                      f"v={str(dtype).split('.')[-1]}"),
+            **kernel_times(torch, lambda: kl.linear_attention_causal(
+                *args, eps=1e-8), iters),
+            "plain_ms": time_ms(
+                torch, lambda: kl.linear_attention_causal_plain(*args, 1e-8),
+                max(iters // 2, 3)),
+            "bound_ms": bms, "bound_by": by,
+            "bound_f32_simt_ms": bound(byts, flops)[0], "bytes": byts,
+            "flops": flops}
+
+
 def phase_train_timing(torch, dev, kl, kf):
     """Phase 2d: the training kernels timed (forward, CUDA events) at the
     smollm-135m training shapes beside their plain versions and bounds.
     linear_attention_causal: 8 x 512 tokens, 9 heads over 3 KV groups,
-    m = 256, dv = 64, bf16 v (operations: :func:`lin_attn_flops`).
-    prf_featmap: the 8·9·512 query rows of that batch, d = r = 64."""
+    m = 256, dv = 64, bf16 v (:func:`lin_attn_timing`). prf_featmap: the
+    8·9·512 query rows of that batch, d = r = 64."""
     from repro_torch.kernels import check as kc
 
-    out = {}
-    b, g, hg, l, m, dv = B, 3, 3, L_TRAIN, 256, 64
-    args = kc.make_lin_attn_inputs(dev, b, g, hg, l, m, dv, seed=11,
-                                   dtype=torch.bfloat16)
-    rows, kv_rows = b * g * hg, b * g
-    flops = lin_attn_flops(rows, kv_rows, l, m, dv)
-    byts = nbytes(*args) + rows * l * dv * 2
-    bms, by = bound(byts, flops)
-    with torch.no_grad():
-        out["linear_attention_causal"] = {
-            "shape": f"B={b} G={g} Hg={hg} L={l} m={m} dv={dv} v=bf16",
-            **kernel_times(torch, lambda: kl.linear_attention_causal(
-                *args, eps=1e-8), 20),
-            "plain_ms": time_ms(
-                torch, lambda: kl.linear_attention_causal_plain(*args, 1e-8),
-                10),
-            "bound_ms": bms, "bound_by": by, "bytes": byts, "flops": flops}
+    out = {"linear_attention_causal": lin_attn_timing(
+        torch, dev, kl, B, 3, 3, L_TRAIN, 256, 64, torch.bfloat16)}
+    b, l, m = B, L_TRAIN, 256
     n, d, r = b * 9 * l, 64, 64
     args = kc.make_featmap_inputs(dev, n, d, r, m, True, seed=12)
     flops = n * (2 * d * r + 2 * r * m + 2 * r)
@@ -798,6 +821,29 @@ def carry_flops(rows, kv_rows, l, m, dv, chunk=256):
     return min(serial, chunked)
 
 
+def carry_timing(torch, dev, kl, b, l):
+    """B4 at ``b`` rows x ``l`` tokens of smollm-135m (bf16 v, the pool's
+    state advanced in place): CUDA events and device time beside its
+    plain version and its bound (operations: :func:`carry_flops`)."""
+    from repro_torch.kernels import check as kc
+
+    g, hg, m, dv = 3, 3, 256, 64
+    args = kc.make_carry_inputs(dev, b, g, hg, 1, l, m, dv, seed=14,
+                                dtype=torch.bfloat16)
+    qf, kf_, v, s0, z0 = args
+    rows, kv_rows = b * g * hg, b * g
+    flops = carry_flops(rows, kv_rows, l, m, dv)
+    byts = nbytes(qf, kf_, v) + 2 * nbytes(s0, z0) + rows * l * dv * 2
+    bms, by = bound(byts, flops)
+    return {
+        "shape": f"B={b} L={l} G={g} Hg={hg} m={m} dv={dv} v=bf16",
+        **kernel_times(torch, lambda: kl.linear_attention_prefill_chunk(
+            *args, eps=1e-8), 100),
+        "plain_ms": time_ms(torch, lambda: kl.linear_attention_carry_plain(
+            *args, 1e-8), 30),
+        "bound_ms": bms, "bound_by": by, "bytes": byts, "flops": flops}
+
+
 def phase_two_stage_timing(torch, dev, kds, kl, kw):
     """Phase 2f: B3, B4 and B7 timed (CUDA events) beside their plain
     versions and bounds. B3 at 8 slots of smollm-135m; B4 at B2's timing
@@ -821,22 +867,8 @@ def phase_two_stage_timing(torch, dev, kds, kl, kw):
             *args, eps=1e-8), 50),
         "bound_ms": bms, "bound_by": by, "bytes": byts,
         "flops": rows * (4 * m * dv + 4 * m + dv)}
-    for key, bb, l in (("linear_attention_carry", 8, 32),
-                       ("linear_attention_carry_1x256", 1, 256)):
-        args = kc.make_carry_inputs(dev, bb, g, hg, 1, l, m, dv, seed=14,
-                                    dtype=torch.bfloat16)
-        qf, kf_, v, s0, z0 = args
-        rows, kv_rows = bb * g * hg, bb * g
-        flops = carry_flops(rows, kv_rows, l, m, dv)
-        byts = nbytes(qf, kf_, v) + 2 * nbytes(s0, z0) + rows * l * dv * 2
-        bms, by = bound(byts, flops)
-        out[key] = {
-            "shape": f"B={bb} L={l} G={g} Hg={hg} m={m} dv={dv} v=bf16",
-            **kernel_times(torch, lambda: kl.linear_attention_prefill_chunk(
-                *args, eps=1e-8), 100),
-            "plain_ms": time_ms(torch, lambda: kl.linear_attention_carry_plain(
-                *args, 1e-8), 30),
-            "bound_ms": bms, "bound_by": by, "bytes": byts, "flops": flops}
+    out["linear_attention_carry"] = carry_timing(torch, dev, kl, 8, 32)
+    out["linear_attention_carry_1x256"] = carry_timing(torch, dev, kl, 1, 256)
     n, l, dh = 512, 512, 64
     args = kc.make_wkv6_inputs(dev, n, l, dh, seed=15)
     flops = n * l * (5 * dh * dh + 5 * dh)
@@ -965,11 +997,12 @@ def train_gaps(torch, got, ref):
     return loss, worst, where
 
 
-def phase_train_cross_device(torch, dev, kl):
+def phase_train_cross_device(torch, dev, kl, seed: int = 0):
     """Phase 6: one loss and all its gradients, smollm-135m at full width
     and 4 layers, bf16, batch 2 x 256: the card through the kernel vs the
-    CPU through the plain path, same params and batch. A planted fault
-    (layer i's kernel call fed layer i+1's key features) must fail."""
+    CPU through the plain path, same params and batch (both from
+    ``seed``). A planted fault (layer i's kernel call fed layer i+1's key
+    features) must fail."""
     import repro_torch.kernels as kops
     from repro_torch import configs
     from repro_torch.data import SyntheticLM
@@ -977,8 +1010,8 @@ def phase_train_cross_device(torch, dev, kl):
     from repro_torch.tree import flatten
 
     cfg = configs.get_config("smollm-135m", n_layers=4, use_kernel=True)
-    params = lm.init_params(cfg, seed=0, device=dev)
-    data = SyntheticLM(cfg.vocab, 256, 2, seed=0).batch(0)
+    params = lm.init_params(cfg, seed=seed, device=dev)
+    data = SyntheticLM(cfg.vocab, 256, 2, seed=seed).batch(0)
 
     def loss_and_grads(cfg, params, device):
         leaves = dict(flatten(params))
@@ -1024,7 +1057,7 @@ def phase_train_cross_device(torch, dev, kl):
     loss_gap, grad_gap, where = train_gaps(torch, card, cpu)
     f_loss, f_grad, f_where = train_gaps(torch, fault, cpu)
     emit({"phase": "train_cross_device", "config": cfg.name,
-          "n_layers": cfg.n_layers, "batch": 2, "seq": 256,
+          "n_layers": cfg.n_layers, "batch": 2, "seq": 256, "seed": seed,
           "loss_card": float(card[0]), "loss_cpu": float(cpu[0]),
           "loss_rel_err": loss_gap, "grad_rel_err": grad_gap,
           "grad_worst_leaf": where, "loss_tolerance": TRAIN_LOSS_TOL,

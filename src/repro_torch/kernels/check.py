@@ -160,20 +160,78 @@ def check_autograd(name: str, mod, fn, plain, args: list, seed: int):
 
 
 def make_lin_attn_inputs(dev, b, g, hg, l, m, dv, seed,
-                         dtype=torch.float32) -> list:
+                         dtype=torch.float32, hk=1) -> list:
     """[qf, kf, v] of one causal linear-attention call at rf_attention's
-    layout: qf (B, G, Hg, L, m), kf (B, G, 1, L, m) f32, positive like PRF
-    features (exp(N(0, 1/4))/√m); v (B, G, 1, L, dv) in ``dtype``."""
+    layout: qf (B, G, Hg, L, m), kf (B, G, Hk, L, m) f32, positive like
+    PRF features (exp(N(0, 1/4))/√m); v (B, G, Hk, L, dv) in ``dtype``.
+    Hk = 1 shares kf and v among a group's Hg query heads; Hk = Hg gives
+    each head its own."""
     rng = np.random.default_rng(seed)
 
     def feats(shape):
         a = np.exp(0.5 * rng.standard_normal(shape)) / m ** 0.5
         return torch.tensor(a, dtype=torch.float32, device=dev)
     qf = feats((b, g, hg, l, m))
-    kf = feats((b, g, 1, l, m))
-    v = torch.tensor(rng.standard_normal((b, g, 1, l, dv)),
+    kf = feats((b, g, hk, l, m))
+    v = torch.tensor(rng.standard_normal((b, g, hk, l, dv)),
                      dtype=torch.float32, device=dev).to(dtype)
     return [qf, kf, v]
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to the
+    nearest value with 10 mantissa bits, ties away from zero (the low 13
+    bits of the f32 pattern cleared)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo) of B5's 3xTF32 split: hi = TF32(x), lo = TF32(x - hi),
+    both rounded to nearest (:func:`tf32_round`), so |x - (hi + lo)| <=
+    2^-22 |x|."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b as B5's mma.sync computes it: each operand split
+    (:func:`tf32_split`), then hi·lo + lo·hi + hi·hi (each product of TF32
+    values exact in f32) summed in f32; ``passes=1`` keeps hi·hi alone
+    (1xTF32)."""
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    if passes == 1:
+        return ah @ bh
+    return ah @ bl + al @ bh + ah @ bh
+
+
+def lin_attn_tf32(qf, kf, v, eps: float = 1e-6, passes: int = 3,
+                  chunk: int = 64) -> torch.Tensor:
+    """Causal linear attention computed as B5's kernel computes it, on
+    any device: 64-key chunks; per chunk c the exclusive prefix states
+    S_in = Σ_{c'<c} K_c'ᵀ V_c' and z_in = Σ_{c'<c} Σ K_c' (f32 sums);
+    A = tril(Q_c K_cᵀ), den = rowsum(A) + Q_c·z_in (f32) and out =
+    (Q_c S_in + A V_c) / (den + eps), every matrix product in 3xTF32
+    (:func:`_mm_tf32`; ``passes=1`` for 1xTF32). Shapes as
+    ``linear_attention_causal``; returns v.dtype. For the tests: it holds
+    the kernel's algorithm and precision against the reference."""
+    q, k, vv = qf.float(), kf.float(), v.float()
+    l = q.shape[-2]
+    s_in = q.new_zeros((*k.shape[:-2], k.shape[-1], vv.shape[-1]))
+    z_in = q.new_zeros((*k.shape[:-2], k.shape[-1], 1))
+    outs = []
+    for c0 in range(0, l, chunk):
+        qc, kc, vc = (x[..., c0:c0 + chunk, :] for x in (q, k, vv))
+        t = qc.shape[-2]
+        mask = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+        a = torch.where(mask, _mm_tf32(qc, kc.transpose(-1, -2), passes),
+                        0.0)
+        den = a.sum(-1, keepdim=True) + qc @ z_in
+        num = _mm_tf32(qc, s_in, passes) + _mm_tf32(a, vc, passes)
+        outs.append(num / (den + eps))
+        s_in = s_in + _mm_tf32(kc.transpose(-1, -2), vc, passes)
+        z_in = z_in + kc.sum(-2)[..., None]
+    return torch.cat(outs, -2).to(v.dtype)
 
 
 def make_featmap_inputs(dev, n, d, r, m, dark, seed,

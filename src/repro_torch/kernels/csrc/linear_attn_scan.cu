@@ -1,5 +1,5 @@
-// Causal linear attention, from a zero state or from a carried one, for
-// Hopper (sm_90a).
+// Causal linear attention, from a zero state (B5) or from a carried one
+// (B4), for Hopper (sm_90a).
 //
 // Replaces: the Pallas TPU kernels of repro/kernels/linear_attn_scan.py,
 //   linear_attention_causal_fwd (body _kernel; C entry linear_attn_causal)
@@ -8,8 +8,8 @@
 //     out_i = qf_i . S_i / (qf_i . z_i + eps),
 //     S_i = S0 + sum_{j<=i} kf_j v_j^T,  z_i = z0 + sum_{j<=i} kf_j
 //   with S0 = 0, z0 = 0 (causal) or the carried state (carry, which also
-//   returns S_L, z_L), computed chunk-parallel: over chunks of kChunk keys
-//   the state increments dS_c = K_c^T V_c (m x dv) and dz_c = sum K_c (m),
+//   returns S_L, z_L), computed chunk-parallel: over chunks of keys the
+//   state increments dS_c = K_c^T V_c (m x dv) and dz_c = sum K_c (m),
 //   and inside a chunk
 //     out = (Q S_in + tril(Q K^T) V) / (Q z_in + rowsum tril(Q K^T) + eps)
 //   with S_in = S0 + sum of the earlier chunks' increments. kf and v are
@@ -17,31 +17,56 @@
 //   of a GQA group share one copy (no broadcast copy). The carried state
 //   is per query row, as the serving pool holds it.
 //
-// What bounds it on the H100: the arithmetic for training. For smollm-135m
-//   training (72 query rows of 512 tokens, m = 256, dv = 64) the function
-//   needs 1.64 GFLOP in its token-serial form, 24 us at the 67 TFLOP/s of
-//   f32 outside the tensor cores; its bytes (qf, kf, v read once, out
-//   written once, 57 MB) take 17 us. A carried serving chunk of 8 rows x 32
-//   tokens is bound by its bytes: the pool's S is read and written once
-//   (2 x 4.7 MB) beside qf and kf (3.1 MB), 3.9 us.
+// What bounds it on the H100. Training (B5; smollm-135m: 72 query rows of
+//   512 tokens, m = 256, dv = 64): its bytes, qf, kf, v read once and out
+//   written once (57 MB), 17 us at 3.35 TB/s; its operations (1.64 GFLOP
+//   in the token-serial form) take 3.3 us at the 495 TFLOP/s of TF32 on
+//   the tensor cores, 24 us at the 67 TFLOP/s of f32 outside them. A
+//   carried serving chunk of 8 rows x 32 tokens (B4) is bound by its
+//   bytes: the pool's S is read and written once (2 x 4.7 MB) beside qf
+//   and kf (3.1 MB), 3.9 us.
 //
-// Design: two launches for causal, three for carry. chunk_state_kernel
-//   computes each chunk's state increment, one block per (KV row, chunk,
-//   64 x 64 tile of S), all in parallel (causal skips the last chunk, which
-//   no later chunk reads; carry needs it for the final state and masks a
-//   partial one). out_kernel runs one block per (query row, 64 query
-//   positions): it forms the causal scores P = tril(Q K^T) against the
-//   keys of its own chunk up to its last position (64-key tiles past it are
-//   skipped) and keeps P in shared memory, then per 64-column tile of dv
-//   sums Q S_in + P V. Every product is a 64 x 64 tile staged through
-//   shared memory in slabs of 32, each thread holding a 4 x 4 block of the
-//   tile in registers. final_state_kernel (carry) then writes S0 + sum dS
-//   and z0 + sum dz, in place over S0, z0: it runs after out_kernel, so no
-//   block still reads the carried state it overwrites.
+// B5's design: 64-key chunks, one prefix state per chunk, every product
+//   on the tensor cores in 3xTF32 (mma.sync m16n8k8: each f32 operand
+//   split into hi = TF32(x) and lo = TF32(x - hi), both rounded to
+//   nearest, and lo hi + hi lo + hi hi summed in f32, so the result keeps
+//   about f32's precision; a bf16 V is exact in TF32 and needs two
+//   products). Three launches:
+//   1a (chunk_delta_kernel) computes every chunk's increment dS_c, dz_c
+//   at once, one block per (KV row, chunk, 32 features, 64 columns of
+//   dv); 1b (prefix_scan_kernel) turns them in place into the exclusive
+//   prefixes S_in[c], z_in[c], a thread per entry walking the chunks;
+//   2 (causal_out_kernel) runs one block per (64 query positions, KV
+//   row, up to 4 query heads of its group): Q, K_c, S_in[c] and z_in[c]
+//   staged by cp.async in feature slabs of 32, a ring of three (K_c,
+//   S_in[c] and z_in[c] once for the block's heads), the scores kept in
+//   registers, masked there and fed to A V_c as the mma's A operand
+//   without a trip through shared memory; a warp skips the key tiles past
+//   its last query row. Every output block reads one prefix state; the
+//   causal mask touches only its own 64 x 64 tile. 1b and 2 may start
+//   while the launch before them finishes (programmatic dependent launch).
+//
+// B4's design (its next redesign takes it onto B5's machinery): kChunk =
+//   256 keys, every product f32 on the CUDA cores. chunk_state_kernel
+//   computes each chunk's increment, one block per (KV row, chunk, 64 x
+//   64 tile of S), all in parallel. out_kernel runs one block per (query
+//   row, 64 query positions): it forms P = tril(Q K^T) against the keys
+//   of its own chunk up to its last position and keeps P in shared
+//   memory, then per 64-column tile of dv sums Q S_in + P V, S_in summed
+//   on the fly from S0 and the earlier increments. Every product is a 64
+//   x 64 tile staged through shared memory in slabs of 32, each thread
+//   holding a 4 x 4 block of the tile in registers. final_state_kernel
+//   then writes S0 + sum dS and z0 + sum dz, in place over S0, z0: it
+//   runs after out_kernel, so no block still reads the carried state it
+//   overwrites.
+#include <cstdint>
+
 #include "prf_common.cuh"
 
 namespace las {
 
+using prf::cp_async_commit;
+using prf::cp_async_wait;
 using prf::from_f;
 using prf::to_f;
 
@@ -270,35 +295,30 @@ __global__ void __launch_bounds__(kThreads) final_state_kernel(
   }
 }
 
-// Causal (s0 and z0 null) or carried (s0, z0 advanced in place) scan.
+// B4: the carried scan, s0 and z0 advanced in place.
 template <typename T>
-int launch(const float* qf, const float* kf, const void* v, float* s0,
-           float* z0, float* ds, float* dz, void* out, int N, int Nk, int L,
-           int m, int dv, float eps, cudaStream_t st) {
+int launch_carry(const float* qf, const float* kf, const void* v, float* s0,
+                 float* z0, float* ds, float* dz, void* out, int N, int Nk,
+                 int L, int m, int dv, float eps, cudaStream_t st) {
   const int nc = (L + kChunk - 1) / kChunk;
-  // increments needed: the earlier chunks' for the outputs, and the last
-  // chunk's too for a carried final state
-  const int ns = s0 != nullptr ? nc : nc - 1;
   const T* vt = static_cast<const T*>(v);
-  if (ns > 0) {
-    const dim3 grid(((m + kTile - 1) / kTile) * ((dv + kTile - 1) / kTile),
-                    ns, Nk);
-    chunk_state_kernel<T><<<grid, kThreads, 0, st>>>(kf, vt, ds, dz, L, m,
-                                                     dv);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
+  const dim3 sgrid(((m + kTile - 1) / kTile) * ((dv + kTile - 1) / kTile),
+                   nc, Nk);
+  chunk_state_kernel<T><<<sgrid, kThreads, 0, st>>>(kf, vt, ds, dz, L, m,
+                                                    dv);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   const size_t shmem =
       sizeof(float) * (kTile * kChunk + 2 * kSlab * kPad + kTile);
   auto kern = out_kernel<T>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)shmem);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)shmem);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((L + kTile - 1) / kTile, N);
   kern<<<grid, kThreads, shmem, st>>>(qf, kf, vt, s0, z0, ds, dz,
                                       static_cast<T*>(out), L, m, dv, N / Nk,
-                                      ns > 1 ? ns : 1, eps);
-  if (s0 == nullptr) return (int)cudaGetLastError();
-  const cudaError_t err = cudaGetLastError();
+                                      nc, eps);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t per_row = (size_t)m * dv + m;
   const dim3 fgrid((unsigned)((per_row + 4 * kThreads - 1) / (4 * kThreads)),
@@ -308,27 +328,478 @@ int launch(const float* qf, const float* kf, const void* v, float* s0,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// B5, causal from a zero state, on the tensor cores (3xTF32 mma.sync)
+// ---------------------------------------------------------------------------
+
+constexpr int kC = 64;          // keys per chunk = query rows per output tile
+constexpr int kMs = 32;         // feature columns per staged slab
+constexpr int kDf = 32;         // features per launch-1a block
+constexpr int kDs = kDf + 4;    // stride of launch 1a's K tile [key][feature]
+constexpr int kDvT = 64;        // dv columns per output pass / state tile
+constexpr int kRs = kMs + 4;    // stride of a [row][feature] slab (Q, K)
+constexpr int kSs = kDvT + 8;   // stride of an S_in slab [feature][dv]
+constexpr int kWarpsPerHead = kC / 16;
+
+// V tile [key][dv] stride: read with two keys a thread (k-index t is key
+// 2t, t + 4 is key 2t + 1), conflict-free for f32 at 68, bf16 at 72
+template <typename T>
+constexpr int kVs = sizeof(T) == 4 ? kDvT + 4 : kDvT + 8;
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x: to the nearest
+// value with 10 mantissa bits, ties away from zero (two integer ops; ptxas
+// lowers the cvt to four, with a guard for Inf and NaN)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, each rounded to TF32: |lo| <= 2^-11 |x|, and hi + lo is
+// within 2^-22 |x| of x
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split4(const float (&a)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(a[i], hi[i], lo[i]);
+}
+
+// d += a b for one m16n8k8 tile: a row-major 16 x 8, b 8 x 8 (k x n)
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32: lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b), small terms
+// first, a given split (split4). ExactB: b is exact in TF32 (a bf16
+// value), so lo(b) = 0 and two products do.
+template <bool ExactB>
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  if constexpr (ExactB) {
+    mma(d, al, __float_as_uint(b0), __float_as_uint(b1));
+    mma(d, ah, __float_as_uint(b0), __float_as_uint(b1));
+  } else {
+    uint32_t h0, l0, h1, l1;
+    split(b0, h0, l0);
+    split(b1, h1, l1);
+    mma(d, ah, l0, l1);
+    mma(d, al, h0, h1);
+    mma(d, ah, h0, h1);
+  }
+}
+
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
+                                            bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// Copy rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of a row-major
+// array (row stride ld) into dst (row stride ds), zero outside [0, rmax)
+// x [0, cmax). vec: 16-byte cp.async (the base and every row start on a
+// 16-byte boundary, cmax a whole number of 16-byte pieces); else plain
+// loads and stores. Runs on the block's NT threads.
+template <int ROWS, int COLS, int NT, typename E>
+__device__ __forceinline__ void stage(E* dst, int ds, const E* src,
+                                      size_t ld, int r0, int rmax, int c0,
+                                      int cmax, bool vec) {
+  constexpr int PV = 16 / sizeof(E);
+  if (vec) {
+    for (int i = threadIdx.x; i < ROWS * COLS / PV; i += NT) {
+      const int r = i / (COLS / PV), c = (i % (COLS / PV)) * PV;
+      const bool ok = r0 + r < rmax && c0 + c < cmax;
+      cp_async16z(dst + r * ds + c,
+                  ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * COLS; i += NT) {
+      const int r = i / COLS, c = i % COLS;
+      dst[r * ds + c] = r0 + r < rmax && c0 + c < cmax
+                            ? src[(size_t)(r0 + r) * ld + c0 + c]
+                            : from_f<E>(0.f);
+    }
+  }
+}
+
+__device__ __forceinline__ bool aligned16(const void* p, size_t row_bytes) {
+  return ((size_t)p | row_bytes) % 16 == 0;
+}
+
+// Two neighbouring columns (col, col + 1) of one row, in T; col + 1 may lie
+// past the row's end (n columns)
+template <typename T>
+__device__ __forceinline__ void store2(T* row, int col, int n, float a,
+                                       float b) {
+  if ((n & 1) == 0 && col + 1 < n) {
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float2*>(row + col) = make_float2(a, b);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(row + col) =
+          __floats2bfloat162_rn(a, b);
+    }
+    return;
+  }
+  if (col < n) row[col] = from_f<T>(a);
+  if (col + 1 < n) row[col + 1] = from_f<T>(b);
+}
+
+// Launch 1a. dS_c = K_c^T V_c (a kDf x kDvT tile of it) and, in the
+// blocks of the first dv tile, dz_c = sum K_c (kDf features), for every
+// chunk c < nc - 1 at once, into slot c of s_in (Nk, nc - 1, m, dv) and
+// z_in (Nk, nc - 1, m). Grid: (feature slabs * dv tiles, nc - 1, Nk); 128
+// threads, warp w owning features 16 (w % 2) .. + 16 and dv columns
+// 32 (w / 2) .. + 32.
+template <typename T>
+__global__ void __launch_bounds__(128) chunk_delta_kernel(
+    const float* __restrict__ kf, const T* __restrict__ v,
+    float* __restrict__ s_in, float* __restrict__ z_in, int L, int m,
+    int dv) {
+  constexpr int kV = kVs<T>;
+  __shared__ __align__(16) float ks[kC * kDs];
+  __shared__ __align__(16) T vs[kC * kV];
+  const int ndv = (dv + kDvT - 1) / kDvT;
+  const int i0 = (blockIdx.x / ndv) * kDf, j0 = (blockIdx.x % ndv) * kDvT;
+  const int c = blockIdx.y, nk = blockIdx.z, nc1 = gridDim.y;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7,
+            t = threadIdx.x & 3;
+  const int r0 = 16 * (warp & 1), n0 = 32 * (warp >> 1);
+  stage<kC, kDf, 128>(ks, kDs, kf + ((size_t)nk * L + c * kC) * m, m, 0, kC,
+                      i0, m, aligned16(kf, m * 4));
+  stage<kC, kDvT, 128>(vs, kV, v + ((size_t)nk * L + c * kC) * dv, dv, 0, kC,
+                       j0, dv, aligned16(v, dv * sizeof(T)));
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  prf::grid_dependents_launch();
+  float acc[4][4] = {};
+#pragma unroll
+  for (int k0 = 0; k0 < kC; k0 += 8) {
+    // A = K_c^T (features x keys), k-index t -> key 2t, t + 4 -> 2t + 1
+    const float* a0 = ks + (k0 + 2 * t) * kDs + r0 + g;
+    const float a[4] = {a0[0], a0[8], a0[kDs], a0[kDs + 8]};
+    uint32_t ah[4], al[4];
+    split4(a, ah, al);
+    const T* b = vs + (k0 + 2 * t) * kV + n0 + g;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      mma3<sizeof(T) == 2>(acc[j], ah, al, to_f(b[8 * j]),
+                           to_f(b[kV + 8 * j]));
+  }
+  float* so = s_in + ((size_t)nk * nc1 + c) * m * dv;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      const int i = i0 + r0 + g + 4 * e;
+      if (i < m)
+        store2(so + (size_t)i * dv, j0 + n0 + 8 * j + 2 * t, dv, acc[j][e],
+               acc[j][e + 1]);
+    }
+  if (j0 == 0) {
+    // column sums of the slab: 4 lanes a column, 16 keys each
+    const int col = threadIdx.x >> 2;
+    float zs = 0.f;
+#pragma unroll
+    for (int key = t; key < kC; key += 4) zs += ks[key * kDs + col];
+    zs = prf::group_sum(zs);
+    if (t == 0 && i0 + col < m)
+      z_in[((size_t)nk * nc1 + c) * m + i0 + col] = zs;
+  }
+}
+
+// Launch 1b. The increments of launch 1a turned, in place, into the
+// prefixes the outputs read: slot c - 1 of s_in and z_in becomes S_in[c]
+// = sum_{c' < c} dS_c' and z_in[c], one thread per entry of a KV row's
+// (S, z) walking the nc - 1 slots. Grid: (ceil((m dv + m) / 256), Nk).
+__global__ void __launch_bounds__(256) prefix_scan_kernel(
+    float* __restrict__ s_in, float* __restrict__ z_in, int m, int dv,
+    int nc1) {
+  prf::grid_dependency_wait();
+  prf::grid_dependents_launch();
+  const size_t ms = (size_t)m * dv;
+  const size_t e = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (e >= ms + m) return;
+  float* p = e < ms ? s_in + (size_t)blockIdx.y * nc1 * ms + e
+                    : z_in + (size_t)blockIdx.y * nc1 * m + (e - ms);
+  const size_t step = e < ms ? ms : m;
+  float acc = 0.f;
+  for (int c0 = 0; c0 < nc1; c0 += 8, p += 8 * step) {
+    float x[8];                       // eight slots' loads in flight at once
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = c0 + i < nc1 ? p[i * step] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (c0 + i < nc1) p[i * step] = acc += x[i];
+  }
+}
+
+// Launch 2. out for the 64 query positions p0 = 64 c .. of HB query heads
+// of one KV group: per head (4 warps, 16 rows each)
+//   A = tril(Q_c K_c^T),  den = rowsum(A) + Q_c z_in[c],
+//   out = (Q_c S_in[c] + A V_c) / (den + eps)
+// over feature slabs of kMs, a ring of kOutStages<HB> slabs staged by
+// cp.async, K_c, S_in[c] and z_in[c] once for the HB heads. A stays in
+// registers and feeds A V_c as the mma's A operand directly (its keys
+// taken in the order the accumulator holds them); a warp skips the key
+// tiles past its last query row, and the heads of a block rotate their
+// row blocks over the warps so that each SM sub-partition gets a share
+// of the short and the long rows. dv > 64 takes further passes of kDvT
+// columns, each restaging Q_c and S_in[c]. Grid: (ceil(L / 64), Nk *
+// ceil(h / HB)).
+template <int HB>
+constexpr int kOutStages = HB == 1 ? 2 : 3;
+template <int HB>
+constexpr int kOutStage = (HB + 1) * kC * kRs + kMs * kSs + kMs;
+template <typename T, int HB>
+constexpr size_t kOutSmem =
+    sizeof(float) * kOutStages<HB> * kOutStage<HB> + sizeof(T) * kC * kVs<T>;
+
+template <typename T, int HB>
+__global__ void __launch_bounds__(128 * HB) causal_out_kernel(
+    const float* __restrict__ qf, const float* __restrict__ kf,
+    const T* __restrict__ v, const float* __restrict__ s_in,
+    const float* __restrict__ z_in, T* __restrict__ out, int L, int m, int dv,
+    int h, float eps) {
+  constexpr int NT = 128 * HB, kV = kVs<T>, kQ = kC * kRs;
+  constexpr int kStages = kOutStages<HB>, kStage = kOutStage<HB>;
+  extern __shared__ __align__(16) float smem[];
+  T* vs = reinterpret_cast<T*>(smem + kStages * kStage);
+  const int c = blockIdx.x, p0 = c * kC, nc1 = (L + kC - 1) / kC - 1;
+  const int nhb = (h + HB - 1) / HB;
+  const int nk = blockIdx.y / nhb, hb = blockIdx.y % nhb;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7,
+            t = threadIdx.x & 3;
+  const int hs = warp / kWarpsPerHead;
+  const int rb = 16 * ((warp + hs) % kWarpsPerHead);
+  const int jmax = rb / 8 + 2;        // key tiles up to the warp's last row
+  const int nheads = min(HB, h - hb * HB);
+  const bool active = hs < nheads;
+  const int n = nk * h + hb * HB + hs;
+  const float* qc = qf + ((size_t)(nk * h + hb * HB) * L + p0) * m;
+  const float* kc = kf + ((size_t)nk * L + p0) * m;
+  const T* vc = v + ((size_t)nk * L + p0) * dv;
+  const size_t slot = c > 0 ? (size_t)nk * nc1 + c - 1 : 0;
+  const float* sc = s_in + slot * m * dv;
+  const float* zc = z_in + slot * m;
+  const int rows = min(kC, L - p0);
+  const bool vec_q = aligned16(qf, m * 4), vec_k = aligned16(kf, m * 4),
+             vec_s = aligned16(s_in, dv * 4), vec_z = aligned16(z_in, m * 4),
+             vec_v = aligned16(v, dv * sizeof(T));
+  const int nms = (m + kMs - 1) / kMs;
+
+  float acc_a[8][4] = {}, den[2] = {0.f, 0.f};
+  for (int j0 = 0; j0 < dv; j0 += kDvT) {
+    const bool first = j0 == 0;
+    stage<kC, kDvT, NT>(vs, kV, vc, dv, 0, rows, j0, dv, vec_v);
+    cp_async_commit();
+    auto issue = [&](int s) {
+      float* st = smem + (s % kStages) * kStage;
+      const int f0 = s * kMs;
+      for (int hh = 0; hh < nheads; ++hh)
+        stage<kC, kMs, NT>(st + hh * kQ, kRs, qc + (size_t)hh * L * m, m, 0,
+                           rows, f0, m, vec_q);
+      if (first)
+        stage<kC, kMs, NT>(st + HB * kQ, kRs, kc, m, 0, rows, f0, m, vec_k);
+      if (c > 0) {
+        stage<kMs, kDvT, NT>(st + (HB + 1) * kQ, kSs, sc, dv, f0, m, j0, dv,
+                             vec_s);
+        if (first)
+          stage<1, kMs, NT>(st + (HB + 1) * kQ + kMs * kSs, kMs, zc, m, 0, 1,
+                            f0, m, vec_z);
+      }
+    };
+    float acc_n[8][4] = {}, qz[2] = {0.f, 0.f};
+    if (first || c > 0) {
+      if (first) prf::grid_dependency_wait();   // s_in, z_in of launch 1b
+#pragma unroll
+      for (int s = 0; s < kStages - 1; ++s) {
+        if (s < nms) issue(s);
+        cp_async_commit();
+      }
+      for (int s = 0; s < nms; ++s) {
+        cp_async_wait<kStages - 2>();
+        __syncthreads();              // slab s landed; s - 1 fully read
+        if (s + kStages - 1 < nms) issue(s + kStages - 1);
+        cp_async_commit();
+        if (!active) continue;
+        const float* st = smem + (s % kStages) * kStage;
+        const float* qs = st + hs * kQ + (rb + g) * kRs + t;
+        const float* ks = st + HB * kQ + g * kRs + t;
+        const float* ss = st + (HB + 1) * kQ + t * kSs + g;
+        const float* zs = st + (HB + 1) * kQ + kMs * kSs + t;
+#pragma unroll
+        for (int k0 = 0; k0 < kMs; k0 += 8) {
+          const float a[4] = {qs[k0], qs[8 * kRs + k0], qs[k0 + 4],
+                              qs[8 * kRs + k0 + 4]};
+          uint32_t ah[4], al[4];
+          split4(a, ah, al);
+          if (first) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              if (j < jmax)
+                mma3<false>(acc_a[j], ah, al, ks[8 * j * kRs + k0],
+                            ks[8 * j * kRs + k0 + 4]);
+            if (c > 0) {
+              qz[0] += a[0] * zs[k0] + a[2] * zs[k0 + 4];
+              qz[1] += a[1] * zs[k0] + a[3] * zs[k0 + 4];
+            }
+          }
+          if (c > 0) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              mma3<false>(acc_n[j], ah, al, ss[k0 * kSs + 8 * j],
+                          ss[(k0 + 4) * kSs + 8 * j]);
+          }
+        }
+      }
+    }
+    if (first && active) {
+      // causal mask (key <= query within the chunk), then the row sums
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = rb + g + 8 * (e >> 1), key = 8 * j + 2 * t + (e & 1);
+          if (key > qi) acc_a[j][e] = 0.f;
+          rs[e >> 1] += acc_a[j][e];
+        }
+      den[0] = prf::group_sum(rs[0] + qz[0]) + eps;
+      den[1] = prf::group_sum(rs[1] + qz[1]) + eps;
+    }
+    cp_async_wait<0>();
+    __syncthreads();                  // V_c landed
+    if (active) {
+      // + A V_c: the accumulator's entries (g, 2t), (g, 2t + 1), (g + 8,
+      // 2t), (g + 8, 2t + 1) of key tile j are the A operand with k-index
+      // t -> key 2t and t + 4 -> key 2t + 1
+      const T* b = vs + 2 * t * kV + g;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j >= jmax) break;
+        const float a[4] = {acc_a[j][0], acc_a[j][2], acc_a[j][1],
+                            acc_a[j][3]};
+        uint32_t ah[4], al[4];
+        split4(a, ah, al);
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn)
+          mma3<sizeof(T) == 2>(acc_n[jn], ah, al,
+                               to_f(b[8 * j * kV + 8 * jn]),
+                               to_f(b[(8 * j + 1) * kV + 8 * jn]));
+      }
+      T* on = out + ((size_t)n * L + p0) * dv;
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int qi = rb + g + 4 * e;
+          if (qi < rows)
+            store2(on + (size_t)qi * dv, j0 + 8 * jn + 2 * t, dv,
+                   acc_n[jn][e] / den[e >> 1],
+                   acc_n[jn][e + 1] / den[e >> 1]);
+        }
+    }
+    __syncthreads();                  // V and the slabs are free again
+  }
+}
+
+// Launch 2; after launch 1b (nc > 1) it may start while 1b finishes, and
+// then reads qf, kf and v before it waits: launch 1a, before 1b, started
+// only when the kernels that wrote them had finished.
+template <typename T, int HB>
+int launch_out(const float* qf, const float* kf, const T* v,
+               const float* s_in, const float* z_in, T* out, int N, int Nk,
+               int L, int m, int dv, float eps, cudaStream_t st) {
+  constexpr size_t shmem = kOutSmem<T, HB>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      causal_out_kernel<T, HB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)shmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int h = N / Nk;
+  const dim3 grid((L + kC - 1) / kC, Nk * ((h + HB - 1) / HB));
+  if (L > kC)
+    return prf::launch_after(causal_out_kernel<T, HB>, grid, 128 * HB,
+                             shmem, st, qf, kf, v, s_in, z_in, out, L, m, dv,
+                             h, eps);
+  causal_out_kernel<T, HB><<<grid, 128 * HB, shmem, st>>>(
+      qf, kf, v, s_in, z_in, out, L, m, dv, h, eps);
+  return (int)cudaGetLastError();
+}
+
+// B5: launches 1a and 1b (when there is more than one chunk), then launch
+// 2 with the query heads of a KV group split evenly over blocks of at
+// most 4 heads (8 heads: 4 + 4; 5: 3 + 2). 1b and 2 may start while the
+// launch before them finishes (programmatic dependent launch).
+template <typename T>
+int launch_causal(const float* qf, const float* kf, const void* v,
+                  float* s_in, float* z_in, void* out, int N, int Nk, int L,
+                  int m, int dv, float eps, cudaStream_t st) {
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(out);
+  const int nc1 = (L + kC - 1) / kC - 1;
+  if (nc1 > 0) {
+    const dim3 grid(((m + kDf - 1) / kDf) * ((dv + kDvT - 1) / kDvT), nc1,
+                    Nk);
+    chunk_delta_kernel<T><<<grid, 128, 0, st>>>(kf, vt, s_in, z_in, L, m,
+                                                dv);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const size_t per_row = (size_t)m * dv + m;
+    err = (cudaError_t)prf::launch_after(
+        prefix_scan_kernel, dim3((unsigned)((per_row + 255) / 256), Nk), 256,
+        0, st, s_in, z_in, m, dv, nc1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int h = N / Nk, blocks = (h + 3) / 4;
+  switch ((h + blocks - 1) / blocks) {
+    case 1:
+      return launch_out<T, 1>(qf, kf, vt, s_in, z_in, ot, N, Nk, L, m, dv,
+                              eps, st);
+    case 2:
+      return launch_out<T, 2>(qf, kf, vt, s_in, z_in, ot, N, Nk, L, m, dv,
+                              eps, st);
+    case 3:
+      return launch_out<T, 3>(qf, kf, vt, s_in, z_in, ot, N, Nk, L, m, dv,
+                              eps, st);
+    default:
+      return launch_out<T, 4>(qf, kf, vt, s_in, z_in, ot, N, Nk, L, m, dv,
+                              eps, st);
+  }
+}
+
 }  // namespace las
 
 // qf: (N, L, m) f32; kf: (Nk, L, m) f32; v: (Nk, L, dv) f32 or bf16;
-// query row n reads KV row n / (N / Nk). ds: (Nk, max(nc - 1, 1), m, dv)
-// and dz: (Nk, max(nc - 1, 1), m) f32 scratch; out: (N, L, dv) in v's type.
+// query row n reads KV row n / (N / Nk). s_in: (Nk, max(nc - 1, 1), m, dv)
+// and z_in: (Nk, max(nc - 1, 1), m) f32 scratch, nc = ceil(L / 64); out:
+// (N, L, dv) in v's type.
 extern "C" int linear_attn_causal(const float* qf, const float* kf,
-                                  const void* v, float* ds, float* dz,
+                                  const void* v, float* s_in, float* z_in,
                                   void* out, int N, int Nk, int L, int m,
                                   int dv, int bf16_v, float eps,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16_v)
-    return las::launch<__nv_bfloat16>(qf, kf, v, nullptr, nullptr, ds, dz,
-                                      out, N, Nk, L, m, dv, eps, st);
-  return las::launch<float>(qf, kf, v, nullptr, nullptr, ds, dz, out, N, Nk,
-                            L, m, dv, eps, st);
+    return las::launch_causal<__nv_bfloat16>(qf, kf, v, s_in, z_in, out, N,
+                                             Nk, L, m, dv, eps, st);
+  return las::launch_causal<float>(qf, kf, v, s_in, z_in, out, N, Nk, L, m,
+                                   dv, eps, st);
 }
 
 // As linear_attn_causal, resumed from the carried state s0: (N, m, dv) and
 // z0: (N, m) f32 of each query row, which end advanced over the L tokens
-// (in place). ds: (Nk, nc, m, dv) and dz: (Nk, nc, m) f32 scratch.
+// (in place). ds: (Nk, nc, m, dv) and dz: (Nk, nc, m) f32 scratch, nc =
+// ceil(L / 256).
 extern "C" int linear_attn_carry(const float* qf, const float* kf,
                                  const void* v, float* s0, float* z0,
                                  float* ds, float* dz, void* out, int N,
@@ -336,8 +807,8 @@ extern "C" int linear_attn_carry(const float* qf, const float* kf,
                                  float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16_v)
-    return las::launch<__nv_bfloat16>(qf, kf, v, s0, z0, ds, dz, out, N, Nk,
-                                      L, m, dv, eps, st);
-  return las::launch<float>(qf, kf, v, s0, z0, ds, dz, out, N, Nk, L, m, dv,
-                            eps, st);
+    return las::launch_carry<__nv_bfloat16>(qf, kf, v, s0, z0, ds, dz, out,
+                                            N, Nk, L, m, dv, eps, st);
+  return las::launch_carry<float>(qf, kf, v, s0, z0, ds, dz, out, N, Nk, L,
+                                  m, dv, eps, st);
 }

@@ -11,7 +11,14 @@ kernels are ``csrc/linear_attn_scan.cu``; per query row they compute
 
 chunk-parallel, with kf and v read once per KV row: the Hk rows of kf and
 v serve the H query rows of qf, query head h reading KV head h·Hk/H, so a
-GQA group's heads need no broadcast copy (Hk is 1 or H).
+GQA group's heads need no broadcast copy (Hk is 1 or H). B5 runs on the
+tensor cores in 3xTF32 over 64-key chunks, in three launches: every
+chunk's state increment into a scratch, an in-place scan of the scratch
+into one prefix state (S_in, z_in) per chunk, then the outputs, a block
+per 64 query positions and KV row serving up to 4 heads of the group
+(``check.lin_attn_tf32`` mirrors its arithmetic on the CPU); its
+``launches`` counts one per call. B4 keeps f32 products on the CUDA
+cores over 256-key chunks.
 
 :func:`linear_attention_causal` (B5, training) starts from S0 = 0, z0 = 0
 and is an autograd Function. Its backward is autograd of
@@ -40,7 +47,8 @@ from repro_torch.kernels._launch import (F, I, INPUT_DTYPES, P, check_cuda,
                                          expect, ptr, stream)
 
 F32 = (torch.float32,)
-CHUNK = 256                   # keys per state chunk (kChunk in the .cu)
+CHUNK = 256                   # keys per B4 state chunk (kChunk in the .cu)
+CAUSAL_CHUNK = 64             # keys per B5 state chunk (kC in the .cu)
 MAX_ROWS = 65535              # query rows: the launch grid's y extent
 launches = 0
 carry_launches = 0
@@ -103,14 +111,14 @@ def _launch(qf, kf, v, eps, n, nk, l, m, dv):
     if n > MAX_ROWS:
         raise ValueError(f"linear_attention_causal takes at most {MAX_ROWS} "
                          f"query rows, got {n}")
-    nc1 = max(-(-l // CHUNK) - 1, 1)
+    nc1 = max(-(-l // CAUSAL_CHUNK) - 1, 1)
     dev = qf.device
-    ds = torch.empty((nk, nc1, m, dv), dtype=torch.float32, device=dev)
-    dz = torch.empty((nk, nc1, m), dtype=torch.float32, device=dev)
+    s_in = torch.empty((nk, nc1, m, dv), dtype=torch.float32, device=dev)
+    z_in = torch.empty((nk, nc1, m), dtype=torch.float32, device=dev)
     out = torch.empty((*qf.shape[:-1], dv), dtype=v.dtype, device=dev)
-    err = _c_fns()[0](ptr(qf), ptr(kf), ptr(v), ptr(ds), ptr(dz), ptr(out),
-                      n, nk, l, m, dv, int(v.dtype == torch.bfloat16), eps,
-                      stream(dev))
+    err = _c_fns()[0](ptr(qf), ptr(kf), ptr(v), ptr(s_in), ptr(z_in),
+                      ptr(out), n, nk, l, m, dv,
+                      int(v.dtype == torch.bfloat16), eps, stream(dev))
     check_cuda(err, "linear_attn_causal")
     launches += 1
     return out

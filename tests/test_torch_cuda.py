@@ -184,18 +184,24 @@ def test_prefill_kernel_updates_in_place_without_pool_copies(dev, b, l):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,g,hg,l,m,dv,dtype", [
-    (8, 3, 3, 512, 256, 64, torch.bfloat16),  # smollm-135m training
-    (2, 3, 3, 777, 256, 64, torch.float32),   # ragged last chunk
-    (2, 1, 8, 100, 256, 256, torch.float32),  # darkformer-2b heads
-    (3, 2, 2, 1, 32, 16, torch.float32),      # one token
-    (1, 2, 3, 256, 32, 80, torch.bfloat16),   # one full chunk, dv > 64
+@pytest.mark.parametrize("b,g,hg,hk,l,m,dv,dtype", [
+    (8, 3, 3, 1, 512, 256, 64, torch.bfloat16),  # smollm-135m training
+    (2, 3, 3, 1, 777, 256, 64, torch.float32),   # ragged last chunk
+    (2, 1, 8, 1, 100, 256, 256, torch.float32),  # darkformer-2b heads
+    (3, 2, 2, 1, 1, 32, 16, torch.float32),      # one token
+    (1, 2, 3, 1, 256, 32, 80, torch.bfloat16),   # four chunks, dv > 64
+    (4, 3, 3, 1, 64, 256, 64, torch.float32),    # one 64-key tile
+    (4, 3, 3, 1, 65, 256, 64, torch.bfloat16),   # one key past it
+    (2, 3, 3, 1, 2048, 256, 64, torch.bfloat16),  # 31 prefix states
+    (2, 3, 3, 3, 300, 256, 64, torch.float32),   # kf, v per query head
+    (1, 2, 5, 1, 130, 36, 12, torch.float32),    # 3 + 2 heads, narrow m, dv
+    (1, 1, 2, 1, 70, 30, 10, torch.bfloat16),    # rows not 16-byte multiples
 ])
-def test_linear_attention_kernel_matches_plain(dev, b, g, hg, l, m, dv,
+def test_linear_attention_kernel_matches_plain(dev, b, g, hg, hk, l, m, dv,
                                                dtype):
     """B5 forward and gradients against autograd of its plain version."""
     args = check.make_lin_attn_inputs(dev, b, g, hg, l, m, dv, seed=l,
-                                      dtype=dtype)
+                                      dtype=dtype, hk=hk)
     check.check_autograd(
         "linear_attention_causal", kl,
         lambda q, k, v: kl.linear_attention_causal(q, k, v, eps=1e-8),
