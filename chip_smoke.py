@@ -19,9 +19,10 @@ Phases, each printed as a JSON line:
      version and timed at each of the packer's four grants, 8 x 32 to
      1 x 256, and held at L = 300, a partial second T-chunk), the
      training kernels at its training shapes, the
-     two-stage kernels (prf_decode_step and the carried scan, also
-     chained over three uneven chunks) at the serving shape, and wkv6 at
-     the rwkv6-7b geometry;
+     two-stage kernels (prf_decode_step at the serving shape; the
+     carried scan with and without a rho < 1, at the packer's four grants
+     and darkformer-2b's heads, also chained over three uneven chunks, and
+     timed at those shapes) and wkv6 at the rwkv6-7b geometry;
   3. main path: smollm-135m at full width (random weights from a seed)
      served by the port's ``ServingEngine`` through the fused kernels,
      with every kernel's launch count checked against the engine's
@@ -29,7 +30,8 @@ Phases, each printed as a JSON line:
      3b. two-stage serving: the same traffic with the LM's serve entry
      points pinned to ``fused=False`` (B4 per prefill call, B3 per decode
      step, no fused launch); throughput, TTFT and TPOT beside phase 3's,
-     and the share of greedy tokens equal to phase 3's streams;
+     the share of greedy tokens equal to phase 3's streams and the
+     histogram of B4's call shapes;
   4. cross-device: one prefill chunk and two decode steps on the card
      (kernels) and on the CPU (plain path) with the same params, logits
      and every layer's state compared; a planted fault must fail the
@@ -375,15 +377,17 @@ def prefill_grant_timing(torch, dev, kp):
     return out
 
 
-def serve(torch, dev, cfg, params, counters, shapes=None):
+def serve(torch, dev, cfg, params, counters, shapes=None,
+          shaped="fused_prf_prefill"):
     """The 16 requests of the serving phases (prompts of 64-512 tokens,
     32-64 new ones, 8 slots, chunk_tokens 256) through the port's
     ``ServingEngine``, after a short warm-up engine (cuBLAS, allocator,
     libraries). Every count of ``counters`` is set to 0 just before the
     run and read just after; ``shapes``, a Counter, gets one count per
-    B2 call of the run under its "<rows>x<tokens>". Returns (the phase's
-    JSON fields, the launches, each request's tokens in submission
-    order, engine stats)."""
+    call of the prefill kernel ``shaped`` (B2's wrapper, or B4's) in the
+    run under its "<rows>x<tokens>". Returns (the phase's JSON fields,
+    the launches, each request's tokens in submission order, engine
+    stats)."""
     import contextlib
     from unittest import mock
     from repro_torch import kernels as kops
@@ -407,12 +411,12 @@ def serve(torch, dev, cfg, params, counters, shapes=None):
     torch.cuda.synchronize()
     record = contextlib.nullcontext()
     if shapes is not None:
-        fused_prefill = kops.fused_prf_prefill
+        prefill = getattr(kops, shaped)
 
         def counted(q, *args, **kw):
             shapes[f"{q.shape[0]}x{q.shape[3]}"] += 1
-            return fused_prefill(q, *args, **kw)
-        record = mock.patch.object(kops, "fused_prf_prefill", counted)
+            return prefill(q, *args, **kw)
+        record = mock.patch.object(kops, shaped, counted)
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     with record:
@@ -494,24 +498,31 @@ def phase_two_stage_serve(torch, dev, cfg, params, counters, main):
     from unittest import mock
     from repro_torch.models import lm
 
+    shapes = collections.Counter()
     with mock.patch.multiple(
             lm, prefill_chunk=functools.partial(lm.prefill_chunk,
                                                 fused=False),
             decode_step=functools.partial(lm.decode_step, fused=False)):
-        fields, launches, two, st = serve(torch, dev, cfg, params, counters)
+        fields, launches, two, st = serve(
+            torch, dev, cfg, params, counters, shapes,
+            shaped="linear_attention_prefill_chunk")
     streams, main_fields = main
     same = [a == b for s1, s2 in zip(streams, two) for a, b in zip(s1, s2)]
     emit({"phase": "two_stage_serve", **fields,
           "main_path": {k: main_fields[k] for k in (
               "throughput_tok_s", "ttft_p50_ms", "tpot_p50_ms",
               "tpot_p99_ms")},
-          "greedy_tokens_equal_to_main_path": sum(same) / len(same)})
+          "greedy_tokens_equal_to_main_path": sum(same) / len(same),
+          "prefill_call_shapes": dict(sorted(shapes.items()))})
     want = {n: 0 for n in counters}
     want["linear_attention_carry"] = st["prefill_calls"] * cfg.n_layers
     want["prf_decode_step"] = st["decode_steps"] * cfg.n_layers
     if launches != want:
         fail(f"two-stage serve: launches {launches}, expected {want} "
              f"(prefill calls and decode steps x {cfg.n_layers} layers)")
+    if sum(shapes.values()) != want["linear_attention_carry"]:
+        fail(f"two-stage serve: B4 call shapes {dict(shapes)} do not add "
+             f"up to its {want['linear_attention_carry']} launches")
     return launches
 
 
@@ -770,15 +781,31 @@ def phase_two_stage_kernels(torch, dev, kds, kl, kw):
             kds.prf_decode_step_plain, args, (3, 4), eps=1e-8))
     carry = (lambda: kl.carry_launches, kl.linear_attention_prefill_chunk,
              kl.linear_attention_carry_plain)
+
+    def carry_case(b, g, hg, hk, l, dv, dt, rho):
+        name = (f"linear_attention_carry B={b} G={g} Hg={hg} L={l} Hk={hk} "
+                f"dv={dv} v={str(dt).split('.')[-1]} s0,z0 nonzero"
+                f"{' rho<1' if rho else ''}")
+        args = kc.make_carry_inputs(dev, b, g, hg, hk, l, 256, dv,
+                                    seed=len(cases), dtype=dt)
+        kw = {"rho": kc.make_carry_rho(dev, b, g, hg, seed=len(cases))
+              } if rho else {}
+        record("linear_attention_carry", name, kc.check_case(
+            name, *carry, args, (3, 4), eps=1e-8, **kw))
     for l in (1, 37, 256, 300, 512):
         for hk in (1, 3):
             for dt in (torch.bfloat16, torch.float32):
-                name = (f"linear_attention_carry N=18 L={l} Hk={hk} "
-                        f"v={str(dt).split('.')[-1]} s0,z0 nonzero")
-                args = kc.make_carry_inputs(dev, 2, 3, 3, hk, l, 256, 64,
-                                            seed=len(cases), dtype=dt)
-                record("linear_attention_carry", name, kc.check_case(
-                    name, *carry, args, (3, 4), eps=1e-8))
+                carry_case(2, 3, 3, hk, l, 64, dt, rho=False)
+    for l in (37, 300):
+        for hk in (1, 3):
+            carry_case(2, 3, 3, hk, l, 64, torch.float32, rho=True)
+    for dt in (torch.bfloat16, torch.float32):
+        for b, l in GRANTS:                       # smollm-135m's heads
+            carry_case(b, 3, 3, 1, l, 64, dt, rho=True)
+        for b, l in ((8, 32), (1, 256)):          # darkformer-2b's
+            carry_case(b, 1, 8, 1, l, 256, dt, rho=True)
+    for b, l in ((3, 64), (5, 32)):               # the packer's most
+        carry_case(b, 3, 3, 1, l, 64, torch.bfloat16, rho=True)  # frequent
     record("linear_attention_carry", "linear_attention_carry chunks "
            "256+37+307 vs one pass of 600",
            kc.check_carry_chained(dev, seed=99))
@@ -821,34 +848,73 @@ def carry_flops(rows, kv_rows, l, m, dv, chunk=256):
     return min(serial, chunked)
 
 
-def carry_timing(torch, dev, kl, b, l):
-    """B4 at ``b`` rows x ``l`` tokens of smollm-135m (bf16 v, the pool's
-    state advanced in place): CUDA events and device time beside its
-    plain version and its bound (operations: :func:`carry_flops`)."""
-    from repro_torch.kernels import check as kc
-
-    g, hg, m, dv = 3, 3, 256, 64
-    args = kc.make_carry_inputs(dev, b, g, hg, 1, l, m, dv, seed=14,
-                                dtype=torch.bfloat16)
+def carry_times(torch, args, call, plain, rho=None, by_kernel=False):
+    """B4's numbers for ``call``, one launch on ``args`` (qf, kf, v, s0,
+    z0, as ``check.make_carry_inputs`` makes them, the state advanced in
+    place): CUDA events and device time beside ``plain`` (its plain
+    version) and two bounds, each max(bytes / 3.35 TB/s, operations /
+    peak): ``bound_ms`` at the 495 TFLOP/s of TF32 on the tensor cores,
+    where the kernel computes, ``bound_f32_simt_ms`` at the 67 TFLOP/s of
+    f32 outside them (operations: :func:`carry_flops`; bytes: qf, kf, v,
+    S0 and z0 in and out, out). ``rho`` (None or the ρ given) names the
+    shape; ``by_kernel`` adds the device time of each launch
+    (:func:`device_ms_by_kernel`)."""
     qf, kf_, v, s0, z0 = args
+    b, g, hg, l, m = qf.shape
+    dv = v.shape[-1]
     rows, kv_rows = b * g * hg, b * g
     flops = carry_flops(rows, kv_rows, l, m, dv)
     byts = nbytes(qf, kf_, v) + 2 * nbytes(s0, z0) + rows * l * dv * 2
-    bms, by = bound(byts, flops)
-    return {
-        "shape": f"B={b} L={l} G={g} Hg={hg} m={m} dv={dv} v=bf16",
-        **kernel_times(torch, lambda: kl.linear_attention_prefill_chunk(
-            *args, eps=1e-8), 100),
-        "plain_ms": time_ms(torch, lambda: kl.linear_attention_carry_plain(
-            *args, 1e-8), 30),
-        "bound_ms": bms, "bound_by": by, "bytes": byts, "flops": flops}
+    bms, by = bound(byts, flops, TF32_FLOPS)
+    out = {
+        "shape": (f"B={b} L={l} G={g} Hg={hg} m={m} dv={dv} v=bf16"
+                  f"{'' if rho is None else ' rho<1'}"),
+        **kernel_times(torch, call, 100),
+        "plain_ms": time_ms(torch, plain, 30),
+        "bound_ms": bms, "bound_by": by,
+        "bound_f32_simt_ms": bound(byts, flops)[0], "bytes": byts,
+        "flops": flops}
+    if by_kernel:
+        out["device_ms_by_kernel"] = device_ms_by_kernel(torch, call, 10)
+    return out
+
+
+def carry_timing(torch, dev, kl, b, l, g=3, hg=3, dv=64, rho=True,
+                 by_kernel=False):
+    """B4 at ``b`` rows x ``l`` tokens (smollm-135m's heads unless ``g``,
+    ``hg``, ``dv`` say otherwise; bf16 v, the pool's state scaled by a
+    ρ < 1 per query row when ``rho`` and advanced in place), as
+    :func:`carry_times` reports it."""
+    from repro_torch.kernels import check as kc
+
+    args = kc.make_carry_inputs(dev, b, g, hg, 1, l, 256, dv, seed=14,
+                                dtype=torch.bfloat16)
+    r = kc.make_carry_rho(dev, b, g, hg, seed=14) if rho else None
+    return carry_times(
+        torch, args,
+        lambda: kl.linear_attention_prefill_chunk(*args, rho=r, eps=1e-8),
+        lambda: kl.linear_attention_carry_plain(*args, 1e-8, rho=r),
+        r, by_kernel)
+
+
+# B4's timed shapes (phase 2f, scripts/torch_lin_attn_shapes.py): the four
+# grants at smollm-135m's heads, then darkformer-2b's (G 1, Hg 8, dv 256)
+# at 8 x 32 and 1 x 256, as (key, b, l, g, hg, dv); "linear_attention_carry"
+# is the 8 x 32 one
+CARRY_SHAPES = (
+    ("linear_attention_carry", 8, 32, 3, 3, 64),
+    *((f"linear_attention_carry_{b}x{l}", b, l, 3, 3, 64)
+      for b, l in GRANTS[1:]),
+    ("linear_attention_carry_darkformer_8x32", 8, 32, 1, 8, 256),
+    ("linear_attention_carry_darkformer_1x256", 1, 256, 1, 8, 256))
 
 
 def phase_two_stage_timing(torch, dev, kds, kl, kw):
     """Phase 2f: B3, B4 and B7 timed (CUDA events) beside their plain
-    versions and bounds. B3 at 8 slots of smollm-135m; B4 at B2's timing
-    shape (8 rows x 32 tokens) and at one row x 256 tokens, bf16 v, the
-    pool's state advanced in place; B7 at the rwkv6-7b geometry, 512
+    versions and bounds. B3 at 8 slots of smollm-135m; B4 at the
+    packer's four grants at smollm-135m's heads and at darkformer-2b's at
+    8 x 32 and 1 x 256 (:data:`CARRY_SHAPES`), bf16 v, the pool's state
+    scaled by ρ and advanced in place; B7 at the rwkv6-7b geometry, 512
     rows (64 heads x batch 8) x 512 tokens, dh 64, f32."""
     from repro_torch.kernels import check as kc
 
@@ -867,8 +933,8 @@ def phase_two_stage_timing(torch, dev, kds, kl, kw):
             *args, eps=1e-8), 50),
         "bound_ms": bms, "bound_by": by, "bytes": byts,
         "flops": rows * (4 * m * dv + 4 * m + dv)}
-    out["linear_attention_carry"] = carry_timing(torch, dev, kl, 8, 32)
-    out["linear_attention_carry_1x256"] = carry_timing(torch, dev, kl, 1, 256)
+    for key, b, l, g, hg, dv in CARRY_SHAPES:
+        out[key] = carry_timing(torch, dev, kl, b, l, g, hg, dv)
     n, l, dh = 512, 512, 64
     args = kc.make_wkv6_inputs(dev, n, l, dh, seed=15)
     flops = n * l * (5 * dh * dh + 5 * dh)

@@ -15,18 +15,25 @@ shape:
   darkformer-2b's (B 8, G 1, Hg 8, m 256, dv 256, L 512): card ms (CUDA
   events), device ms, device ms of each launch, plain ms and both bounds
   (``chip_smoke.lin_attn_timing``);
-- B4 at 8 rows x 32 tokens and 1 x 256 (``chip_smoke.carry_timing``).
+- B4 at the packer's four grants at smollm-135m's heads and at
+  darkformer-2b's at 8 x 32 and 1 x 256 (``chip_smoke.CARRY_SHAPES``),
+  bf16 v, with a ρ < 1 per query row and without: card ms, device ms,
+  device ms of each launch, plain ms and both bounds
+  (``chip_smoke.carry_times``; a tree whose wrapper takes no ρ gets the
+  pool scaled first by two ``mul_`` passes inside the timed call, as its
+  call site did).
 
 ``--src`` takes the ``repro_torch`` package from another tree's ``src``
 (an unpacked earlier commit, say), so two versions of the kernels can be
-timed on one card, in turns. Exits non-zero without a CUDA device, and,
-for this tree's kernels, when a B5 kernel that multiplies has no TF32
-tensor-core instruction.
+timed on one card, in turns; ``--b4-only`` skips B5. Exits non-zero
+without a CUDA device, and, for this tree's kernels, when a B5 or B4
+kernel that multiplies has no TF32 tensor-core instruction.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import inspect
 import json
 import re
 import shutil
@@ -34,10 +41,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parents[1]
 TRAIN_LENGTHS = (256, 512, 1024, 2048)
-# B5's kernels that run matrix products (its scan launch runs none)
-B5_PRODUCT_KERNELS = ("chunk_delta_kernel", "causal_out_kernel")
+# the kernels that run matrix products (B5's scan launch and B4's final
+# one run none)
+PRODUCT_KERNELS = ("chunk_delta_kernel", "causal_out_kernel",
+                   "carry_prefix_kernel", "carry_out_kernel")
 
 
 def hmma_counts(lib: Path) -> dict:
@@ -62,6 +73,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=None,
                     help="the src directory whose repro_torch is timed")
+    ap.add_argument("--b4-only", action="store_true",
+                    help="time B4 alone")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import chip_smoke                   # puts this tree's src on the path
@@ -107,21 +120,48 @@ def main() -> int:
                                             dv, dt),
                  lambda: kl.linear_attention_causal(*args, eps=1e-8))
 
-    for l in TRAIN_LENGTHS:
-        for dt in (torch.bfloat16, torch.float32):
-            b5(8, 3, 3, l, 256, 64, dt)
-    b5(8, 1, 8, 512, 256, 256, torch.float32)         # darkformer-2b
-    for b, l in ((8, 32), (1, 256)):
-        carry = kc.make_carry_inputs(dev, b, 3, 3, 1, l, 256, 64, seed=14,
+    if not args.b4_only:
+        for l in TRAIN_LENGTHS:
+            for dt in (torch.bfloat16, torch.float32):
+                b5(8, 3, 3, l, 256, 64, dt)
+        b5(8, 1, 8, 512, 256, 256, torch.float32)     # darkformer-2b
+
+    takes_rho = "rho" in inspect.signature(
+        kl.linear_attention_prefill_chunk).parameters
+
+    def b4_scaled_first(b, l, g, hg, dv, rho):
+        # a wrapper without ρ: the pool scaled in place before the kernel,
+        # inside the timed call, with ρ drawn as check.make_carry_rho draws
+        # it (that tree's check lacks it)
+        carry = kc.make_carry_inputs(dev, b, g, hg, 1, l, 256, dv, seed=14,
                                      dtype=torch.bfloat16)
-        emit("linear_attention_carry", chip_smoke.carry_timing(
-            torch, dev, kl, b, l),
-            lambda: kl.linear_attention_prefill_chunk(*carry, eps=1e-8))
+        s0, z0 = carry[3], carry[4]
+        r = torch.tensor(np.exp(-np.random.default_rng(14).exponential(
+            size=(b, g, hg))), dtype=torch.float32, device=dev) if rho \
+            else None
+
+        def call():
+            if r is not None:
+                s0.mul_(r[..., None, None])
+                z0.mul_(r[..., None])
+            return kl.linear_attention_prefill_chunk(*carry, eps=1e-8)
+        return chip_smoke.carry_times(
+            torch, carry, call,
+            lambda: kl.linear_attention_carry_plain(*carry, 1e-8), r,
+            by_kernel=True)
+
+    for _, b, l, g, hg, dv in chip_smoke.CARRY_SHAPES:
+        for rho in (True, False):
+            timing = (chip_smoke.carry_timing(torch, dev, kl, b, l, g, hg,
+                                              dv, rho, by_kernel=True)
+                      if takes_rho else b4_scaled_first(b, l, g, hg, dv, rho))
+            print(json.dumps({"kernel": "linear_attention_carry",
+                              "card": card, **timing}), flush=True)
     if args.src is None:
         missing = [k for k, n in hmma.items()
-                   if n == 0 and any(p in k for p in B5_PRODUCT_KERNELS)]
-        if missing or not any(p in k for k in hmma
-                              for p in B5_PRODUCT_KERNELS):
+                   if n == 0 and any(p in k for p in PRODUCT_KERNELS)]
+        if missing or not all(any(p in k for k in hmma)
+                              for p in PRODUCT_KERNELS):
             print(f"torch_lin_attn_shapes: no TF32 HMMA in {missing or hmma}",
                   file=sys.stderr)
             return 1

@@ -224,12 +224,11 @@ def rf_attention_prefill(q, k, v, fparams, cfg: fm.FeatureConfig, *,
     qf, kf, c_new, rescale = _resume_qk_features(qs, ks, fparams, cfg,
                                                  state.c, valid_mask=vmask)
     if use_kernel:
-        # the pool rescaled where it lies, then advanced there by the scan
-        state.s.mul_(rescale)
-        state.z.mul_(rescale[..., 0])
+        # the pool rescaled and advanced where it lies, in one pass
         out, _, _ = kops.linear_attention_prefill_chunk(
             qf.contiguous(), kf.contiguous(), v.contiguous(), state.s,
-            state.z, eps=cfg.eps)
+            state.z, rho=rescale[..., 0, 0].expand(b, g, hg).contiguous(),
+            eps=cfg.eps)
         state.c.copy_(c_new)
         return out, state
     kfb = kf.expand(b, g, hg, l, cfg.num_features)

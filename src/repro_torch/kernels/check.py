@@ -205,33 +205,52 @@ def _mm_tf32(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
     return ah @ bl + al @ bh + ah @ bh
 
 
-def lin_attn_tf32(qf, kf, v, eps: float = 1e-6, passes: int = 3,
-                  chunk: int = 64) -> torch.Tensor:
-    """Causal linear attention computed as B5's kernel computes it, on
-    any device: 64-key chunks; per chunk c the exclusive prefix states
-    S_in = Σ_{c'<c} K_c'ᵀ V_c' and z_in = Σ_{c'<c} Σ K_c' (f32 sums);
-    A = tril(Q_c K_cᵀ), den = rowsum(A) + Q_c·z_in (f32) and out =
-    (Q_c S_in + A V_c) / (den + eps), every matrix product in 3xTF32
-    (:func:`_mm_tf32`; ``passes=1`` for 1xTF32). Shapes as
-    ``linear_attention_causal``; returns v.dtype. For the tests: it holds
-    the kernel's algorithm and precision against the reference."""
+def carry_tf32(qf, kf, v, s0, z0, rho=None, eps: float = 1e-6,
+               passes: int = 3, chunk: int = 32):
+    """Causal linear attention resumed from (S0, z0) computed as B4's
+    kernel computes it, on any device: chunks of ``chunk`` keys; per KV
+    row the inclusive prefixes P_c = Σ_{c'≤c} K_c'ᵀ V_c' and Pz_c =
+    Σ_{c'≤c} Σ K_c' (f32 sums in chunk order); per chunk c S_in = ρ·S0 +
+    P_{c-1}, z_in = ρ·z0 + Pz_{c-1}, A = tril(Q_c K_cᵀ), den = rowsum(A)
+    + Q_c·z_in (f32) and out = (Q_c S_in + A V_c) / (den + eps), every
+    matrix product in 3xTF32 (:func:`_mm_tf32`; ``passes=1`` for 1xTF32);
+    then S_L = ρ·S0 + P_last, z_L = ρ·z0 + Pz_last. Shapes as
+    ``linear_attention_prefill_chunk`` (rho None means 1). Returns (out
+    in v.dtype, S_L, z_L); s0 and z0 are left as they are. For the
+    tests: it holds the kernel's algorithm and precision against the
+    reference."""
     q, k, vv = qf.float(), kf.float(), v.float()
-    l = q.shape[-2]
-    s_in = q.new_zeros((*k.shape[:-2], k.shape[-1], vv.shape[-1]))
-    z_in = q.new_zeros((*k.shape[:-2], k.shape[-1], 1))
+    s_r, z_r = s0.float(), z0.float()
+    if rho is not None:
+        s_r, z_r = s_r * rho[..., None, None], z_r * rho[..., None]
+    p = q.new_zeros((*k.shape[:-2], k.shape[-1], vv.shape[-1]))
+    pz = q.new_zeros((*k.shape[:-2], k.shape[-1]))
     outs = []
-    for c0 in range(0, l, chunk):
+    for c0 in range(0, q.shape[-2], chunk):
         qc, kc, vc = (x[..., c0:c0 + chunk, :] for x in (q, k, vv))
         t = qc.shape[-2]
         mask = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
         a = torch.where(mask, _mm_tf32(qc, kc.transpose(-1, -2), passes),
                         0.0)
-        den = a.sum(-1, keepdim=True) + qc @ z_in
-        num = _mm_tf32(qc, s_in, passes) + _mm_tf32(a, vc, passes)
+        den = a.sum(-1, keepdim=True) + qc @ (z_r + pz)[..., None]
+        num = _mm_tf32(qc, s_r + p, passes) + _mm_tf32(a, vc, passes)
         outs.append(num / (den + eps))
-        s_in = s_in + _mm_tf32(kc.transpose(-1, -2), vc, passes)
-        z_in = z_in + kc.sum(-2)[..., None]
-    return torch.cat(outs, -2).to(v.dtype)
+        p = p + _mm_tf32(kc.transpose(-1, -2), vc, passes)
+        pz = pz + kc.sum(-2)
+    return torch.cat(outs, -2).to(v.dtype), s_r + p, z_r + pz
+
+
+def lin_attn_tf32(qf, kf, v, eps: float = 1e-6, passes: int = 3,
+                  chunk: int = 64) -> torch.Tensor:
+    """Causal linear attention computed as B5's kernel computes it: 64-key
+    chunks, one exclusive prefix state per chunk, every matrix product in
+    3xTF32 — :func:`carry_tf32` from a zero state (S_in = 0 + P_{c-1} is
+    P_{c-1} exactly). Shapes as ``linear_attention_causal``; returns
+    v.dtype."""
+    k = kf.float()
+    zero = k.new_zeros((*k.shape[:-2], k.shape[-1], v.shape[-1]))
+    return carry_tf32(qf, kf, v, zero, zero[..., 0], eps=eps,
+                      passes=passes, chunk=chunk)[0]
 
 
 def make_featmap_inputs(dev, n, d, r, m, dark, seed,
@@ -285,6 +304,16 @@ def make_carry_inputs(dev, b, g, hg, hk, l, m, dv, seed,
             t(rng.standard_normal((b, g, hk, l, dv)), dtype),
             t(8 * m ** -0.5 * rng.standard_normal((b, g, hg, m, dv))),
             t(64 * m ** -0.5 * (rng.uniform(size=(b, g, hg, m)) + 0.5))]
+
+
+def make_carry_rho(dev, b, g, hg, seed) -> torch.Tensor:
+    """ρ (B, G, Hg) f32 for one two-stage prefill chunk: factors in (0, 1]
+    like the stabilizer's rescale exp(c_old - c_new), drawn per query row
+    (the serving path passes one per KV group; distinct rows catch a row
+    that reads another's)."""
+    rng = np.random.default_rng(seed)
+    return torch.tensor(np.exp(-rng.exponential(size=(b, g, hg))),
+                        dtype=torch.float32, device=dev)
 
 
 def check_carry_chained(dev, seed: int) -> float:

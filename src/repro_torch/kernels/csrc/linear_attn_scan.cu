@@ -22,9 +22,15 @@
 //   written once (57 MB), 17 us at 3.35 TB/s; its operations (1.64 GFLOP
 //   in the token-serial form) take 3.3 us at the 495 TFLOP/s of TF32 on
 //   the tensor cores, 24 us at the 67 TFLOP/s of f32 outside them. A
-//   carried serving chunk of 8 rows x 32 tokens (B4) is bound by its
-//   bytes: the pool's S is read and written once (2 x 4.7 MB) beside qf
-//   and kf (3.1 MB), 3.9 us.
+//   carried serving chunk (B4) is bound by its bytes at every grant of
+//   the packer once its products run on the tensor cores: at 8 rows x 32
+//   tokens (72 query rows) the pool's S read and written once (2 x 4.7
+//   MB) beside qf and kf (3.1 MB), 3.9 us; at 1 x 256 (9 rows, S 0.6 MB)
+//   4.7 MB, 1.4 us (its operations take 0.36 us in TF32, 2.7 us at f32's
+//   rate). The four grants (8 x 32, 4 x 64, 2 x 128, 1 x 256) each hold
+//   2304 query positions and differ in how they split over the card; the
+//   packer also makes smaller calls (3 x 64, 5 x 32 and others, PERF.md
+//   section 5), which split the same way.
 //
 // B5's design: 64-key chunks, one prefix state per chunk, every product
 //   on the tensor cores in 3xTF32 (mma.sync m16n8k8: each f32 operand
@@ -46,19 +52,29 @@
 //   causal mask touches only its own 64 x 64 tile. 1b and 2 may start
 //   while the launch before them finishes (programmatic dependent launch).
 //
-// B4's design (its next redesign takes it onto B5's machinery): kChunk =
-//   256 keys, every product f32 on the CUDA cores. chunk_state_kernel
-//   computes each chunk's increment, one block per (KV row, chunk, 64 x
-//   64 tile of S), all in parallel. out_kernel runs one block per (query
-//   row, 64 query positions): it forms P = tril(Q K^T) against the keys
-//   of its own chunk up to its last position and keeps P in shared
-//   memory, then per 64-column tile of dv sums Q S_in + P V, S_in summed
-//   on the fly from S0 and the earlier increments. Every product is a 64
-//   x 64 tile staged through shared memory in slabs of 32, each thread
-//   holding a 4 x 4 block of the tile in registers. final_state_kernel
-//   then writes S0 + sum dS and z0 + sum dz, in place over S0, z0: it
-//   runs after out_kernel, so no block still reads the carried state it
-//   overwrites.
+// B4's design: the same 3xTF32 products and cp.async staging over 32-key
+//   chunks, with the carried state read once and written once, and the
+//   stabilizer's rescale rho applied as S0 is read (one FMA, not a pass
+//   over the pool). The state is per query row and only kf and v are
+//   shared, so the outputs split over (query row, 32 query positions =
+//   one chunk, 64 columns of dv): at each of smollm-135m's four grants
+//   (every one holds 2304 query positions) 72 blocks of 8 warps, each
+//   block the same size, none padded past its chunk. Three launches:
+//   1 (carry_prefix_kernel) the inclusive prefixes of the chunk
+//   increments per KV row, a block per 32 features and 64 columns, eight
+//   chunks at a time side by side (one a warp) and summed in order in
+//   shared memory;
+//   2 (carry_out_kernel) the outputs: 2 row blocks x 4 column groups of
+//   warps over 64-feature slabs, S_in = rho S0 + prefix[c - 1] formed as
+//   the products read it, registers capped so that two blocks share a
+//   SM (16 positions a block, 144 blocks, measured slower: PERF.md);
+//   3 (carry_final_kernel) S_L = rho S0 + prefix[nc - 1] in place, after
+//   launch 2 has read S0, at every L (S_L written by launch 2 where one
+//   block owns the row measured no faster). 2 and 3 may start while the
+//   launch before them finishes (programmatic dependent launch).
+//   It stays far above its bound (PERF.md): with about one block a SM,
+//   a block's eight warps are too few to hide the latency of their
+//   staging and of each 3xTF32 chain (split, FMA, three mma in turn).
 #include <cstdint>
 
 #include "prf_common.cuh"
@@ -69,264 +85,6 @@ using prf::cp_async_commit;
 using prf::cp_async_wait;
 using prf::from_f;
 using prf::to_f;
-
-constexpr int kThreads = 256;
-constexpr int kTile = 64;                  // query rows / output tile edge
-constexpr int kChunk = 256;                // keys per chunk of the state
-constexpr int kSlab = 32;                  // depth of one staged slab
-constexpr int kPad = kTile + 1;            // staged row stride (no conflicts)
-constexpr int kMicro = 4;                  // a thread's outputs per axis
-constexpr int kGrid = kTile / kMicro;      // 16 x 16 threads
-
-// acc[a][b] += sum_{k<K} A(ty + 16a, k) * B(k, tx + 16b), reading A and B
-// through the functors (each returns 0 outside its own range) and staging
-// them in shared memory (as, bs: kSlab * kPad floats each). AKFast /
-// BKFast: consecutive k lie next to each other in memory, so the staging
-// loop walks k fastest to read coalesced. Ends synchronised.
-template <bool AKFast, bool BKFast, class FA, class FB>
-__device__ __forceinline__ void gemm_tile(float (&acc)[kMicro][kMicro], int K,
-                                          FA a_at, FB b_at, float* as,
-                                          float* bs) {
-  const int tx = threadIdx.x % kGrid, ty = threadIdx.x / kGrid;
-  for (int k0 = 0; k0 < K; k0 += kSlab) {
-    for (int idx = threadIdx.x; idx < kSlab * kTile; idx += kThreads) {
-      const int kk = AKFast ? idx % kSlab : idx / kTile;
-      const int i = AKFast ? idx / kSlab : idx % kTile;
-      as[kk * kPad + i] = k0 + kk < K ? a_at(i, k0 + kk) : 0.f;
-    }
-    for (int idx = threadIdx.x; idx < kSlab * kTile; idx += kThreads) {
-      const int kk = BKFast ? idx % kSlab : idx / kTile;
-      const int j = BKFast ? idx / kSlab : idx % kTile;
-      bs[kk * kPad + j] = k0 + kk < K ? b_at(k0 + kk, j) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kSlab; ++kk) {
-      float a[kMicro], b[kMicro];
-#pragma unroll
-      for (int r = 0; r < kMicro; ++r) a[r] = as[kk * kPad + ty + kGrid * r];
-#pragma unroll
-      for (int c = 0; c < kMicro; ++c) b[c] = bs[kk * kPad + tx + kGrid * c];
-#pragma unroll
-      for (int r = 0; r < kMicro; ++r)
-#pragma unroll
-        for (int c = 0; c < kMicro; ++c) acc[r][c] += a[r] * b[c];
-    }
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[kMicro][kMicro]) {
-#pragma unroll
-  for (int r = 0; r < kMicro; ++r)
-#pragma unroll
-    for (int c = 0; c < kMicro; ++c) acc[r][c] = 0.f;
-}
-
-// dS[nk, c] = K_c^T V_c (m x dv) and dz[nk, c] = sum K_c (m) of the first
-// gridDim.y chunks (a partial last chunk is masked). Grid: (m tiles * dv
-// tiles, chunks, Nk).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) chunk_state_kernel(
-    const float* __restrict__ kf, const T* __restrict__ v,
-    float* __restrict__ ds, float* __restrict__ dz, int L, int m, int dv) {
-  __shared__ float as[kSlab * kPad], bs[kSlab * kPad];
-  const int ndv = (dv + kTile - 1) / kTile;
-  const int i0 = (blockIdx.x / ndv) * kTile, j0 = (blockIdx.x % ndv) * kTile;
-  const int c = blockIdx.y, nk = blockIdx.z, nc1 = gridDim.y;
-  const int tlen = min(kChunk, L - c * kChunk);      // keys in this chunk
-  const float* kc = kf + ((size_t)nk * L + (size_t)c * kChunk) * m;
-  const T* vc = v + ((size_t)nk * L + (size_t)c * kChunk) * dv;
-  float acc[kMicro][kMicro];
-  zero(acc);
-  gemm_tile<false, false>(
-      acc, tlen,
-      [&](int i, int t) { return i0 + i < m ? kc[(size_t)t * m + i0 + i] : 0.f; },
-      [&](int t, int j) {
-        return j0 + j < dv ? to_f(vc[(size_t)t * dv + j0 + j]) : 0.f;
-      },
-      as, bs);
-  const int tx = threadIdx.x % kGrid, ty = threadIdx.x / kGrid;
-  float* dsc = ds + ((size_t)nk * nc1 + c) * m * dv;
-#pragma unroll
-  for (int r = 0; r < kMicro; ++r)
-#pragma unroll
-    for (int cc = 0; cc < kMicro; ++cc) {
-      const int i = i0 + ty + kGrid * r, j = j0 + tx + kGrid * cc;
-      if (i < m && j < dv) dsc[(size_t)i * dv + j] = acc[r][cc];
-    }
-  if (j0 == 0 && threadIdx.x < kTile && i0 + threadIdx.x < m) {
-    const int i = i0 + threadIdx.x;
-    float s = 0.f;
-    for (int t = 0; t < tlen; ++t) s += kc[(size_t)t * m + i];
-    dz[((size_t)nk * nc1 + c) * m + i] = s;
-  }
-}
-
-// out for query positions [p0, p0 + kTile) of query row n, from the
-// carried state (s0, z0) of row n or, when they are null, from zero. Grid:
-// (ceil(L / kTile), N). Shared memory: P (kTile x kChunk), two staging
-// slabs and the denominators.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) out_kernel(
-    const float* __restrict__ qf, const float* __restrict__ kf,
-    const T* __restrict__ v, const float* __restrict__ s0,
-    const float* __restrict__ z0, const float* __restrict__ ds,
-    const float* __restrict__ dz, T* __restrict__ out, int L, int m, int dv,
-    int h, int nc1, float eps) {
-  extern __shared__ float smem[];
-  float* ps = smem;                            // (kTile, kChunk)
-  float* as = ps + kTile * kChunk;             // (kSlab, kPad)
-  float* bs = as + kSlab * kPad;               // (kSlab, kPad)
-  float* den = bs + kSlab * kPad;              // (kTile)
-  const int tid = threadIdx.x;
-  const int tx = tid % kGrid, ty = tid / kGrid;
-  const int p0 = blockIdx.x * kTile, n = blockIdx.y, nk = n / h;
-  const int c = p0 / kChunk, cs = c * kChunk;
-  const int kend = min(p0 + kTile, L);         // keys [cs, kend)
-  const int nkb = (kend - cs + kTile - 1) / kTile;
-  const float* qn = qf + ((size_t)n * L + p0) * m;
-  const float* kc = kf + ((size_t)nk * L + cs) * m;
-  const T* vc = v + ((size_t)nk * L + cs) * dv;
-  const float* dsn = ds + (size_t)nk * nc1 * m * dv;
-  const float* dzn = dz + (size_t)nk * nc1 * m;
-  const float* s0n = s0 == nullptr ? nullptr : s0 + (size_t)n * m * dv;
-  const float* z0n = z0 == nullptr ? nullptr : z0 + (size_t)n * m;
-  auto q_at = [&](int i, int k) {
-    return p0 + i < L ? qn[(size_t)i * m + k] : 0.f;
-  };
-
-  // P = tril(Q K^T) over the chunk's keys up to this tile's last position
-  float acc[kMicro][kMicro];
-  for (int kb = 0; kb < nkb; ++kb) {
-    zero(acc);
-    gemm_tile<true, true>(
-        acc, m, q_at,
-        [&](int k, int j) {
-          const int t = kb * kTile + j;
-          return cs + t < kend ? kc[(size_t)t * m + k] : 0.f;
-        },
-        as, bs);
-#pragma unroll
-    for (int r = 0; r < kMicro; ++r)
-#pragma unroll
-      for (int cc = 0; cc < kMicro; ++cc) {
-        const int i = ty + kGrid * r, t = kb * kTile + tx + kGrid * cc;
-        const int key = cs + t;
-        ps[i * kChunk + t] = key <= p0 + i && key < kend ? acc[r][cc] : 0.f;
-      }
-  }
-  __syncthreads();
-
-  // den_i = rowsum(P_i) + q_i . z_in, four neighbouring lanes per row
-  {
-    const int i = tid / 4, part = tid % 4;
-    float s = 0.f;
-    for (int t = part; t < nkb * kTile; t += 4) s += ps[i * kChunk + t];
-    if ((c > 0 || z0n != nullptr) && p0 + i < L) {
-      for (int k = part; k < m; k += 4) {
-        float zin = z0n == nullptr ? 0.f : z0n[k];
-        for (int cc = 0; cc < c; ++cc) zin += dzn[(size_t)cc * m + k];
-        s += qn[(size_t)i * m + k] * zin;
-      }
-    }
-    s = prf::group_sum(s);
-    if (part == 0) den[i] = s;
-  }
-  __syncthreads();
-
-  for (int j0 = 0; j0 < dv; j0 += kTile) {
-    zero(acc);
-    if (c > 0 || s0n != nullptr) {     // Q S_in, S_in = S0 + sum dS_{<c}
-      gemm_tile<true, false>(
-          acc, m, q_at,
-          [&](int k, int j) {
-            if (j0 + j >= dv) return 0.f;
-            float s = s0n == nullptr ? 0.f : s0n[(size_t)k * dv + j0 + j];
-            for (int cc = 0; cc < c; ++cc)
-              s += dsn[((size_t)cc * m + k) * dv + j0 + j];
-            return s;
-          },
-          as, bs);
-    }
-    gemm_tile<true, false>(                   // + P V
-        acc, nkb * kTile, [&](int i, int t) { return ps[i * kChunk + t]; },
-        [&](int t, int j) {
-          return cs + t < kend && j0 + j < dv
-                     ? to_f(vc[(size_t)t * dv + j0 + j])
-                     : 0.f;
-        },
-        as, bs);
-#pragma unroll
-    for (int r = 0; r < kMicro; ++r)
-#pragma unroll
-      for (int cc = 0; cc < kMicro; ++cc) {
-        const int i = ty + kGrid * r, j = j0 + tx + kGrid * cc;
-        if (p0 + i < L && j < dv)
-          out[((size_t)n * L + p0 + i) * dv + j] =
-              from_f<T>(acc[r][cc] / (den[i] + eps));
-      }
-  }
-}
-
-// S0 += sum_c dS[nk, c] and z0 += sum_c dz[nk, c] over the nc chunks, in
-// place, for query row n (KV row nk = n / h). Grid: (blocks, N).
-__global__ void __launch_bounds__(kThreads) final_state_kernel(
-    float* s0, float* z0, const float* __restrict__ ds,
-    const float* __restrict__ dz, int m, int dv, int h, int nc) {
-  const int n = blockIdx.y, nk = n / h;
-  const size_t ms = (size_t)m * dv;
-  float* sn = s0 + n * ms;
-  float* zn = z0 + (size_t)n * m;
-  const float* dsn = ds + (size_t)nk * nc * ms;
-  const float* dzn = dz + (size_t)nk * nc * m;
-  for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < ms + m;
-       e += (size_t)gridDim.x * kThreads) {
-    if (e < ms) {
-      float acc = sn[e];
-      for (int c = 0; c < nc; ++c) acc += dsn[c * ms + e];
-      sn[e] = acc;
-    } else {
-      const size_t i = e - ms;
-      float acc = zn[i];
-      for (int c = 0; c < nc; ++c) acc += dzn[(size_t)c * m + i];
-      zn[i] = acc;
-    }
-  }
-}
-
-// B4: the carried scan, s0 and z0 advanced in place.
-template <typename T>
-int launch_carry(const float* qf, const float* kf, const void* v, float* s0,
-                 float* z0, float* ds, float* dz, void* out, int N, int Nk,
-                 int L, int m, int dv, float eps, cudaStream_t st) {
-  const int nc = (L + kChunk - 1) / kChunk;
-  const T* vt = static_cast<const T*>(v);
-  const dim3 sgrid(((m + kTile - 1) / kTile) * ((dv + kTile - 1) / kTile),
-                   nc, Nk);
-  chunk_state_kernel<T><<<sgrid, kThreads, 0, st>>>(kf, vt, ds, dz, L, m,
-                                                    dv);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t shmem =
-      sizeof(float) * (kTile * kChunk + 2 * kSlab * kPad + kTile);
-  auto kern = out_kernel<T>;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)shmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((L + kTile - 1) / kTile, N);
-  kern<<<grid, kThreads, shmem, st>>>(qf, kf, vt, s0, z0, ds, dz,
-                                      static_cast<T*>(out), L, m, dv, N / Nk,
-                                      nc, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t per_row = (size_t)m * dv + m;
-  const dim3 fgrid((unsigned)((per_row + 4 * kThreads - 1) / (4 * kThreads)),
-                   N);
-  final_state_kernel<<<fgrid, kThreads, 0, st>>>(s0, z0, ds, dz, m, dv,
-                                                 N / Nk, nc);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // B5, causal from a zero state, on the tensor cores (3xTF32 mma.sync)
@@ -777,6 +535,357 @@ int launch_causal(const float* qf, const float* kf, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// B4, resumed from a carried state, on the same tensor-core machinery
+// ---------------------------------------------------------------------------
+
+constexpr int kCc = 32;             // keys per B4 chunk
+constexpr int kAs = kCc + 4;        // stride of the scores tile A [row][key]
+constexpr int kCarryStages = 2;     // launch 2's ring of feature slabs
+constexpr int kCms = 64;            // features a launch-2 slab holds
+constexpr int kCrs = kCms + 4;      // its [row][feature] stride (Q, K)
+
+// s[i] = r s[i] + p[i] for i < count, on thread i0 of `stride` threads (in
+// 16-byte pieces when both arrays allow them)
+__device__ __forceinline__ void advance(float* s, const float* __restrict__ p,
+                                        int count, float r, int i0,
+                                        int stride) {
+  if (aligned16(s, (size_t)count * 4) && aligned16(p, 0)) {
+    float4* s4 = reinterpret_cast<float4*>(s);
+    for (int i = i0; i < count / 4; i += stride) {
+      float4 a = s4[i];
+      const float4 b = prf::ld4(p + 4 * i);
+      a.x = fmaf(r, a.x, b.x);
+      a.y = fmaf(r, a.y, b.y);
+      a.z = fmaf(r, a.z, b.z);
+      a.w = fmaf(r, a.w, b.w);
+      s4[i] = a;
+    }
+  } else {
+    for (int i = i0; i < count; i += stride) s[i] = fmaf(r, s[i], p[i]);
+  }
+}
+
+// Launch 1. The inclusive prefixes of the chunk increments of every KV
+// row: slot c of pfx (Nk, nc, m, dv) and pz (Nk, nc, m) holds
+// sum_{c' <= c} K_c'^T V_c' and sum_{c' <= c} sum K_c' (a kDf x kDvT tile
+// of it). The chunks go in groups of eight, one a warp, so no chain of
+// products runs through them: K and V of the group staged at once, each
+// warp forms its chunk's increment and dz, the increments meet in shared
+// memory, and each thread adds its entries over the group's chunks in
+// order (carrying the sum from the group before) and writes every slot.
+// Grid: (feature slabs * dv tiles, Nk); 256 threads.
+constexpr int kPrefixChunks = 8;
+constexpr int kPrefixSlot = kDf * kSs + kDf;    // an increment in shared memory
+template <typename T>
+constexpr size_t kPrefixStaged = sizeof(float) * kPrefixChunks * kCc * kDs +
+                                 sizeof(T) * kPrefixChunks * kCc * kVs<T>;
+template <typename T>
+constexpr size_t kPrefixSmem =
+    kPrefixStaged<T> > sizeof(float) * kPrefixChunks * kPrefixSlot
+        ? kPrefixStaged<T>
+        : sizeof(float) * kPrefixChunks * kPrefixSlot;
+
+template <typename T>
+__global__ void __launch_bounds__(256) carry_prefix_kernel(
+    const float* __restrict__ kf, const T* __restrict__ v,
+    float* __restrict__ pfx, float* __restrict__ pz, int L, int m, int dv) {
+  constexpr int kV = kVs<T>, kG = kPrefixChunks;
+  constexpr int kPer = kDf * kDvT / 256;            // entries a thread scans
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                                 // (kG kCc, kDs)
+  T* vs = reinterpret_cast<T*>(smem + kG * kCc * kDs);   // (kG kCc, kV)
+  prf::grid_dependents_launch();      // launch 2 reads pfx after its wait
+  const int ndv = (dv + kDvT - 1) / kDvT;
+  const int i0 = (blockIdx.x / ndv) * kDf, j0 = (blockIdx.x % ndv) * kDvT;
+  const int nk = blockIdx.y, nc = (L + kCc - 1) / kCc;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31,
+            g = lane >> 2, t = lane & 3;
+  const float* kn = kf + (size_t)nk * L * m;
+  const T* vn = v + (size_t)nk * L * dv;
+  const bool vec_k = aligned16(kf, m * 4),
+             vec_v = aligned16(v, dv * sizeof(T));
+  float run[kPer] = {}, run_z = 0.f;
+  for (int cb = 0; cb < nc; cb += kG) {
+    for (int w = 0; w < kG && cb + w < nc; ++w) {
+      const int k0 = (cb + w) * kCc;
+      stage<kCc, kDf, 256>(ks + w * kCc * kDs, kDs, kn, m, k0, L, i0, m,
+                           vec_k);
+      stage<kCc, kDvT, 256>(vs + w * kCc * kV, kV, vn, dv, k0, L, j0, dv,
+                            vec_v);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    const bool mine = cb + warp < nc;
+    float acc[2][8][4] = {}, zs = 0.f;
+    if (mine) {
+      const float* kb = ks + warp * kCc * kDs;
+      const T* vb = vs + warp * kCc * kV;
+#pragma unroll
+      for (int k0 = 0; k0 < kCc; k0 += 8) {
+        // A = K_c^T (features x keys), k-index t -> key 2t, t + 4 -> 2t + 1
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* a0 = kb + (k0 + 2 * t) * kDs + 16 * mt + g;
+          const float a[4] = {a0[0], a0[8], a0[kDs], a0[kDs + 8]};
+          split4(a, ah[mt], al[mt]);
+        }
+        const T* b = vb + (k0 + 2 * t) * kV + g;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float b0 = to_f(b[8 * j]), b1 = to_f(b[kV + 8 * j]);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            mma3<sizeof(T) == 2>(acc[mt][j], ah[mt], al[mt], b0, b1);
+        }
+      }
+      if (j0 == 0)
+#pragma unroll 8
+        for (int key = 0; key < kCc; ++key) zs += kb[key * kDs + lane];
+    }
+    __syncthreads();                  // K, V read: the area takes dS
+    if (mine) {
+      float* dw = smem + warp * kPrefixSlot;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dw[(16 * mt + g + 8 * (e >> 1)) * kSs + 8 * j + 2 * t + (e & 1)] =
+                acc[mt][j][e];
+      dw[kDf * kSs + lane] = zs;
+    }
+    __syncthreads();
+    for (int w = 0; w < kG && cb + w < nc; ++w) {
+      const float* dw = smem + w * kPrefixSlot;
+      const size_t slot = (size_t)nk * nc + cb + w;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int e = threadIdx.x + 256 * i, row = e / kDvT, col = e % kDvT;
+        run[i] += dw[row * kSs + col];
+        if (i0 + row < m && j0 + col < dv)
+          pfx[(slot * m + i0 + row) * dv + j0 + col] = run[i];
+      }
+      if (j0 == 0 && threadIdx.x < kDf) {
+        run_z += dw[kDf * kSs + threadIdx.x];
+        if (i0 + threadIdx.x < m) pz[slot * m + i0 + threadIdx.x] = run_z;
+      }
+    }
+    __syncthreads();                  // the area is free for the next group
+  }
+}
+
+// Launch 2. out for the kCc query positions p0 .. of query row n (its
+// chunk c = p0 / kCc), dv columns j0 .. + 64:
+//   A = tril(Q K_c^T),  S_in = rho S0 + pfx[c - 1],  z_in likewise,
+//   out = (Q S_in + A V_c) / (rowsum(A) + Q z_in + eps)
+// over feature slabs of kCms, a ring of kCarryStages staged by cp.async
+// (Q, K_c, S0, z0 and, past the first chunk, launch 1's prefix); rho
+// scales S0 and z0 as the slab is read. Eight warps: 2 row blocks x 4
+// column groups. Warp (rb, cg) forms A's key tile cg (8 keys) for its 16
+// rows and the outputs' columns 16 cg .. + 16 from S_in, A meets in
+// shared memory, and the warp adds A V_c for its columns over the key
+// tiles up to its last row. Grid: (nc * dv tiles, N).
+constexpr int kCarryStage = 2 * kCc * kCrs + 2 * kCms * kSs + 2 * kCms;
+template <typename T>
+constexpr size_t kCarrySmem =
+    sizeof(float) * (kCarryStages * kCarryStage + kCc * kAs) +
+    sizeof(T) * kCc * kVs<T>;
+
+template <typename T>
+__global__ void __launch_bounds__(256, 2) carry_out_kernel(
+    const float* __restrict__ qf, const float* __restrict__ kf,
+    const T* __restrict__ v, const float* __restrict__ s0,
+    const float* __restrict__ z0, const float* __restrict__ rho,
+    const float* __restrict__ pfx, const float* __restrict__ pz,
+    T* __restrict__ out, int L, int m, int dv, int h, float eps) {
+  constexpr int NT = 256, kV = kVs<T>;
+  extern __shared__ __align__(16) float smem[];
+  float* as = smem + kCarryStages * kCarryStage;     // A, (kCc, kAs)
+  T* vs = reinterpret_cast<T*>(as + kCc * kAs);      // V_c, (kCc, kV)
+  const int ndv = (dv + kDvT - 1) / kDvT, nc = (L + kCc - 1) / kCc;
+  const int c = blockIdx.x / ndv, j0 = (blockIdx.x % ndv) * kDvT;
+  const int p0 = c * kCc, kend = min(L, p0 + kCc);
+  const int n = blockIdx.y, nk = n / h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31,
+            g = lane >> 2, t = lane & 3;
+  const int rb = 16 * (warp >> 2), cg = warp & 3;
+  const int last = rb + 15;             // the warp's last row, as a key of c
+  const bool a_tile = 8 * cg <= last;   // its key tile of A is not all masked
+  const bool has_p = c > 0;
+  const float r = rho == nullptr ? 1.f : rho[n];
+  const float* qn = qf + (size_t)n * L * m;
+  const float* kn = kf + (size_t)nk * L * m;
+  const T* vn = v + (size_t)nk * L * dv;
+  const float* sn = s0 + (size_t)n * m * dv;
+  const float* zn = z0 + (size_t)n * m;
+  const size_t slot = (size_t)nk * nc + (has_p ? c - 1 : 0);
+  const float* pc = pfx + slot * m * dv;
+  const float* pzc = pz + slot * m;
+  const bool vec_q = aligned16(qf, m * 4), vec_k = aligned16(kf, m * 4),
+             vec_s = aligned16(s0, dv * 4), vec_p = aligned16(pfx, dv * 4),
+             vec_z = aligned16(z0, m * 4), vec_pz = aligned16(pz, m * 4),
+             vec_v = aligned16(v, dv * sizeof(T));
+  const int nms = (m + kCms - 1) / kCms;
+
+  if (has_p) prf::grid_dependency_wait();           // pfx, pz of launch 1
+  stage<kCc, kDvT, NT>(vs, kV, vn, dv, p0, kend, j0, dv, vec_v);
+  cp_async_commit();
+  auto issue = [&](int s) {
+    float* st = smem + (s % kCarryStages) * kCarryStage;
+    float* sb = st + 2 * kCc * kCrs;
+    const int f0 = s * kCms;
+    stage<kCc, kCms, NT>(st, kCrs, qn, m, p0, kend, f0, m, vec_q);
+    stage<kCc, kCms, NT>(st + kCc * kCrs, kCrs, kn, m, p0, kend, f0, m,
+                         vec_k);
+    stage<kCms, kDvT, NT>(sb, kSs, sn, dv, f0, m, j0, dv, vec_s);
+    stage<1, kCms, NT>(sb + 2 * kCms * kSs, kCms, zn, m, 0, 1, f0, m, vec_z);
+    if (has_p) {
+      stage<kCms, kDvT, NT>(sb + kCms * kSs, kSs, pc, dv, f0, m, j0, dv, vec_p);
+      stage<1, kCms, NT>(sb + 2 * kCms * kSs + kCms, kCms, pzc, m, 0, 1, f0, m,
+                        vec_pz);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kCarryStages - 1; ++s) {
+    if (s < nms) issue(s);
+    cp_async_commit();
+  }
+  // the warp's sums: A's tile, the outputs' and the denominators' Q z_in
+  float acc_a[4] = {}, acc_n[2][4] = {}, qz[2] = {0.f, 0.f};
+  for (int s = 0; s < nms; ++s) {
+    cp_async_wait<kCarryStages - 2>();
+    __syncthreads();                  // slab s landed; s - 1 fully read
+    if (s + kCarryStages - 1 < nms) issue(s + kCarryStages - 1);
+    cp_async_commit();
+    const float* st = smem + (s % kCarryStages) * kCarryStage;
+    const float* qs = st + (rb + g) * kCrs + t;
+    const float* ks = st + (kCc + 8 * cg + g) * kCrs + t;
+    const float* ss = st + 2 * kCc * kCrs + t * kSs + 16 * cg + g;
+    const float* ps = ss + kCms * kSs;
+    const float* zs = st + 2 * kCc * kCrs + 2 * kCms * kSs + t;
+    const float* pzs = zs + kCms;
+#pragma unroll
+    for (int k0 = 0; k0 < kCms; k0 += 8) {
+      const float a[4] = {qs[k0], qs[8 * kCrs + k0], qs[k0 + 4],
+                          qs[8 * kCrs + k0 + 4]};
+      uint32_t ah[4], al[4];
+      split4(a, ah, al);
+      if (a_tile) mma3<false>(acc_a, ah, al, ks[k0], ks[k0 + 4]);
+      const float zlo = fmaf(r, zs[k0], has_p ? pzs[k0] : 0.f);
+      const float zhi = fmaf(r, zs[k0 + 4], has_p ? pzs[k0 + 4] : 0.f);
+      qz[0] += a[0] * zlo + a[2] * zhi;
+      qz[1] += a[1] * zlo + a[3] * zhi;
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn) {
+        const int o = k0 * kSs + 8 * jn, o4 = o + 4 * kSs;
+        mma3<false>(acc_n[jn], ah, al, fmaf(r, ss[o], has_p ? ps[o] : 0.f),
+                    fmaf(r, ss[o4], has_p ? ps[o4] : 0.f));
+      }
+    }
+  }
+  // the warp's key tile of A, causally masked, into shared memory
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int row = rb + g + 8 * (e >> 1), key = 8 * cg + 2 * t + (e & 1);
+    as[row * kAs + key] = a_tile && key <= row ? acc_a[e] : 0.f;
+  }
+  prf::grid_dependents_launch();      // launch 3 may start; it waits
+  cp_async_wait<0>();
+  __syncthreads();                    // A complete, V_c landed
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int k = t; k < kCc; k += 4) {
+    rs[0] += as[(rb + g) * kAs + k];
+    rs[1] += as[(rb + g + 8) * kAs + k];
+  }
+  const float den[2] = {prf::group_sum(rs[0] + qz[0]) + eps,
+                        prf::group_sum(rs[1] + qz[1]) + eps};
+  // + A V_c over the key tiles up to the warp's last row, the k-index t
+  // taken as key 2t and t + 4 as key 2t + 1 (as launch 1 reads V)
+  const int nkt = last / 8 + 1;
+#pragma unroll
+  for (int kt = 0; kt < kCc / 8; ++kt) {
+    if (kt >= nkt) break;
+    const float* a0 = as + (rb + g) * kAs + 8 * kt + 2 * t;
+    const float a[4] = {a0[0], a0[8 * kAs], a0[1], a0[8 * kAs + 1]};
+    uint32_t ah[4], al[4];
+    split4(a, ah, al);
+    const T* b = vs + (8 * kt + 2 * t) * kV + 16 * cg + g;
+#pragma unroll
+    for (int jn = 0; jn < 2; ++jn)
+      mma3<sizeof(T) == 2>(acc_n[jn], ah, al, to_f(b[8 * jn]),
+                           to_f(b[kV + 8 * jn]));
+  }
+  T* on = out + ((size_t)n * L + p0) * dv;
+#pragma unroll
+  for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      const int row = rb + g + 4 * e;
+      if (p0 + row < L)
+        store2(on + (size_t)row * dv, j0 + 16 * cg + 8 * jn + 2 * t, dv,
+               acc_n[jn][e] / den[e >> 1], acc_n[jn][e + 1] / den[e >> 1]);
+    }
+  // launch 1 ends before this launch does: launch 3 reads its last slot
+  if (!has_p) prf::grid_dependency_wait();
+}
+
+// Launch 3. S_L = rho S0 + pfx[nc - 1] and z_L = rho z0 + pz[nc - 1] in
+// place for query row n (KV row n / h), once launch 2 has read S0 and z0.
+// Grid: (blocks, N).
+__global__ void __launch_bounds__(256) carry_final_kernel(
+    float* s0, float* z0, const float* __restrict__ rho,
+    const float* __restrict__ pfx, const float* __restrict__ pz, int m,
+    int dv, int h, int nc) {
+  prf::grid_dependency_wait();
+  const int n = blockIdx.y, nk = n / h;
+  const float r = rho == nullptr ? 1.f : rho[n];
+  const size_t fin = (size_t)nk * nc + nc - 1;
+  const int i0 = blockIdx.x * 256 + threadIdx.x, stride = gridDim.x * 256;
+  advance(s0 + (size_t)n * m * dv, pfx + fin * m * dv, m * dv, r, i0,
+          stride);
+  advance(z0 + (size_t)n * m, pz + fin * m, m, r, i0, stride);
+}
+
+// B4: launch 1, launch 2, then launch 3 (S_L in place), the later two
+// started by programmatic dependent launch while the one before them
+// finishes.
+template <typename T>
+int launch_carry(const float* qf, const float* kf, const void* v,
+                 float* s0, float* z0, const float* rho, float* pfx,
+                 float* pz, void* out, int N, int Nk, int L, int m, int dv,
+                 float eps, cudaStream_t st) {
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(out);
+  const int nc = (L + kCc - 1) / kCc, ndv = (dv + kDvT - 1) / kDvT;
+  cudaError_t err = cudaFuncSetAttribute(
+      carry_prefix_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kPrefixSmem<T>);
+  if (err != cudaSuccess) return (int)err;
+  carry_prefix_kernel<T><<<dim3(((m + kDf - 1) / kDf) * ndv, Nk), 256,
+                           kPrefixSmem<T>, st>>>(kf, vt, pfx, pz, L, m, dv);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(carry_out_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kCarrySmem<T>);
+  if (err != cudaSuccess) return (int)err;
+  const int e = prf::launch_after(
+      carry_out_kernel<T>, dim3(nc * ndv, N), 256, kCarrySmem<T>, st, qf, kf,
+      vt, (const float*)s0, (const float*)z0, rho, (const float*)pfx,
+      (const float*)pz, ot, L, m, dv, N / Nk, eps);
+  if (e != 0) return e;
+  const int blocks = (m * dv / 4 + 1023) / 1024;    // 4 pieces a thread
+  return prf::launch_after(carry_final_kernel,
+                           dim3(blocks > 0 ? blocks : 1, N), 256, 0, st, s0,
+                           z0, rho, (const float*)pfx, (const float*)pz, m,
+                           dv, N / Nk, nc);
+}
+
 }  // namespace las
 
 // qf: (N, L, m) f32; kf: (Nk, L, m) f32; v: (Nk, L, dv) f32 or bf16;
@@ -797,18 +906,19 @@ extern "C" int linear_attn_causal(const float* qf, const float* kf,
 }
 
 // As linear_attn_causal, resumed from the carried state s0: (N, m, dv) and
-// z0: (N, m) f32 of each query row, which end advanced over the L tokens
-// (in place). ds: (Nk, nc, m, dv) and dz: (Nk, nc, m) f32 scratch, nc =
-// ceil(L / 256).
+// z0: (N, m) f32 of each query row, scaled first by rho: (N) f32 (null:
+// 1), then advanced over the L tokens, in place. pfx: (Nk, nc, m, dv) and
+// pz: (Nk, nc, m) f32 scratch, nc = ceil(L / 32).
 extern "C" int linear_attn_carry(const float* qf, const float* kf,
                                  const void* v, float* s0, float* z0,
-                                 float* ds, float* dz, void* out, int N,
-                                 int Nk, int L, int m, int dv, int bf16_v,
-                                 float eps, void* stream) {
+                                 const float* rho, float* pfx, float* pz,
+                                 void* out, int N, int Nk, int L, int m,
+                                 int dv, int bf16_v, float eps,
+                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16_v)
-    return las::launch_carry<__nv_bfloat16>(qf, kf, v, s0, z0, ds, dz, out,
-                                            N, Nk, L, m, dv, eps, st);
-  return las::launch_carry<float>(qf, kf, v, s0, z0, ds, dz, out, N, Nk, L,
-                                  m, dv, eps, st);
+    return las::launch_carry<__nv_bfloat16>(qf, kf, v, s0, z0, rho, pfx, pz,
+                                            out, N, Nk, L, m, dv, eps, st);
+  return las::launch_carry<float>(qf, kf, v, s0, z0, rho, pfx, pz, out, N,
+                                  Nk, L, m, dv, eps, st);
 }

@@ -238,20 +238,53 @@ def test_decode_step_kernel_matches_plain(dev, b, g, hg, m, dv):
                      kds.prf_decode_step_plain, args, (3, 4), eps=1e-8)
 
 
+# B4's cases: (B, G, Hg, Hk, L, m, dv, v dtype, rho < 1)
+F32, BF16 = torch.float32, torch.bfloat16
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("l,hk,dtype", [
-    (1, 1, torch.float32), (37, 3, torch.float32), (256, 1, torch.bfloat16),
-    (300, 1, torch.float32), (512, 3, torch.bfloat16)])
-def test_carry_kernel_matches_plain(dev, l, hk, dtype):
+@pytest.mark.parametrize("b,g,hg,hk,l,m,dv,dtype,rho", [
+    (2, 3, 3, 1, 1, 256, 64, F32, False),
+    (2, 3, 3, 3, 37, 256, 64, F32, False),
+    (2, 3, 3, 1, 256, 256, 64, BF16, False),
+    (2, 3, 3, 1, 300, 256, 64, F32, False),
+    (2, 3, 3, 3, 512, 256, 64, BF16, False),
+    # rho < 1: the stabilizer's rescale, folded into the kernel
+    (2, 3, 3, 1, 37, 256, 64, BF16, True),
+    (2, 3, 3, 3, 300, 256, 64, F32, True),
+    # the packer's four grants at smollm-135m's heads
+    (8, 3, 3, 1, 32, 256, 64, BF16, True),
+    (8, 3, 3, 1, 32, 256, 64, F32, True),
+    (4, 3, 3, 1, 64, 256, 64, BF16, True),
+    (2, 3, 3, 1, 128, 256, 64, F32, True),
+    (1, 3, 3, 1, 256, 256, 64, BF16, True),
+    (1, 3, 3, 1, 256, 256, 64, F32, True),
+    # darkformer-2b's heads
+    (8, 1, 8, 1, 32, 256, 256, F32, True),
+    (1, 1, 8, 1, 256, 256, 256, BF16, True),
+    # narrow, ragged widths: rows not 16-byte multiples, dv > 64
+    (1, 2, 3, 1, 70, 30, 10, BF16, True),
+    (1, 2, 3, 1, 45, 32, 80, F32, True),
+    # the packer's smaller calls (PERF.md section 5's histogram) and a
+    # chunk shorter than 32
+    (3, 3, 3, 1, 64, 256, 64, BF16, True),
+    (5, 3, 3, 1, 32, 256, 64, BF16, True),
+    (2, 3, 3, 1, 64, 256, 64, F32, True),
+    (1, 3, 3, 1, 128, 256, 64, BF16, True),
+    (2, 3, 3, 1, 5, 256, 64, F32, True),
+])
+def test_carry_kernel_matches_plain(dev, b, g, hg, hk, l, m, dv, dtype,
+                                    rho):
     """B4 against its plain version from a nonzero carried state, with kf
-    and v per KV group (Hk = 1) or per head, the state advanced in
-    place."""
-    args = check.make_carry_inputs(dev, 2, 3, 3, hk, l, 256, 64, seed=l,
+    and v per KV group (Hk = 1) or per head, optionally scaled by rho per
+    query row, the state advanced in place."""
+    args = check.make_carry_inputs(dev, b, g, hg, hk, l, m, dv, seed=l,
                                    dtype=dtype)
+    kw = {"rho": check.make_carry_rho(dev, b, g, hg, seed=l)} if rho else {}
     check.check_case("linear_attention_carry", lambda: kl.carry_launches,
                      kl.linear_attention_prefill_chunk,
                      kl.linear_attention_carry_plain, args, (3, 4),
-                     eps=1e-8)
+                     eps=1e-8, **kw)
 
 
 @pytest.mark.cuda

@@ -1,13 +1,19 @@
-"""B5's tensor-core arithmetic, mirrored on the CPU, against the reference.
+"""B5's and B4's tensor-core arithmetic, mirrored on the CPU, against the
+reference.
 
 ``check.lin_attn_tf32`` computes causal linear attention the way the B5
 CUDA kernel does (64-key chunks, one exclusive prefix state per chunk,
-every matrix product in 3xTF32 with f32 sums). Here it is held against
-``repro.kernels.ref.linear_attention_causal_ref`` (the reference's O(L²)
-oracle, in JAX) on the same numpy-seeded inputs, at the port's unchanged
-kernel tolerances: ``F32_TOL`` for f32 v, ``BF16_OUT_TOL`` for bf16 v.
-The 1xTF32 error is printed beside it, not asserted. The kernel itself
-is held against its plain version on the card (tests/test_torch_cuda.py).
+every matrix product in 3xTF32 with f32 sums); ``check.carry_tf32`` the
+carried scan the way B4's does (32-key chunks, inclusive prefixes per
+KV row, S_in = ρ·S0 + prefix, the same products, the final state). Here
+they are held against ``repro.kernels.ref.linear_attention_causal_ref``
+and ``linear_attention_carry_ref`` (the reference's O(L²) oracles, in
+JAX; B4's from ρ·S0, ρ·z0, as the reference's two-stage prefill scales
+the pool) on the same numpy-seeded inputs, at the port's unchanged
+kernel tolerances: ``F32_TOL`` for f32 v and the state, ``BF16_OUT_TOL``
+for bf16 outputs. The 1xTF32 error is printed beside them, not asserted.
+The kernels themselves are held against their plain versions on the
+card (tests/test_torch_cuda.py).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -59,6 +65,50 @@ def test_tf32_mirror_matches_reference(l, hk, dtype):
     assert bool(torch.isfinite(got.float()).all())
     assert bool((err <= tol["atol"] + tol["rtol"] * exp.abs()).all()), (
         float(err.max()), tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hk", [1, HG], ids=["Hk=1", "Hk=H"])
+@pytest.mark.parametrize("l", [1, 31, 32, 33, 300])
+def test_carry_tf32_mirror_matches_reference(l, hk, dtype):
+    """B4's arithmetic from a carried state scaled by ρ < 1 per query row
+    stays within the kernel tolerances of the reference, outputs and final
+    state, for one token, one chunk less a key, one chunk, one key past it
+    and ten chunks (the last partial), kf and v per KV group or per head."""
+    qf, kf, v = check.make_lin_attn_inputs("cpu", B, G, HG, l, M, DV,
+                                           seed=l + hk, dtype=dtype, hk=hk)
+    rng = np.random.default_rng(l)
+    s0 = torch.tensor(8 * M ** -0.5 * rng.standard_normal((B, G, HG, M, DV)),
+                      dtype=torch.float32)
+    z0 = torch.tensor(64 * M ** -0.5 * (rng.uniform(size=(B, G, HG, M)) + 0.5),
+                      dtype=torch.float32)
+    rho = torch.tensor(np.exp(-rng.exponential(size=(B, G, HG))),
+                       dtype=torch.float32)
+    n = B * G * HG
+    kb, vb = (x.expand(*qf.shape[:-1], x.shape[-1]) for x in (kf, v))
+    exp = ref.linear_attention_carry_ref(
+        qf.reshape(n, l, M).numpy(), kb.reshape(n, l, M).numpy(),
+        vb.float().reshape(n, l, DV).numpy(),
+        (s0 * rho[..., None, None]).reshape(n, M, DV).numpy(),
+        (z0 * rho[..., None]).reshape(n, M).numpy(), eps=1e-6)
+    exp = [torch.from_numpy(np.array(e, np.float32)) for e in exp]
+    got = check.carry_tf32(qf, kf, v, s0, z0, rho, eps=1e-6)
+    one = check.carry_tf32(qf, kf, v, s0, z0, rho, eps=1e-6, passes=1)[0]
+    assert got[0].shape == qf.shape[:-1] + (DV,) and got[0].dtype == dtype
+    tol = check.BF16_OUT_TOL if dtype == torch.bfloat16 else check.F32_TOL
+    out, e_out = got[0].float().reshape(n, l, DV), exp[0]
+    print(f"L={l} Hk={hk} {dtype}: 3xTF32 max abs err "
+          f"{float((out - e_out).abs().max()):.3e}, 1xTF32 "
+          f"{float((one.float().reshape(n, l, DV) - e_out).abs().max()):.3e}")
+    for what, g, e, t in (("out", out, e_out, tol),
+                          ("s", got[1].reshape(n, M, DV), exp[1],
+                           check.F32_TOL),
+                          ("z", got[2].reshape(n, M), exp[2], check.F32_TOL)):
+        err = (g - e).abs()
+        assert bool(torch.isfinite(g).all()), what
+        assert bool((err <= t["atol"] + t["rtol"] * e.abs()).all()), (
+            what, float(err.max()), t)
 
 
 def test_tf32_split_reproduces_f32():

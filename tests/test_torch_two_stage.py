@@ -94,10 +94,10 @@ def test_decode_step_plain_matches_reference(b, g, h, hk, m, dv):
 # B4 linear_attention_causal_carry
 # ---------------------------------------------------------------------------
 
-def _carry_inputs(b, h, hk, l, m, dv, seed):
+def _carry_inputs(b, h, hk, l, m, dv, seed, feat_scale=1.0):
     rng = np.random.default_rng(seed)
-    return (rng.uniform(size=(b, h, l, m)).astype(F),
-            rng.uniform(size=(b, hk, l, m)).astype(F),
+    return ((feat_scale * rng.uniform(size=(b, h, l, m))).astype(F),
+            (feat_scale * rng.uniform(size=(b, hk, l, m))).astype(F),
             rng.standard_normal((b, hk, l, dv)).astype(F),
             rng.standard_normal((b, h, m, dv)).astype(F),
             (rng.uniform(size=(b, h, m)) * 4.0).astype(F))
@@ -109,23 +109,37 @@ def _flat_carry(x, b, h):
                         .reshape(b * h, *a.shape[2:])) for a in x]
 
 
-@pytest.mark.parametrize("b,h,hk,l,chunk", [
-    (2, 3, 1, 20, 16),        # GQA, L past one reference chunk (padded)
-    (1, 2, 2, 7, 16),         # per head, one partial chunk
-    (2, 3, 1, 1, 16),         # one token
-    (1, 2, 1, 40, 16),        # three reference chunks
+@pytest.mark.parametrize("b,h,hk,l,chunk,rho", [
+    (2, 3, 1, 20, 16, False),   # GQA, L past one reference chunk (padded)
+    (1, 2, 2, 7, 16, False),    # per head, one partial chunk
+    (2, 3, 1, 1, 16, False),    # one token
+    (1, 2, 1, 40, 16, False),   # three reference chunks
+    # rho < 1 per query row: the reference's kernel from (rho S0, rho z0);
+    # features at PRF scale (1/sqrt(m)): unscaled, z reaches ~150 by L =
+    # 300, where f32's spacing is within 2x of the atol
+    (2, 3, 1, 1, 16, True),
+    (2, 3, 1, 37, 16, True),
+    (1, 2, 2, 37, 16, True),
+    (2, 3, 1, 300, 64, True),
+    (1, 2, 2, 300, 64, True),
 ])
-def test_carry_plain_matches_reference(b, h, hk, l, chunk):
+def test_carry_plain_matches_reference(b, h, hk, l, chunk, rho):
     m, dv = 16, 8
-    x = _carry_inputs(b, h, hk, l, m, dv, seed=l + h)
-    fx = _flat_carry(x, b, h)
+    x = _carry_inputs(b, h, hk, l, m, dv, seed=l + h,
+                      feat_scale=m ** -0.5 if rho else 1.0)
+    r = (np.exp(-np.random.default_rng(l).exponential(size=(b, h)))
+         .astype(F) if rho else None)
+    scaled = list(x) if r is None else [
+        *x[:3], x[3] * r[..., None, None], x[4] * r[..., None]]
+    fx = _flat_carry(scaled, b, h)
     exp_k = linear_attention_causal_carry_fwd(*fx, chunk=chunk, eps=1e-6,
                                               interpret=True)
     exp_r = ref.linear_attention_carry_ref(*fx, eps=1e-6)
     args = [torch.tensor(a) for a in x]
     ptrs = [args[3].data_ptr(), args[4].data_ptr()]
     n0 = kl.carry_launches
-    out, s, z = kl.linear_attention_prefill_chunk(*args, eps=1e-6)
+    kw = {} if r is None else {"rho": torch.tensor(r)}
+    out, s, z = kl.linear_attention_prefill_chunk(*args, eps=1e-6, **kw)
     assert kl.carry_launches == n0
     assert [s.data_ptr(), z.data_ptr()] == ptrs            # in place
     for exp in (exp_k, exp_r):
@@ -206,6 +220,7 @@ def test_wkv6_gradients_match_reference():
 
 @pytest.mark.parametrize("bad", ["decode_rho_shape", "decode_kf_heads",
                                  "carry_s0_dtype", "carry_z0_shape",
+                                 "carry_rho_shape", "carry_rho_dtype",
                                  "wkv_dtype_mix", "wkv_u_shape"])
 def test_two_stage_wrappers_reject_bad_arguments(bad):
     qf, kf, v, s, z = (torch.tensor(a)
@@ -224,6 +239,12 @@ def test_two_stage_wrappers_reject_bad_arguments(bad):
             kl.linear_attention_prefill_chunk(qf, kf, v, s.double(), z)
         elif bad == "carry_z0_shape":
             kl.linear_attention_prefill_chunk(qf, kf, v, s, z[:, :1])
+        elif bad == "carry_rho_shape":      # one per KV group, not per row
+            kl.linear_attention_prefill_chunk(qf, kf, v, s, z,
+                                              rho=torch.ones(2, 1))
+        elif bad == "carry_rho_dtype":
+            kl.linear_attention_prefill_chunk(
+                qf, kf, v, s, z, rho=torch.ones(2, 3, dtype=torch.float64))
         elif bad == "wkv_dtype_mix":
             kw.wkv6(r, k.double(), vv, w, u)
         else:
