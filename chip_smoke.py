@@ -19,7 +19,9 @@ Phases, each printed as a JSON line:
      version and timed at each of the packer's four grants, 8 x 32 to
      1 x 256, and held at L = 300, a partial second T-chunk), the
      training kernels at its training shapes, the
-     two-stage kernels (prf_decode_step at the serving shape; the
+     two-stage kernels (prf_decode_step at 1, 2, 4 and 8 slots of
+     smollm-135m and 1 and 8 of darkformer-2b, f32 and bf16 v, kf and v
+     per query head too, and timed at 8 slots cold and warm; the
      carried scan with and without a rho < 1, at the packer's four grants
      and darkformer-2b's heads, also chained over three uneven chunks, and
      timed at those shapes) and wkv6 at the rwkv6-7b geometry;
@@ -51,7 +53,8 @@ Phases, each printed as a JSON line:
      path), same params and batch; a planted fault (each layer's kernel
      call fed the next layer's key features) must fail the same check.
 Then the kernels line (all seven kernels: launches on their path, max
-error, time and device time, prf_fused_decode's cold, plain time,
+error, time and device time, prf_fused_decode's and prf_decode_step's
+cold beside their warm ones, plain time,
 bound: bytes at 3.35 TB/s or operations at 67 TFLOP/s of f32, for
 linear_attention_causal, which runs on the tensor cores, at 495 TFLOP/s
 of TF32) and, last, the ``{"ok": true, ...}``
@@ -292,48 +295,92 @@ COLD_S_BYTES = 100e6
 DECODE_POOLS = 30               # smollm-135m's layers: a decode step's pools
 
 
+def cold_pools(args, s):
+    """``args`` and independent copies of it: 30, one for each of a
+    decode step's layers, or as many as hold COLD_S_BYTES of ``s``."""
+    from repro_torch.kernels import check as kc
+
+    n = max(DECODE_POOLS, math.ceil(COLD_S_BYTES / nbytes(s)))
+    return [args] + [kc.clone(args) for _ in range(n - 1)]
+
+
+def cold_warm_times(torch, call, pools):
+    """:func:`kernel_times` of ``call(args)``, 200 calls each way: cold
+    (``ms``, ``device_ms``), one call per pool in turn, so each call
+    finds its S in device memory, as a decode step over 30 layers'
+    8-slot pools (141 MB) does; warm (``ms_warm``, ``device_ms_warm``),
+    on the first pool, whose S stays in the 50 MB L2."""
+    turn = itertools.cycle(pools)
+    cold = kernel_times(torch, lambda: call(next(turn)), 200)
+    warm = kernel_times(torch, lambda: call(pools[0]), 200)
+    return {**cold, "ms_warm": warm["ms"], "device_ms_warm": warm["device_ms"],
+            "cold_pools": len(pools)}
+
+
 def decode_pools(torch, dev, b):
-    """Independent copies of one B1 call's inputs at ``b`` active slots of
-    smollm-135m (bf16 q/k/v, f32 state): 30, one for each of a decode
-    step's layers, or as many as hold COLD_S_BYTES of S."""
+    """:func:`cold_pools` of one B1 call's inputs at ``b`` active slots of
+    smollm-135m (bf16 q/k/v, f32 state)."""
     from repro_torch.kernels import check as kc
 
     args = kc.make_inputs(dev, b, 3, 3, 64, 256, 64, None, True, seed=7,
                           dtype=torch.bfloat16)
-    n = max(DECODE_POOLS, math.ceil(COLD_S_BYTES / nbytes(args[5])))
-    return [args] + [kc.clone(args) for _ in range(n - 1)]
+    return cold_pools(args, args[5])
 
 
 def decode_row_timing(torch, dev, kd, b):
     """B1 timed at ``b`` active slots of smollm-135m (bf16 q/k/v, f32
-    state) beside its plain version (warm) and its bound: bytes of the
-    inputs, S, z and c in and out, and the output; operations of the
-    features and the state update. ``ms``/``device_ms`` (CUDA events;
-    the profiler's device time) are taken cold: one call per pool in
-    turn over independent copies of the inputs, 30 as a decode step's
-    30 layers, or as many as hold 100 MB of S, so each call finds its S
-    in device memory, as a step over 30 layers' 8-slot pools (141 MB)
-    does. ``ms_warm``/``device_ms_warm`` call one pool 200 times; its S
-    stays in the 50 MB L2."""
+    state), cold and warm (:func:`cold_warm_times` over
+    :func:`decode_pools`), beside its plain version (warm) and its bound:
+    bytes of the inputs, S, z and c in and out, and the output;
+    operations of the features and the state update."""
     g, hg, d, m, dv = 3, 3, 64, 256, 64
     pools = decode_pools(torch, dev, b)
     args = pools[0]
     q, k, v, a, mm, s, z, c = args
-    turn = itertools.cycle(pools)
     byts = nbytes(q, k, v, a, mm) + 2 * nbytes(s, z, c) + \
         b * g * hg * dv * 4
     flops = (feature_flops(b * g * hg, b * g, d, d, m, True)
              + b * g * hg * (4 * m * dv + 4 * m))
     bms, by = bound(byts, flops)
-    cold = kernel_times(
-        torch, lambda: kd.fused_prf_decode(*next(turn), eps=1e-8), 200)
-    warm = kernel_times(torch, lambda: kd.fused_prf_decode(*args, eps=1e-8),
-                        200)
     return {
         "shape": f"B={b} G={g} Hg={hg} d={d} m={m} dv={dv} bf16",
-        **cold, "ms_warm": warm["ms"], "device_ms_warm": warm["device_ms"],
-        "cold_pools": len(pools),
+        **cold_warm_times(
+            torch, lambda a: kd.fused_prf_decode(*a, eps=1e-8), pools),
         "plain_ms": time_ms(torch, lambda: kd.prf_fused_decode_plain(
+            *args, eps=1e-8), 50),
+        "bound_ms": bms, "bound_by": by, "bytes": byts, "flops": flops}
+
+
+def decode_step_pools(torch, dev, b, g=3, hg=3, dv=64):
+    """:func:`cold_pools` of one B3 call's inputs (qf, kf, v, s, z, ρ) at
+    ``b`` active slots (smollm-135m's heads unless ``g``, ``hg``, ``dv``
+    say otherwise; m 256, bf16 v as the serving path passes it, the rest
+    f32)."""
+    from repro_torch.kernels import check as kc
+
+    args = kc.make_decode_step_inputs(dev, b, g, hg, 256, dv, seed=13)
+    args[2] = args[2].to(torch.bfloat16)
+    return cold_pools(args, args[3])
+
+
+def decode_step_timing(torch, dev, kds, b, g=3, hg=3, dv=64, call=None):
+    """B3 timed at ``b`` active slots, cold and warm
+    (:func:`cold_warm_times` over :func:`decode_step_pools`), beside its
+    plain version (warm) and its bound: bytes of qf, kf, v and ρ, S and z
+    in and out, and the output; operations of the state update and the
+    readout. ``call(args)`` makes one call (the wrapper by default)."""
+    call = call or (lambda a: kds.linear_attention_decode_step(*a, eps=1e-8))
+    pools = decode_step_pools(torch, dev, b, g, hg, dv)
+    args = pools[0]
+    qf, kf_, v, s, z, rho = args
+    m, rows = qf.shape[-1], qf.numel() // qf.shape[-1]
+    byts = nbytes(qf, kf_, v, rho) + 2 * nbytes(s, z) + rows * dv * 4
+    flops = rows * (4 * m * dv + 4 * m + dv)
+    bms, by = bound(byts, flops)
+    return {
+        "shape": f"B={b} G={g} Hg={hg} m={m} dv={dv} v=bf16",
+        **cold_warm_times(torch, call, pools),
+        "plain_ms": time_ms(torch, lambda: kds.prf_decode_step_plain(
             *args, eps=1e-8), 50),
         "bound_ms": bms, "bound_by": by, "bytes": byts, "flops": flops}
 
@@ -771,14 +818,20 @@ def phase_two_stage_kernels(torch, dev, kds, kl, kw):
     def record(kernel, name, e, **extra):
         err[kernel] = max(err[kernel], e)
         cases.append({"case": name, "max_abs_err": e, **extra})
-    for gname, (b, g, hg, m, dv) in (("smollm-135m", (8, 3, 3, 256, 64)),
-                                     ("darkformer-2b", (8, 1, 8, 256, 256))):
-        args = kc.make_decode_step_inputs(dev, b, g, hg, m, dv,
-                                          seed=len(cases))
-        name = f"prf_decode_step {gname} slots={b} rho<1"
+    def step_case(gname, b, g, hg, hk, dv, dt):
+        name = (f"prf_decode_step {gname} slots={b} Hk={hk} "
+                f"v={str(dt).split('.')[-1]} rho<1")
+        args = kc.make_decode_step_inputs(dev, b, g, hg, 256, dv,
+                                          seed=len(cases), hk=hk, dtype=dt)
         record("prf_decode_step", name, kc.check_case(
             name, lambda: kds.launches, kds.linear_attention_decode_step,
             kds.prf_decode_step_plain, args, (3, 4), eps=1e-8))
+    for gname, g, hg, dv, slots in (("smollm-135m", 3, 3, 64, (8, 4, 2, 1)),
+                                    ("darkformer-2b", 1, 8, 256, (8, 1))):
+        for b in slots:
+            for dt in (torch.float32, torch.bfloat16):
+                step_case(gname, b, g, hg, 1, dv, dt)
+        step_case(gname, 2, g, hg, hg, dv, torch.bfloat16)  # Hk = H
     carry = (lambda: kl.carry_launches, kl.linear_attention_prefill_chunk,
              kl.linear_attention_carry_plain)
 
@@ -911,28 +964,15 @@ CARRY_SHAPES = (
 
 def phase_two_stage_timing(torch, dev, kds, kl, kw):
     """Phase 2f: B3, B4 and B7 timed (CUDA events) beside their plain
-    versions and bounds. B3 at 8 slots of smollm-135m; B4 at the
-    packer's four grants at smollm-135m's heads and at darkformer-2b's at
-    8 x 32 and 1 x 256 (:data:`CARRY_SHAPES`), bf16 v, the pool's state
+    versions and bounds. B3 at 8 slots of smollm-135m, cold and warm
+    (:func:`decode_step_timing`); B4 at the packer's four grants at
+    smollm-135m's heads and at darkformer-2b's at 8 x 32 and 1 x 256
+    (:data:`CARRY_SHAPES`), bf16 v, the pool's state
     scaled by ρ and advanced in place; B7 at the rwkv6-7b geometry, 512
     rows (64 heads x batch 8) x 512 tokens, dh 64, f32."""
     from repro_torch.kernels import check as kc
 
-    out = {}
-    b, g, hg, m, dv = 8, 3, 3, 256, 64
-    args = kc.make_decode_step_inputs(dev, b, g, hg, m, dv, seed=13)
-    qf, kf_, v, s, z, rho = args
-    rows = b * g * hg
-    byts = nbytes(qf, kf_, v, rho) + 2 * nbytes(s, z) + rows * dv * 4
-    bms, by = bound(byts, rows * (4 * m * dv + 4 * m + dv))
-    out["prf_decode_step"] = {
-        "shape": f"B={b} G={g} Hg={hg} m={m} dv={dv} f32",
-        **kernel_times(torch, lambda: kds.linear_attention_decode_step(
-            *args, eps=1e-8), 200),
-        "plain_ms": time_ms(torch, lambda: kds.prf_decode_step_plain(
-            *args, eps=1e-8), 50),
-        "bound_ms": bms, "bound_by": by, "bytes": byts,
-        "flops": rows * (4 * m * dv + 4 * m + dv)}
+    out = {"prf_decode_step": decode_step_timing(torch, dev, kds, 8)}
     for key, b, l, g, hg, dv in CARRY_SHAPES:
         out[key] = carry_timing(torch, dev, kl, b, l, g, hg, dv)
     n, l, dh = 512, 512, 64
@@ -1227,6 +1267,8 @@ def main() -> int:
          "replaces": replaces, "launches": launches[n],
          "max_abs_err": errs[n], "ms": timing[n]["ms"],
          "device_ms": timing[n]["device_ms"],
+         **{k: timing[n][k] for k in ("ms_warm", "device_ms_warm")
+            if k in timing[n]},
          "plain_ms": timing[n]["plain_ms"],
          "bound_ms": timing[n]["bound_ms"],
          "bound_by": timing[n]["bound_by"], "library_ms": None}

@@ -269,7 +269,7 @@ def rf_attention_decode(q, k, v, state: AttnServeState, fparams,
     if use_kernel:
         out, _, _ = kops.linear_attention_decode_step(
             qf1.contiguous(), kf[:, :, :, 0].contiguous(),
-            v[:, :, :, 0].float().contiguous(), state.s, state.z,
+            v[:, :, :, 0].contiguous(), state.s, state.z,
             rescale[..., 0, 0].contiguous(), eps=cfg.eps)
         state.c.copy_(c_new)
         return out.to(v.dtype)[..., None, :], state

@@ -269,22 +269,25 @@ def make_featmap_inputs(dev, n, d, r, m, dark, seed,
     return [x, m_mat, w, t(0.5)]
 
 
-def make_decode_step_inputs(dev, b, g, hg, m, dv, seed) -> list:
+def make_decode_step_inputs(dev, b, g, hg, m, dv, seed, hk=1,
+                            dtype=torch.float32) -> list:
     """[qf, kf, v, s, z, rescale] of one two-stage decode step at the
-    attention's layout: qf (B, G, Hg, m); kf (B, G, 1, m) and v (B, G,
-    1, dv) per KV group; the pool's s (B, G, Hg, m, dv) and z (B, G, Hg,
-    m); rescale (B, G, 1) in (0, 1], a stabilizer that moved. Features
-    positive like PRF features (exp(N(0, 1/4))/√m); all f32."""
+    attention's layout: qf (B, G, Hg, m); kf (B, G, Hk, m), v (B, G, Hk,
+    dv) and rescale (B, G, Hk) per KV row (Hk = 1: one per KV group, as
+    the serving path passes them; Hk = Hg: one per query head); the
+    pool's s (B, G, Hg, m, dv) and z (B, G, Hg, m); rescale in (0, 1], a
+    stabilizer that moved. Features positive like PRF features
+    (exp(N(0, 1/4))/√m); v in ``dtype``, the rest f32."""
     rng = np.random.default_rng(seed)
 
-    def t(a):
-        return torch.tensor(np.asarray(a, np.float32), device=dev)
+    def t(a, dt=torch.float32):
+        return torch.tensor(np.asarray(a, np.float32), device=dev).to(dt)
     return [t(np.exp(0.5 * rng.standard_normal((b, g, hg, m))) / m ** 0.5),
-            t(np.exp(0.5 * rng.standard_normal((b, g, 1, m))) / m ** 0.5),
-            t(rng.standard_normal((b, g, 1, dv))),
+            t(np.exp(0.5 * rng.standard_normal((b, g, hk, m))) / m ** 0.5),
+            t(rng.standard_normal((b, g, hk, dv)), dtype),
             t(rng.standard_normal((b, g, hg, m, dv))),
             t(rng.uniform(size=(b, g, hg, m)) + 0.5),
-            t(np.exp(-rng.exponential(size=(b, g, 1))))]
+            t(np.exp(-rng.exponential(size=(b, g, hk))))]
 
 
 def make_carry_inputs(dev, b, g, hg, hk, l, m, dv, seed,

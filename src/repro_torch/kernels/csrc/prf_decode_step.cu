@@ -6,107 +6,125 @@
 //     S' = rho S + kf v^T,  z' = rho z + kf,  out = qf.S' / (qf.z' + eps)
 //   with S and z updated in place. kf, v and rho are read per KV row:
 //   query row n uses KV row n / hq, so the hq query heads of a GQA group
-//   share one copy (no broadcast copy).
+//   share one copy (no broadcast copy). v is f32 or bf16, cast here.
 //
 // What bounds it on the H100: the bytes of the state. Each call reads and
 //   writes S (N*m*dv f32) and z (N*m f32) once: for smollm-135m at 8
 //   slots (N = 72 rows, m = 256, dv = 64) that is 2 * 4.72 MB, 2.9 us at
-//   3.35 TB/s, against 0.005 GFLOP of arithmetic.
+//   3.35 TB/s, against 0.005 GFLOP of arithmetic. On the serving path
+//   each layer's S is cold: the 30 layers' pools (141 MB at 8 slots) pass
+//   through the 50 MB L2 every step.
 //
-// Design: one block per (query row, 16-column tile of dv), 288 blocks at
-//   that shape (one block per row would leave 60 of the 132 SMs idle).
-//   The block stages qf and kf in shared memory and forms the denominator
-//   qf.z' itself; then each thread streams its column of the tile over a
-//   sixteenth of the rows, so every element of S is read, rescaled,
-//   updated and written back exactly once while its share of the readout
-//   is summed. All tiles of a row need z (the denominator), so they read
-//   it from a snapshot copied here before the launch when there is more
-//   than one tile; tile 0 writes z'.
+// Design: one launch, B1's S stream (prf::state_stream, prf_common.cuh)
+//   with the row's tiles in a thread block cluster. A block covers all m
+//   rows of COLS columns of one query row: COLS = 16 up to dv = 128, 32
+//   above, so a row is at most 8 blocks, a portable cluster (288 blocks in
+//   clusters of 4 at smollm-135m's 8 slots, 512 in clusters of 8 at
+//   darkformer-2b's). A thread holds 4 (8 at COLS = 32) rows x 4 columns
+//   of S, loaded 16 bytes at a time before anything else; every S element
+//   is read and written once, and den = qf.(rho z + kf) is formed once per
+//   row in the numerator's own reduction. Every tile needs the old z for
+//   den, so each arrives on the cluster barrier once it has read z, and
+//   the first tile writes z' = rho z + kf in place after the barrier: no
+//   copy of z, nothing allocated but the output, 0.5-1 KB of static
+//   shared memory and so no attribute to set. Two launches (z' first, then
+//   the stream after a programmatic-dependent wait, as B1 runs) measured
+//   slower at smollm-135m's shapes and faster at darkformer-2b's 8 slots
+//   on an H100 (PERF.md section 6).
 #include "prf_common.cuh"
 
-namespace pds {
+namespace prf {
+namespace step {
 
-constexpr int kThreads = 256;
-constexpr int kCols = 16;                      // dv columns per block
-constexpr int kGroups = kThreads / kCols;      // row groups per column
-
-__global__ void __launch_bounds__(kThreads) decode_step_kernel(
+// The S stream of one (query row, COLS columns) over the old z, the row's
+// tiles a cluster; the first tile writes z' once every tile has read z.
+template <typename T, int M, int COLS>
+__global__ void __launch_bounds__(kThreads) step_kernel(
     const float* __restrict__ qf, const float* __restrict__ kf,
-    const float* __restrict__ v, const float* __restrict__ rho, float* s,
-    float* z, const float* z_old, float* __restrict__ out, int m, int dv,
-    int hq, float eps) {
-  extern __shared__ float smem[];
-  float* qs = smem;                            // (m)
-  float* ks = qs + m;                          // (m)
-  float* red = ks + m;                         // (kThreads)
-  const int tid = threadIdx.x;
-  const int tile = blockIdx.x, n = blockIdx.y, nk = n / hq;
-  const float r = rho[nk];
-  const float* qn = qf + (size_t)n * m;
-  const float* kn = kf + (size_t)nk * m;
-  const float* zn = z_old + (size_t)n * m;
-
-  float den = 0.f;
-  for (int i = tid; i < m; i += kThreads) {
-    const float q = qn[i], k = kn[i];
-    qs[i] = q;
-    ks[i] = k;
-    den += q * (zn[i] * r + k);
-  }
-  den = prf::block_sum(den, red);              // synchronises: qs, ks ready
-
-  const int j = tile * kCols + tid % kCols, rg = tid / kCols;
-  float num = 0.f;
-  if (j < dv) {
-    const float vj = v[(size_t)nk * dv + j];
-    float* sn = s + (size_t)n * m * dv + j;
-#pragma unroll 4
-    for (int i = rg; i < m; i += kGroups) {
-      const float sv = sn[(size_t)i * dv] * r + ks[i] * vj;
-      sn[(size_t)i * dv] = sv;
-      num += qs[i] * sv;
-    }
-  }
-  __syncthreads();                             // block_sum done with red
-  red[tid] = num;
-  __syncthreads();
-  if (tid < kCols && tile * kCols + tid < dv) {
-    float acc = 0.f;
-#pragma unroll
-    for (int g = 0; g < kGroups; ++g) acc += red[g * kCols + tid];
-    out[(size_t)n * dv + tile * kCols + tid] = acc / (den + eps);
-  }
-  if (tile == 0) {                             // this block read z already
-    float* zw = z + (size_t)n * m;
-    for (int i = tid; i < m; i += kThreads) zw[i] = zn[i] * r + ks[i];
+    const T* __restrict__ v, const float* __restrict__ rho,
+    float* __restrict__ z, float* __restrict__ s, float* __restrict__ out,
+    int dv, int hq, float eps) {
+  const int n = blockIdx.y, nk = n / hq;
+  float* zn = z + (size_t)n * M;
+  const float* kn = kf + (size_t)nk * M;
+  state_stream<T, M, COLS, true>(
+      v + (size_t)nk * dv, qf + (size_t)n * M, kn, rho + nk, zn,
+      s + (size_t)n * M * dv, out + (size_t)n * dv, blockIdx.x * COLS, dv,
+      eps);
+  cluster_wait();                    // every tile has read the row's z
+  if (blockIdx.x == 0) {
+    const float r = rho[nk];
+    for (int i = threadIdx.x; i < M; i += kThreads) zn[i] = zn[i] * r + kn[i];
   }
 }
 
-}  // namespace pds
+template <typename T, int M, int COLS>
+int run(const float* qf, const float* kf, const void* v, const float* rho,
+        float* s, float* z, float* out, int N, int hq, int dv, float eps,
+        cudaStream_t st) {
+  const dim3 grid((dv + COLS - 1) / COLS, N);
+  if (grid.x > 8) return (int)cudaErrorInvalidValue;   // a portable cluster
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = grid.x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, step_kernel<T, M, COLS>, qf, kf,
+                                 static_cast<const T*>(v), rho, z, s, out,
+                                 dv, hq, eps);
+}
 
-// qf: (N, m); kf: (Nk, m); v: (Nk, dv); rho: (Nk); s: (N, m, dv) and
-// z: (N, m), updated in place; z_old: (N, m) scratch for z's snapshot (may
-// be z itself when dv fits one tile); out: (N, dv). All f32; query row n
-// reads KV row n / (N / Nk).
-extern "C" int prf_decode_step(const float* qf, const float* kf,
-                               const float* v, const float* rho, float* s,
-                               float* z, float* z_old, float* out, int N,
-                               int Nk, int m, int dv, float eps,
-                               void* stream) {
-  using namespace pds;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (z_old != z) {
-    const cudaError_t err =
-        cudaMemcpyAsync(z_old, z, sizeof(float) * (size_t)N * m,
-                        cudaMemcpyDeviceToDevice, st);
-    if (err != cudaSuccess) return (int)err;
+template <typename T, int COLS>
+int dispatch_m(int m, const float* qf, const float* kf, const void* v,
+               const float* rho, float* s, float* z, float* out, int N,
+               int hq, int dv, float eps, cudaStream_t st) {
+#define PRF_STEP_CASE(MM)                                                 \
+  case MM:                                                                \
+    return run<T, MM, COLS>(qf, kf, v, rho, s, z, out, N, hq, dv, eps, st);
+  switch (m) {
+    PRF_STEP_CASE(16)
+    PRF_STEP_CASE(32)
+    PRF_STEP_CASE(64)
+    PRF_STEP_CASE(128)
+    PRF_STEP_CASE(256)
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  const size_t shmem = sizeof(float) * (2 * (size_t)m + kThreads);
-  cudaFuncSetAttribute(decode_step_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)shmem);
-  const dim3 grid((dv + kCols - 1) / kCols, N);
-  decode_step_kernel<<<grid, kThreads, shmem, st>>>(
-      qf, kf, v, rho, s, z, z_old, out, m, dv, N / Nk, eps);
-  return (int)cudaGetLastError();
+#undef PRF_STEP_CASE
+}
+
+template <typename T>
+int dispatch_cols(int m, const float* qf, const float* kf, const void* v,
+                  const float* rho, float* s, float* z, float* out, int N,
+                  int hq, int dv, float eps, cudaStream_t st) {
+  if (dv <= 128)
+    return dispatch_m<T, 16>(m, qf, kf, v, rho, s, z, out, N, hq, dv, eps,
+                             st);
+  return dispatch_m<T, 32>(m, qf, kf, v, rho, s, z, out, N, hq, dv, eps, st);
+}
+
+}  // namespace step
+}  // namespace prf
+
+// qf: (N, m); kf: (Nk, m); v: (Nk, dv) f32, or bf16 when bf16_v; rho:
+// (Nk); s: (N, m, dv) and z: (N, m), updated in place; out: (N, dv). All
+// f32 but v; query row n reads KV row n / (N / Nk). m in 16, 32, 64, 128,
+// 256; dv a multiple of 4, at most 256; qf, kf, s and z 16-byte aligned.
+extern "C" int prf_decode_step(const float* qf, const float* kf,
+                               const void* v, const float* rho, float* s,
+                               float* z, float* out, int N, int Nk, int m,
+                               int dv, int bf16_v, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dv % 4 || Nk <= 0 || N % Nk) return (int)cudaErrorInvalidValue;
+  if (bf16_v)
+    return prf::step::dispatch_cols<__nv_bfloat16>(
+        m, qf, kf, v, rho, s, z, out, N, N / Nk, dv, eps, st);
+  return prf::step::dispatch_cols<float>(m, qf, kf, v, rho, s, z, out, N,
+                                         N / Nk, dv, eps, st);
 }

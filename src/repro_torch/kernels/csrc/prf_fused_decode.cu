@@ -38,7 +38,8 @@
 //      S' = rho S + kf v^T over the loaded tile, once, and sums num =
 //      qf.S' per column and den = qf.z' by shuffles and over its 8 warps
 //      in shared memory: out = num / (den + eps). Each block holds all m
-//      rows of its columns, so no sum crosses blocks.
+//      rows of its columns, so no sum crosses blocks. The body is
+//      prf::state_stream (prf_common.cuh), which B3 shares.
 //   The host sets the shared-memory limit once per kernel and process.
 #include <cooperative_groups.h>
 
@@ -51,23 +52,10 @@ namespace decode {
 
 constexpr int kCluster = 4;    // features blocks per (b, g): a cluster
 constexpr int kRowTile = 4;    // rows summed at once (independent chains)
-constexpr int kWarps = kThreads / 32;
 constexpr int kFeatThreads = 256;  // a features block
 constexpr int kFeatWarps = kFeatThreads / 32;
 constexpr int kCols = 16;      // dv columns per stream block
 constexpr int kMaxSmem = 232448;   // a block's shared memory on Hopper
-
-// Thread block cluster barrier halves: arrive releases this thread's
-// writes (shared memory included) to the cluster, wait acquires the
-// others'. Between them a block may work; it must not exit while another
-// block may still read its shared memory.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-}
 
 // Launch 1: features of one (b, g) by a cluster of kCluster blocks, each
 // over M / kCluster columns of m and a share of the rows of M; z and c
@@ -264,99 +252,22 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   cluster_wait();
 }
 
-// RPT consecutive floats (16-byte aligned when RPT is 4).
-template <int RPT>
-__device__ __forceinline__ void load_rows(const float* p, float* out) {
-  if constexpr (RPT == 4) {
-    const float4 t = ld4(p);
-    out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
-  } else {
-#pragma unroll
-    for (int u = 0; u < RPT; ++u) out[u] = p[u];
-  }
-}
-
 // Launch 2: S' = rho S + kf v^T over all m rows of 16 columns of one
-// (b, g, h), and out = qf.S' / (qf.z' + eps) for those columns.
+// (b, g, h), and out = qf.S' / (qf.z' + eps) for those columns
+// (prf::state_stream over launch 1's features and z').
 template <typename T, int M>
 __global__ void __launch_bounds__(kThreads) stream_kernel(
     const T* __restrict__ v, const float* __restrict__ feat,
     const float* __restrict__ rho_in, const float* __restrict__ z,
     float* __restrict__ s, float* __restrict__ out, int Hg, int dv,
     float eps) {
-  constexpr int RPT = M >= 64 ? M / 64 : 1;       // rows of S a thread
-  constexpr int LANES = M / RPT;                   // row lanes, <= 64
-  __shared__ float red[kWarps][kCols + 1];             // num, then den
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int quad = tid & 3, rl = tid >> 2;
   const int h = blockIdx.y, bg = blockIdx.z;
-  const int j = blockIdx.x * kCols + 4 * quad;     // the thread's columns
-  const bool act = rl < LANES && j < dv;           // dv % 4 == 0
   const size_t head = (size_t)bg * Hg + h;
-  const int i0 = rl * RPT;
-  float* sp = s + (head * M + i0) * dv + j;
-  float4 sv[RPT];
-  float vv[4] = {0.f, 0.f, 0.f, 0.f};
-  if (act) {
-#pragma unroll
-    for (int p = 0; p < RPT; ++p) sv[p] = ld4(sp + (size_t)p * dv);
-    const T* vp = v + (size_t)bg * dv + j;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) vv[u] = to_f(vp[u]);
-  }
-  grid_dependency_wait();            // launch 1's features, z' are written
-  float num[4] = {0.f, 0.f, 0.f, 0.f};
-  float den = 0.f;
-  if (act) {
-    const float* fb = feat + (size_t)bg * (Hg + 1) * M;
-    float qf[RPT], kf[RPT];
-    load_rows<RPT>(fb + h * M + i0, qf);
-    load_rows<RPT>(fb + Hg * M + i0, kf);
-    if (quad == 0) {                 // den = qf.z' once per row
-      float zn[RPT];
-      load_rows<RPT>(z + head * M + i0, zn);
-#pragma unroll
-      for (int p = 0; p < RPT; ++p) den += qf[p] * zn[p];
-    }
-    const float rho = rho_in[bg];
-#pragma unroll
-    for (int p = 0; p < RPT; ++p) {
-      float4 x = sv[p];
-      x.x = x.x * rho + kf[p] * vv[0];
-      x.y = x.y * rho + kf[p] * vv[1];
-      x.z = x.z * rho + kf[p] * vv[2];
-      x.w = x.w * rho + kf[p] * vv[3];
-      *reinterpret_cast<float4*>(sp + (size_t)p * dv) = x;
-      num[0] += qf[p] * x.x;
-      num[1] += qf[p] * x.y;
-      num[2] += qf[p] * x.z;
-      num[3] += qf[p] * x.w;
-    }
-  }
-  // over the row lanes of a column: the 8 lanes of a quad, then the warps
-#pragma unroll
-  for (int o = 4; o < 32; o <<= 1) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      num[u] += __shfl_xor_sync(0xffffffffu, num[u], o);
-    den += __shfl_xor_sync(0xffffffffu, den, o);
-  }
-  if (lane < 4) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) red[warp][4 * lane + u] = num[u];
-  }
-  if (lane == 0) red[warp][kCols] = den;
-  __syncthreads();
-  const int col = blockIdx.x * kCols + tid;
-  if (tid < kCols && col < dv) {
-    float acc = 0.f, dsum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      acc += red[w][tid];
-      dsum += red[w][kCols];
-    }
-    out[head * dv + col] = acc / (dsum + eps);
-  }
+  const float* fb = feat + (size_t)bg * (Hg + 1) * M;
+  state_stream<T, M, kCols, false>(
+      v + (size_t)bg * dv, fb + (size_t)h * M, fb + (size_t)Hg * M,
+      rho_in + bg, z + head * M, s + head * M * dv, out + head * dv,
+      blockIdx.x * kCols, dv, eps);
 }
 
 template <typename T, int M>

@@ -12,10 +12,15 @@ row
 
 and writes S' and z' in place. kf, v and ρ are read once per KV row: the
 Hk rows serve the H query rows, query head h reading KV head h·Hk/H, so a
-GQA group's heads need no broadcast copy (Hk is 1 or H).
+GQA group's heads need no broadcast copy (Hk is 1 or H). v is f32 or
+bf16 (the model's type), cast inside, as the reference's kernel casts it.
 
 A CPU tensor runs :func:`prf_decode_step_plain`; a CUDA tensor launches
-the kernel (or raises). ``launches`` counts kernel launches.
+the kernel (or raises): one launch a call, B1's stream of S
+(``prf_common.cuh``) with each query row's tiles in a thread block
+cluster, so that one tile writes z' in place once all have read z. No
+copy of z is made and nothing is allocated but the output. ``launches``
+counts the wrapper's calls that launched it.
 """
 from __future__ import annotations
 
@@ -24,12 +29,13 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import F, I, P, check_cuda, expect, ptr, \
-    stream
+from repro_torch.kernels._launch import (F, FEATURE_COUNTS, I, INPUT_DTYPES,
+                                         P, check_cuda, expect,
+                                         expect_aligned, ptr, stream)
 
 F32 = (torch.float32,)
-TILE_COLS = 16                # dv columns per CUDA block (kCols in the .cu)
 MAX_ROWS = 65535              # query rows: the launch grid's y extent
+MAX_DV = 256                  # a row's tiles form a cluster of at most 8
 launches = 0
 
 
@@ -53,7 +59,7 @@ def prf_decode_step_plain(qf, kf, v, s, z, rescale, *, eps: float = 1e-6):
 @functools.cache
 def _c_fn():
     fn = _build.load("prf_decode_step").prf_decode_step
-    fn.argtypes = [P] * 8 + [I] * 4 + [F, P]
+    fn.argtypes = [P] * 7 + [I] * 5 + [F, P]
     fn.restype = I
     return fn
 
@@ -65,10 +71,12 @@ def linear_attention_decode_step(qf: torch.Tensor, kf: torch.Tensor,
     """Advance a PRF serving state by one token over precomputed
     features, in place.
 
-    qf: (..., H, m); kf: (..., Hk, m); v: (..., Hk, dv); rescale: (...,
-    Hk), the stabilizer's ρ = exp(c_old − c_new); s: (..., H, m, dv) and
-    z: (..., H, m), updated in place; Hk is 1 or H. All f32 and
-    contiguous. Returns (out (..., H, dv) f32, s, z)."""
+    qf: (..., H, m); kf: (..., Hk, m); v: (..., Hk, dv) f32 or bf16;
+    rescale: (..., Hk), the stabilizer's ρ = exp(c_old − c_new); s: (...,
+    H, m, dv) and z: (..., H, m), updated in place; Hk is 1 or H. All f32
+    but v, and contiguous. On CUDA the kernel also takes m in
+    ``FEATURE_COUNTS``, dv a multiple of 4 up to ``MAX_DV`` and qf, kf, s
+    and z on 16-byte boundaries. Returns (out (..., H, dv) f32, s, z)."""
     if qf.ndim < 2:
         raise ValueError(f"qf must be (..., H, m), got {tuple(qf.shape)}")
     *lead, h, m = qf.shape
@@ -79,7 +87,7 @@ def linear_attention_decode_step(qf: torch.Tensor, kf: torch.Tensor,
     dev = qf.device
     expect("qf", qf, (*lead, h, m), F32, dev)
     expect("kf", kf, (*lead, hk, m), F32, dev)
-    expect("v", v, (*lead, hk, dv), F32, dev)
+    expect("v", v, (*lead, hk, dv), INPUT_DTYPES, dev)
     expect("s", s, (*lead, h, m, dv), F32, dev)
     expect("z", z, (*lead, h, m), F32, dev)
     expect("rescale", rescale, (*lead, hk), F32, dev)
@@ -92,13 +100,16 @@ def linear_attention_decode_step(qf: torch.Tensor, kf: torch.Tensor,
     if n > MAX_ROWS:
         raise ValueError(f"linear_attention_decode_step takes at most "
                          f"{MAX_ROWS} query rows, got {n}")
+    if m not in FEATURE_COUNTS or dv % 4 or dv > MAX_DV:
+        raise ValueError(f"prf_decode_step is built for m in "
+                         f"{FEATURE_COUNTS} and dv a multiple of 4 up to "
+                         f"{MAX_DV}, got m={m}, dv={dv}")
+    expect_aligned("prf_decode_step", qf=qf, kf=kf, s=s, z=z)
     global launches
     out = torch.empty((*lead, h, dv), dtype=torch.float32, device=dev)
-    # the blocks of one row split dv into tiles and all of them read z,
-    # so they read a snapshot when there is more than one tile
-    z_old = z if dv <= TILE_COLS else torch.empty_like(z)
     err = _c_fn()(ptr(qf), ptr(kf), ptr(v), ptr(rescale), ptr(s), ptr(z),
-                  ptr(z_old), ptr(out), n, nk, m, dv, eps, stream(dev))
+                  ptr(out), n, nk, m, dv, int(v.dtype == torch.bfloat16),
+                  eps, stream(dev))
     check_cuda(err, "prf_decode_step")
     launches += 1
     return out, s, z

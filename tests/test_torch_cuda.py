@@ -225,14 +225,27 @@ def test_featmap_kernel_matches_plain(dev, n, d, r, m, dark, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,g,hg,m,dv", [
-    (8, 3, 3, 256, 64),        # smollm-135m heads, 8 slots
-    (8, 1, 8, 256, 256),       # darkformer-2b heads
-    (3, 2, 2, 32, 8),          # dv within one tile: z written in place
+@pytest.mark.parametrize("b,g,hg,hk,m,dv,dtype", [
+    # smollm-135m's heads at 1, 2, 4 and 8 active slots
+    (8, 3, 3, 1, 256, 64, torch.float32),
+    (8, 3, 3, 1, 256, 64, torch.bfloat16),
+    (4, 3, 3, 1, 256, 64, torch.bfloat16),
+    (2, 3, 3, 1, 256, 64, torch.float32),
+    (1, 3, 3, 1, 256, 64, torch.bfloat16),
+    # darkformer-2b's heads at 1 and 8 slots
+    (8, 1, 8, 1, 256, 256, torch.float32),
+    (8, 1, 8, 1, 256, 256, torch.bfloat16),
+    (1, 1, 8, 1, 256, 256, torch.bfloat16),
+    # kf, v and rho per query head (Hk = H)
+    (2, 3, 3, 3, 256, 64, torch.float32),
+    (2, 1, 8, 8, 256, 256, torch.bfloat16),
+    (3, 2, 2, 1, 32, 8, torch.float32),    # dv within one tile
+    (3, 2, 2, 2, 32, 8, torch.bfloat16),
 ])
-def test_decode_step_kernel_matches_plain(dev, b, g, hg, m, dv):
+def test_decode_step_kernel_matches_plain(dev, b, g, hg, hk, m, dv, dtype):
     """B3 against its plain version, S and z advanced where they lie."""
-    args = check.make_decode_step_inputs(dev, b, g, hg, m, dv, seed=b + m)
+    args = check.make_decode_step_inputs(dev, b, g, hg, m, dv, seed=b + m,
+                                         hk=hk, dtype=dtype)
     check.check_case("prf_decode_step", lambda: kds.launches,
                      kds.linear_attention_decode_step,
                      kds.prf_decode_step_plain, args, (3, 4), eps=1e-8)

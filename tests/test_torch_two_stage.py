@@ -57,16 +57,23 @@ def _close(got, exp, atol, msg=""):
 # B3 prf_decode_step
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("v_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,g,h,hk,m,dv", [
     (2, 3, 3, 1, 16, 8),      # GQA: kf, v, rho per KV group
     (3, 1, 4, 4, 16, 8),      # per head
     (2, 2, 2, 1, 32, 40),     # dv over several of the kernel's tiles
+    (2, 3, 3, 1, 256, 64),    # smollm-135m's heads, 2 slots
+    (2, 1, 8, 1, 256, 256),   # darkformer-2b's heads, 2 slots
 ])
-def test_decode_step_plain_matches_reference(b, g, h, hk, m, dv):
+def test_decode_step_plain_matches_reference(b, g, h, hk, m, dv, v_dtype):
+    """bf16 v goes to the reference's kernel as bf16, which casts it
+    itself, and to the oracle as the same values in f32."""
     rng = np.random.default_rng(b * 100 + m + dv)
     qf = rng.uniform(size=(b, g, h, m)).astype(F)
     kf = rng.uniform(size=(b, g, hk, m)).astype(F)
-    v = rng.standard_normal((b, g, hk, dv)).astype(F)
+    v_t = torch.tensor(rng.standard_normal((b, g, hk, dv)).astype(F)).to(
+        getattr(torch, v_dtype))
+    v = v_t.float().numpy()                # bf16 values exactly, in f32
     s = rng.standard_normal((b, g, h, m, dv)).astype(F)
     z = (rng.uniform(size=(b, g, h, m)) * 4.0).astype(F)
     rho = rng.uniform(0.2, 1.0, size=(b, g, hk)).astype(F)
@@ -74,11 +81,14 @@ def test_decode_step_plain_matches_reference(b, g, h, hk, m, dv):
     flat = [np.broadcast_to(a, (b, g, h) + a.shape[3:])
             .reshape(n, *a.shape[3:]) for a in (qf, kf, v, s, z)]
     rho_n = np.broadcast_to(rho, (b, g, h)).reshape(n, 1)
-    exp_k = prf_decode_step_fwd(*map(jnp.asarray, flat), jnp.asarray(rho_n),
-                                eps=1e-6, block_b=4, interpret=True)
-    exp_r = ref.prf_decode_step_ref(*map(jnp.asarray, flat),
-                                    jnp.asarray(rho_n), eps=1e-6)
-    args = [torch.tensor(a) for a in (qf, kf, v, s, z, rho)]
+    jflat = list(map(jnp.asarray, flat))
+    jflat_v = list(jflat)
+    jflat_v[2] = jflat[2].astype(getattr(jnp, v_dtype))
+    exp_k = prf_decode_step_fwd(*jflat_v, jnp.asarray(rho_n), eps=1e-6,
+                                block_b=4, interpret=True)
+    exp_r = ref.prf_decode_step_ref(*jflat, jnp.asarray(rho_n), eps=1e-6)
+    args = [torch.tensor(qf), torch.tensor(kf), v_t, torch.tensor(s),
+            torch.tensor(z), torch.tensor(rho)]
     ptrs = [args[3].data_ptr(), args[4].data_ptr()]
     n0 = kds.launches
     out, s_new, z_new = kds.linear_attention_decode_step(*args, eps=1e-6)
@@ -219,9 +229,11 @@ def test_wkv6_gradients_match_reference():
 
 
 @pytest.mark.parametrize("bad", ["decode_rho_shape", "decode_kf_heads",
-                                 "carry_s0_dtype", "carry_z0_shape",
-                                 "carry_rho_shape", "carry_rho_dtype",
-                                 "wkv_dtype_mix", "wkv_u_shape"])
+                                 "decode_v_float64", "decode_v_float16",
+                                 "decode_qf_bf16", "carry_s0_dtype",
+                                 "carry_z0_shape", "carry_rho_shape",
+                                 "carry_rho_dtype", "wkv_dtype_mix",
+                                 "wkv_u_shape"])
 def test_two_stage_wrappers_reject_bad_arguments(bad):
     qf, kf, v, s, z = (torch.tensor(a)
                        for a in _carry_inputs(2, 3, 1, 5, 16, 8, seed=0))
@@ -235,6 +247,18 @@ def test_two_stage_wrappers_reject_bad_arguments(bad):
             kds.linear_attention_decode_step(
                 qf[..., 0, :].contiguous(), torch.ones(2, 2, 16),
                 torch.ones(2, 2, 8), s, z, torch.ones(2, 2))
+        elif bad in ("decode_v_float64", "decode_v_float16"):
+            # v may be f32 or bf16 (the model's type), nothing else
+            kds.linear_attention_decode_step(
+                qf[..., 0, :].contiguous(), kf[..., 0, :].contiguous(),
+                v[..., 0, :].to(torch.float64 if bad.endswith("64")
+                                else torch.float16).contiguous(),
+                s, z, torch.ones(2, 1))
+        elif bad == "decode_qf_bf16":       # the features stay f32
+            kds.linear_attention_decode_step(
+                qf[..., 0, :].bfloat16().contiguous(),
+                kf[..., 0, :].contiguous(), v[..., 0, :].contiguous(), s, z,
+                torch.ones(2, 1))
         elif bad == "carry_s0_dtype":
             kl.linear_attention_prefill_chunk(qf, kf, v, s.double(), z)
         elif bad == "carry_z0_shape":
