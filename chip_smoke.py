@@ -18,7 +18,9 @@ Phases, each printed as a JSON line:
      step meets them, and warm; prf_fused_prefill held against its plain
      version and timed at each of the packer's four grants, 8 x 32 to
      1 x 256, and held at L = 300, a partial second T-chunk), the
-     training kernels at its training shapes, the
+     training kernels at its training shapes (prf_featmap also held at
+     d_head 128 and darkformer-2b's 256, dark and isotropic, and timed
+     at darkformer-2b's), the
      two-stage kernels (prf_decode_step at 1, 2, 4 and 8 slots of
      smollm-135m and 1 and 8 of darkformer-2b, f32 and bf16 v, kf and v
      per query head too, and timed at 8 slots cold and warm; the
@@ -56,9 +58,9 @@ Then the kernels line (all seven kernels: launches on their path, max
 error, time and device time, prf_fused_decode's and prf_decode_step's
 cold beside their warm ones, plain time,
 bound: bytes at 3.35 TB/s or operations at 67 TFLOP/s of f32, for
-linear_attention_causal, which runs on the tensor cores, at 495 TFLOP/s
-of TF32) and, last, the ``{"ok": true, ...}``
-line. Exits non-zero, without that line, when there is no CUDA device
+linear_attention_causal, linear_attention_carry and prf_featmap, which
+run on the tensor cores, at 495 TFLOP/s of TF32) and, last, the
+``{"ok": true, ...}`` line. Exits non-zero, without that line, when there is no CUDA device
 or any phase fails. Imports neither JAX nor the reference package.
 """
 from __future__ import annotations
@@ -733,7 +735,18 @@ def phase_train_kernels(torch, dev, kl, kf):
             (B * 9 * L_TRAIN, 64, 64, 256, True, torch.float32),
             (4099, 64, 64, 256, True, torch.float32),
             (1000, 64, 32, 256, True, torch.bfloat16),
-            (777, 64, 64, 256, False, torch.float32)):
+            (777, 64, 64, 256, False, torch.float32),
+            (5, 16, 16, 32, True, torch.float32),
+            # d_head 128 and darkformer-2b's 256
+            (4099, 128, 128, 256, True, torch.bfloat16),
+            (4099, 256, 256, 256, True, torch.float32),
+            (777, 256, 256, 256, False, torch.float32),
+            (B * 8 * L_TRAIN, 256, 256, 256, True, torch.bfloat16),
+            # the other kernels of the dispatch: streamed at d > r (r = 64,
+            # 128), resident at r = 64 where W's split does not fit
+            (777, 128, 64, 256, True, torch.float32),
+            (777, 256, 128, 256, True, torch.bfloat16),
+            (777, 64, 64, 512, True, torch.float32)):
         name = (f"prf_featmap N={n} d={d} r={r} m={m} dark={dark} "
                 f"x={str(dt).split('.')[-1]}")
         args = kc.make_featmap_inputs(dev, n, d, r, m, dark,
@@ -779,29 +792,50 @@ def lin_attn_timing(torch, dev, kl, b, g, hg, l, m, dv, dtype, iters=20):
             "flops": flops}
 
 
+def featmap_timing(torch, dev, kf, n, d, r, m, dark, dtype, iters=50):
+    """B6's forward on n rows (x (n, d) in ``dtype``, M (r, d) when
+    ``dark``, else r = d; W (m, r)): CUDA events and device time
+    (:func:`kernel_times`) beside its plain version and two bounds, each
+    max(bytes / 3.35 TB/s, operations / peak): ``bound_ms`` at the 495
+    TFLOP/s of TF32 on the tensor cores, where the kernel computes,
+    ``bound_f32_simt_ms`` at the 67 TFLOP/s of f32 outside them (bytes:
+    x, M, W and c read once, phi written once; operations: x Mᵀ when
+    dark, x̃ Wᵀ and the squared norm)."""
+    from repro_torch.kernels import check as kc
+
+    args = kc.make_featmap_inputs(dev, n, d, r, m, dark, seed=12,
+                                  dtype=dtype)
+    r = r if dark else d
+    flops = n * ((2 * d * r if dark else 0) + 2 * r * m + 2 * r)
+    byts = nbytes(*args) + n * m * 4
+    bms, by = bound(byts, flops, TF32_FLOPS)
+    with torch.no_grad():
+        return {
+            "shape": (f"N={n} d={d} r={r} m={m} "
+                      f"{'dark' if dark else 'isotropic'} "
+                      f"x={str(dtype).split('.')[-1]}"),
+            **kernel_times(torch, lambda: kf.prf_featmap(*args), iters),
+            "plain_ms": time_ms(torch, lambda: kf.prf_featmap_plain(*args),
+                                max(iters // 2, 3)),
+            "bound_ms": bms, "bound_by": by,
+            "bound_f32_simt_ms": bound(byts, flops)[0], "bytes": byts,
+            "flops": flops}
+
+
 def phase_train_timing(torch, dev, kl, kf):
     """Phase 2d: the training kernels timed (forward, CUDA events) at the
     smollm-135m training shapes beside their plain versions and bounds.
     linear_attention_causal: 8 x 512 tokens, 9 heads over 3 KV groups,
-    m = 256, dv = 64, bf16 v (:func:`lin_attn_timing`). prf_featmap: the
-    8·9·512 query rows of that batch, d = r = 64."""
-    from repro_torch.kernels import check as kc
-
+    m = 256, dv = 64, bf16 v (:func:`lin_attn_timing`). prf_featmap
+    (:func:`featmap_timing`): the 8·9·512 query rows of that batch, d = r
+    = 64, f32 x; and darkformer-2b's 8·8·512 rows at d = r = m = 256."""
     out = {"linear_attention_causal": lin_attn_timing(
         torch, dev, kl, B, 3, 3, L_TRAIN, 256, 64, torch.bfloat16)}
-    b, l, m = B, L_TRAIN, 256
-    n, d, r = b * 9 * l, 64, 64
-    args = kc.make_featmap_inputs(dev, n, d, r, m, True, seed=12)
-    flops = n * (2 * d * r + 2 * r * m + 2 * r)
-    byts = nbytes(*args) + n * m * 4
-    bms, by = bound(byts, flops)
-    with torch.no_grad():
-        out["prf_featmap"] = {
-            "shape": f"N={n} d={d} r={r} m={m} dark x=f32",
-            **kernel_times(torch, lambda: kf.prf_featmap(*args), 50),
-            "plain_ms": time_ms(torch, lambda: kf.prf_featmap_plain(*args),
-                                20),
-            "bound_ms": bms, "bound_by": by, "bytes": byts, "flops": flops}
+    out["prf_featmap"] = featmap_timing(torch, dev, kf, B * 9 * L_TRAIN, 64,
+                                        64, 256, True, torch.float32)
+    out["prf_featmap_darkformer"] = featmap_timing(
+        torch, dev, kf, B * 8 * L_TRAIN, 256, 256, 256, True, torch.float32,
+        20)
     emit({"phase": "train_kernel_timing", **out})
     return out
 

@@ -52,8 +52,8 @@ PRODUCT_KERNELS = ("chunk_delta_kernel", "causal_out_kernel",
 
 
 def hmma_counts(lib: Path) -> dict:
-    """TF32 HMMA instructions in each kernel of ``lib``'s SASS, by
-    demangled-enough name (namespace::kernel<template args>)."""
+    """TF32 tensor-core instructions (mma.sync's HMMA and wgmma's HGMMA)
+    in each kernel of ``lib``'s SASS, by its mangled name."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
@@ -64,7 +64,7 @@ def hmma_counts(lib: Path) -> dict:
         if m:
             name = m.group(1)
             counts[name] += 0
-        elif name is not None and "HMMA" in line and ".TF32" in line:
+        elif name is not None and "MMA" in line and ".TF32" in line:
             counts[name] += 1
     return dict(counts)
 

@@ -253,6 +253,21 @@ def lin_attn_tf32(qf, kf, v, eps: float = 1e-6, passes: int = 3,
                       passes=passes, chunk=chunk)[0]
 
 
+def featmap_tf32(x, m_mat, w, c, passes: int = 3) -> torch.Tensor:
+    """φ(x) = exp(W x̃ − ‖x̃‖²/2 − c)/√m computed as B6's kernel computes
+    it, on any device: x̃ = x Mᵀ (x̃ = x when ``m_mat`` is None) and the
+    logits x̃ Wᵀ, each in 3xTF32 (:func:`_mm_tf32`; ``passes=1`` for
+    1xTF32), ‖x̃‖² summed in f32 from that x̃. Shapes as ``prf_featmap``;
+    returns (..., m) f32. For the tests: it holds the kernel's precision
+    against the reference."""
+    xt = x.float()
+    if m_mat is not None:
+        xt = _mm_tf32(xt, m_mat.float().T, passes)
+    logits = _mm_tf32(xt, w.float().T, passes)
+    sq = 0.5 * torch.sum(xt * xt, dim=-1, keepdim=True)
+    return torch.exp(logits - sq - c) * w.shape[0] ** -0.5
+
+
 def make_featmap_inputs(dev, n, d, r, m, dark, seed,
                         dtype=torch.float32) -> list:
     """[x, m_mat, w, c] of one feature-map call: attention-scaled rows x

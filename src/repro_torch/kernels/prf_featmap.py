@@ -8,8 +8,12 @@ kernel, bodies ``_kernel_dark`` and ``_kernel_iso``). The CUDA kernel is
     x̃ = M x   (x̃ = x when ``m_mat`` is None: the isotropic kinds)
     φ(x) = exp(W x̃ − ‖x̃‖²/2 − c) / √m
 
-with W and M resident in shared memory and x̃ kept out of device memory.
-Backward: autograd of :func:`prf_featmap_plain` (port of
+with both products on the tensor cores in 3xTF32 (the logits on wgmma
+up to r = 64), W and M in shared memory (resident where they fit a
+block, else streamed in slabs) and x̃ kept in registers, out of device
+memory. The kernel takes r (d for the
+isotropic map) up to :data:`MAX_RANK` and any d and m. Backward:
+autograd of :func:`prf_featmap_plain` (port of
 ``repro.kernels.ops._featmap_bwd``; the reference has no backward
 kernel). No model path calls it, in the reference or in the port: the
 attention computes its features inline (``core.attention``).
@@ -19,7 +23,6 @@ A CPU tensor runs the plain version; a CUDA tensor launches the kernel
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Optional, Union
 
@@ -31,7 +34,7 @@ from repro_torch.kernels._launch import (F, I, INPUT_DTYPES, P, check_cuda,
                                          expect, ptr, stream)
 
 F32 = (torch.float32,)
-SMEM_LIMIT = 232_448          # bytes of shared memory a block may use
+MAX_RANK = 256      # columns of x̃ (r, or d when isotropic) a warp holds
 launches = 0
 
 
@@ -53,8 +56,6 @@ def _lib():
     lib = _build.load("prf_featmap")
     lib.prf_featmap.argtypes = [P] * 5 + [I] * 5 + [F, P]
     lib.prf_featmap.restype = I
-    lib.prf_featmap_smem.argtypes = [I] * 4
-    lib.prf_featmap_smem.restype = ctypes.c_size_t
     return lib
 
 
@@ -75,12 +76,11 @@ def _check(x, m_mat, w, c):
 
 def _launch(x, m_mat, w, c, d, r, m):
     global launches
+    if r > MAX_RANK:
+        raise ValueError(f"prf_featmap's kernel holds x̃ in registers: r="
+                         f"{r} ({'dark' if m_mat is not None else 'isotropic'}"
+                         f", d={d}, m={m}) is above its {MAX_RANK}")
     lib = _lib()
-    smem = lib.prf_featmap_smem(d, r, m, int(m_mat is not None))
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"prf_featmap keeps W and M in shared memory: "
-                         f"d={d}, r={r}, m={m} need {smem} bytes, more "
-                         f"than the {SMEM_LIMIT} a block may use")
     n = x.numel() // d
     out = torch.empty((*x.shape[:-1], m), dtype=torch.float32,
                       device=x.device)

@@ -215,6 +215,16 @@ def test_linear_attention_kernel_matches_plain(dev, b, g, hg, hk, l, m, dv,
     (1000, 64, 32, 256, True, torch.bfloat16),    # rows not a tile multiple
     (777, 64, 64, 256, False, torch.float32),     # isotropic
     (5, 16, 16, 32, True, torch.float32),
+    # d_head 128 and darkformer-2b's 256 (the reference's widths)
+    (4099, 128, 128, 256, True, torch.bfloat16),
+    (4099, 256, 256, 256, True, torch.float32),
+    (777, 256, 256, 256, False, torch.float32),
+    (32_768, 256, 256, 256, True, torch.bfloat16),
+    # the other kernels of the dispatch: streamed at d > r (r = 64, 128),
+    # resident at r = 64 where W's split does not fit beside M
+    (777, 128, 64, 256, True, torch.float32),
+    (777, 256, 128, 256, True, torch.bfloat16),
+    (777, 64, 64, 512, True, torch.float32),
 ])
 def test_featmap_kernel_matches_plain(dev, n, d, r, m, dark, dtype):
     """B6 forward and gradients against autograd of its plain version."""

@@ -207,16 +207,31 @@ def test_linear_attention_matches_reference(hk, l):
                                    rtol=RTOL, err_msg=name)
 
 
-@pytest.mark.parametrize("dark", [True, False])
-def test_prf_featmap_matches_reference(dark):
+# (d, r, m, x scale, M's perturbation): narrow, and darkformer-2b's heads
+# with M near the identity and x at 0.1, where the gradients' f32 sums
+# (over 37 rows and 256 features, in another order than JAX's) stay
+# within ATOL; at the attention scale d^-1/4 = 0.25 the largest gradient
+# entries reach 234 and both sides' sums round at a few 1e-6 of that,
+# so entries near zero differ by up to 7e-4
+# (test_prf_featmap_grads_round_like_reference_at_attention_scale)
+_NARROW, _DARKFORMER = (8, 6, 16, 0.6, 0.2), (256, 256, 256, 0.1, 0.1 / 16)
+
+
+@pytest.mark.parametrize("dark,widths", [
+    pytest.param(True, _NARROW, id="True"),
+    pytest.param(False, _NARROW, id="False"),
+    pytest.param(True, _DARKFORMER, id="darkformer-2b"),
+])
+def test_prf_featmap_matches_reference(dark, widths):
     """Forward against ``ref.prf_featmap_ref`` and ``ops.prf_featmap``
     (Pallas, interpret mode), gradients (x, M, W, c) against ``jax.grad``
-    of the latter, over 37 rows (not a multiple of its row block)."""
+    of the latter, over 37 rows (not a multiple of its row block), at
+    narrow widths and at darkformer-2b's d = r = m = 256."""
     rng = np.random.default_rng(int(dark))
     f = np.float32
-    d, r, m = 8, 6, 16
-    x = (0.6 * rng.standard_normal((37, d))).astype(f)
-    mm = (np.eye(r, d) + 0.2 * rng.standard_normal((r, d))).astype(f) \
+    d, r, m, xs, ms = widths
+    x = (xs * rng.standard_normal((37, d))).astype(f)
+    mm = (np.eye(r, d) + ms * rng.standard_normal((r, d))).astype(f) \
         if dark else None
     w = rng.standard_normal((m, r if dark else d)).astype(f)
     c = f(0.7)
@@ -246,8 +261,45 @@ def test_prf_featmap_matches_reference(dark):
                                    rtol=RTOL)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_prf_featmap_grads_round_like_reference_at_attention_scale(seed):
+    """At darkformer-2b's heads (d = r = m = 256) and the attention scale
+    x ~ d^-1/4, the port's gradients (x, M, W, c) and ``jax.grad`` of
+    ``ops.prf_featmap`` are each as far from an f64 evaluation as f32
+    sums over 37 rows and 256 features round: within 1e-5 of the largest
+    entry. Entries near zero then differ between the two by more than
+    ATOL, which is why test_prf_featmap_matches_reference's
+    darkformer-2b case takes x at 0.1."""
+    rng = np.random.default_rng(seed)
+    f, n, d = np.float32, 37, 256
+    x = (d ** -0.25 * rng.standard_normal((n, d))).astype(f)
+    mm = (np.eye(d) + 0.1 * d ** -0.5 * rng.standard_normal((d, d))).astype(f)
+    w = rng.standard_normal((d, d)).astype(f)
+    c = f(0.7)
+    cot = rng.standard_normal((n, d)).astype(f)
+    jg = jax.grad(lambda *a: jnp.sum(ops.prf_featmap(*a, block_n=16) * cot),
+                  argnums=(0, 1, 2, 3))(x, mm, w, c)
+    ins = [torch.tensor(a, requires_grad=True) for a in (x, mm, w, c)]
+    tg = torch.autograd.grad(kf.prf_featmap(*ins), ins, torch.tensor(cot))
+    ins64 = [torch.tensor(np.float64(a), requires_grad=True)
+             for a in (x, mm, w, c)]
+    xt = ins64[0] @ ins64[1].T
+    phi = torch.exp(xt @ ins64[2].T - 0.5 * (xt * xt).sum(-1, keepdim=True)
+                    - ins64[3]) / d ** 0.5
+    g64 = torch.autograd.grad(phi, ins64, torch.tensor(np.float64(cot)))
+    for name, gp, gj, ge in zip(("x", "M", "W", "c"), tg, jg, g64):
+        ge = ge.numpy()
+        top = np.abs(ge).max()
+        ep, ej = (np.abs(np.float64(a) - ge).max() / top
+                  for a in (gp.numpy(), np.asarray(gj)))
+        print(f"{name}: max |g| {top:.3g}, max error / max |g|: port "
+              f"{ep:.2e}, reference {ej:.2e}")
+        assert ep < 1e-5 and ej < 1e-5, name
+
+
 @pytest.mark.parametrize("bad", ["qf_dtype", "kf_heads", "noncontiguous",
-                                 "featmap_rank", "featmap_c"])
+                                 "featmap_rank", "featmap_c",
+                                 "featmap_wide"])
 def test_training_kernel_wrappers_reject_bad_arguments(bad):
     qf, kf_, v = (torch.tensor(a) for a in _lin_inputs(2, 3, 1, 5, 16, 8, 0))
     x, w = torch.randn(4, 8), torch.randn(16, 8)
@@ -262,5 +314,11 @@ def test_training_kernel_wrappers_reject_bad_arguments(bad):
                                        .transpose(-1, -2), kf_, v)
         elif bad == "featmap_rank":
             kf.prf_featmap(x, None, torch.randn(16, 6))
-        else:
+        elif bad == "featmap_c":
             kf.prf_featmap(x, None, w, torch.zeros(2))
+        else:
+            # above the widths the kernel holds (it raises before it
+            # launches, so this runs without a card)
+            r = kf.MAX_RANK + 1
+            kf._launch(torch.randn(4, r), None, torch.randn(16, r),
+                       torch.zeros(()), r, r, 16)
