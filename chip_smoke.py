@@ -26,7 +26,9 @@ Phases, each printed as a JSON line:
      per query head too, and timed at 8 slots cold and warm; the
      carried scan with and without a rho < 1, at the packer's four grants
      and darkformer-2b's heads, also chained over three uneven chunks, and
-     timed at those shapes) and wkv6 at the rwkv6-7b geometry;
+     timed at those shapes) and wkv6 at the rwkv6-7b geometry (held
+     at widths 4 to 128, with the model's decays, exact zeros among
+     them, and timed at 512 x 512 and 64 x 4096 tokens);
   3. main path: smollm-135m at full width (random weights from a seed)
      served by the port's ``ServingEngine`` through the fused kernels,
      with every kernel's launch count checked against the engine's
@@ -896,10 +898,10 @@ def phase_two_stage_kernels(torch, dev, kds, kl, kw):
     record("linear_attention_carry", "linear_attention_carry chunks "
            "256+37+307 vs one pass of 600",
            kc.check_carry_chained(dev, seed=99))
-    for n, l, dt in ((512, 512, torch.float32), (64, 50, torch.bfloat16),
-                     (8, 1, torch.float32)):
-        name = f"wkv6 N={n} L={l} dh=64 {str(dt).split('.')[-1]}"
-        args = kc.make_wkv6_inputs(dev, n, l, 64, seed=len(cases), dtype=dt)
+    for n, l, dh, dt, decays in WKV6_CASES:
+        name = f"wkv6 N={n} L={l} dh={dh} {dt} {decays} decays"
+        args = kc.make_wkv6_inputs(dev, n, l, dh, seed=len(cases),
+                                   dtype=getattr(torch, dt), decays=decays)
         record("wkv6", name, kc.check_forward(
             name, lambda: kw.launches, kw.wkv6, kw.wkv6_plain, args))
     for n, l, dt in ((4, 1, torch.float32), (4, 50, torch.float32),
@@ -912,6 +914,29 @@ def phase_two_stage_kernels(torch, dev, kds, kl, kw):
     emit({"phase": "two_stage_kernels_vs_plain", "tolerance_f32": kc.F32_TOL,
           "tolerance_bf16_out": kc.BF16_OUT_TOL, "cases": cases})
     return err
+
+
+# B7's forward cases in phase 2e, as (rows, L, dh, type, decays): the
+# rwkv6-7b geometry (dh 64) at a batch of 8 prompts (512 rows x 512) and
+# one long prompt (64 rows x 4096), f32 and bf16, with sigmoid decays and
+# with the model's (exact zeros, a padded tail of w = 1, k = 0); short
+# and one-token rows; narrow and uneven widths (4, 16, 100) and the
+# widest the kernel takes, 128, also at more rows than the card has SMs
+WKV6_CASES = (
+    (512, 512, 64, "float32", "sigmoid"),
+    (64, 50, 64, "bfloat16", "sigmoid"),
+    (8, 1, 64, "float32", "sigmoid"),
+    (64, 4096, 64, "float32", "sigmoid"),
+    (512, 512, 64, "float32", "model"),
+    (64, 4096, 64, "bfloat16", "model"),
+    (8, 300, 4, "float32", "model"),
+    (8, 300, 16, "float32", "sigmoid"),
+    (16, 300, 100, "float32", "model"),
+    (16, 300, 128, "float32", "sigmoid"),
+    (16, 300, 128, "bfloat16", "model"),
+    (512, 64, 128, "float32", "sigmoid"),
+    (256, 64, 100, "bfloat16", "model"),
+)
 
 
 def carry_flops(rows, kv_rows, l, m, dv, chunk=256):
@@ -1002,26 +1027,38 @@ def phase_two_stage_timing(torch, dev, kds, kl, kw):
     (:func:`decode_step_timing`); B4 at the packer's four grants at
     smollm-135m's heads and at darkformer-2b's at 8 x 32 and 1 x 256
     (:data:`CARRY_SHAPES`), bf16 v, the pool's state
-    scaled by ρ and advanced in place; B7 at the rwkv6-7b geometry, 512
-    rows (64 heads x batch 8) x 512 tokens, dh 64, f32."""
-    from repro_torch.kernels import check as kc
-
+    scaled by ρ and advanced in place; B7 at the rwkv6-7b geometry, dh
+    64, f32, at 512 rows (64 heads x batch 8) x 512 tokens and at one
+    long prompt, 64 rows x 4096 tokens (:func:`wkv6_timing`)."""
     out = {"prf_decode_step": decode_step_timing(torch, dev, kds, 8)}
     for key, b, l, g, hg, dv in CARRY_SHAPES:
         out[key] = carry_timing(torch, dev, kl, b, l, g, hg, dv)
-    n, l, dh = 512, 512, 64
-    args = kc.make_wkv6_inputs(dev, n, l, dh, seed=15)
-    flops = n * l * (5 * dh * dh + 5 * dh)
-    byts = nbytes(*args) + n * l * dh * 4
-    bms, by = bound(byts, flops)
-    with torch.no_grad():
-        out["wkv6"] = {
-            "shape": f"N={n} L={l} dh={dh} f32",
-            **kernel_times(torch, lambda: kw.wkv6(*args), 20),
-            "plain_ms": time_ms(torch, lambda: kw.wkv6_plain(*args), 3),
-            "bound_ms": bms, "bound_by": by, "bytes": byts, "flops": flops}
+    out["wkv6"] = wkv6_timing(torch, dev, kw, 512, 512, 64)
+    out["wkv6_64x4096"] = wkv6_timing(torch, dev, kw, 64, 4096, 64)
     emit({"phase": "two_stage_kernel_timing", **out})
     return out
+
+
+def wkv6_timing(torch, dev, kw, n, l, dh, dtype=None, iters=20):
+    """B7 at ``n`` rows x ``l`` tokens of width ``dh`` (f32 unless
+    ``dtype``; sigmoid decays): CUDA events and device time beside its
+    plain version and its bound, max(bytes / 3.35 TB/s, operations / 67
+    TFLOP/s of f32); bytes: r, k, v, w read once and o written once;
+    operations: about 5 dh² a token and row (the state's decay, k vᵀ and
+    its sum, r's product with it, and the bonus)."""
+    from repro_torch.kernels import check as kc
+
+    dtype = dtype or torch.float32
+    args = kc.make_wkv6_inputs(dev, n, l, dh, seed=15, dtype=dtype)
+    flops = n * l * (5 * dh * dh + 5 * dh)
+    byts = nbytes(*args) + n * l * dh * args[2].element_size()
+    bms, by = bound(byts, flops)
+    with torch.no_grad():
+        return {
+            "shape": f"N={n} L={l} dh={dh} {str(dtype).split('.')[-1]}",
+            **kernel_times(torch, lambda: kw.wkv6(*args), iters),
+            "plain_ms": time_ms(torch, lambda: kw.wkv6_plain(*args), 3),
+            "bound_ms": bms, "bound_by": by, "bytes": byts, "flops": flops}
 
 
 def phase_train(torch, dev, counters):

@@ -6,6 +6,8 @@ to compare there.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -352,18 +354,131 @@ def check_carry_chained(dev, seed: int) -> float:
     return max_error("carry chained", (torch.cat(outs, -2), s0, z0), exp)
 
 
-def make_wkv6_inputs(dev, n, l, dh, seed, dtype=torch.float32) -> list:
-    """[r, k, v, w, u] of one WKV-6 call: r, k, v ~ N(0, 1/√dh) and decays
-    w = sigmoid(N(2, 1)) in (0, 1), (N, L, dh) in ``dtype``; u (dh,)
-    f32."""
+def make_wkv6_inputs(dev, n, l, dh, seed, dtype=torch.float32,
+                     decays: str = "sigmoid") -> list:
+    """[r, k, v, w, u] of one WKV-6 call: r, k, v ~ N(0, 1/√dh), (N, L,
+    dh) in ``dtype``; u (dh,) f32. ``decays="sigmoid"`` draws w =
+    sigmoid(N(2, 1)) in (0, 1); ``"model"`` draws w = exp(-exp(x)), x ~
+    N(0, 2²), as the reference's rwkv6 block does (``exp(-exp(lam_w +
+    dd))``; about 1% of it underflows to exactly 0 in f32), sets 2% of
+    it to exactly 0 besides, and gives row i a padded tail of its last
+    (i % 3) · L/8 tokens with w = 1 and k = 0, as the reference's padding
+    does."""
     rng = np.random.default_rng(seed)
 
     def t(a, dt=torch.float32):
         return torch.tensor(np.asarray(a, np.float32), device=dev).to(dt)
-    r, k, v = (t(dh ** -0.25 * rng.standard_normal((n, l, dh)), dtype)
+    r, k, v = (dh ** -0.25 * rng.standard_normal((n, l, dh))
                for _ in range(3))
-    w = t(1 / (1 + np.exp(-(rng.standard_normal((n, l, dh)) + 2.0))), dtype)
-    return [r, k, v, w, t(0.3 * rng.standard_normal(dh))]
+    if decays == "model":
+        w = np.exp(-np.exp(2.0 * rng.standard_normal((n, l, dh))))
+        w[rng.uniform(size=(n, l, dh)) < 0.02] = 0.0
+        live = (np.arange(l)[None, :, None]
+                < (l - np.arange(n) % 3 * (l // 8))[:, None, None])
+        w, k = np.where(live, w, 1.0), np.where(live, k, 0.0)
+    elif decays == "sigmoid":
+        w = 1 / (1 + np.exp(-(rng.standard_normal((n, l, dh)) + 2.0)))
+    else:
+        raise ValueError(f"decays is 'sigmoid' or 'model', not {decays!r}")
+    return [t(r, dtype), t(k, dtype), t(v, dtype), t(w, dtype),
+            t(0.3 * rng.standard_normal(dh))]
+
+
+def _fma(a, b, c):
+    """fmaf(a, b, c) of f32 tensors: a·b exact in f64, one rounding of the
+    sum (through f64, so a double rounding in rare ties)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` (a power of two long) as the kernels' xor
+    shuffles take it: entries i and i + n/2 first, then the halves of
+    what is left."""
+    x = x.movedim(dim, -1)
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def wkv6_tile(n: int, dh: int, sms: int) -> tuple[int, int]:
+    """(rows a thread, lanes a column group) of the state tile that B7's
+    kernel takes for ``n`` rows of width ``dh`` on a card of ``sms`` SMs:
+    the rule of ``launch_width`` in ``csrc/wkv6_scan.cu``, mirrored for
+    :func:`wkv6_stepped` (the only choice of the launch that changes the
+    order of f32 operations)."""
+    if dh <= 16:
+        return 2, 8
+    if dh <= 32:
+        return 4, 8
+    if dh <= 64:
+        return (8, 8) if n * ((dh + 15) // 16) >= 4 * sms else (4, 16)
+    return 8, 16
+
+
+def wkv6_stepped(r, k, v, w, u, sms: int) -> torch.Tensor:
+    """RWKV-6 WKV from a zero state computed as B7's kernel computes it,
+    on any device: tokens in pairs (t, t + 1), with r~ = r_{t+1} w_t,
+    k~ = k_t w_{t+1}, P = w_t w_{t+1} and c = r_{t+1}·k_t,
+    o_t = r_tᵀ S + β_t v_t, o_{t+1} = r~ᵀ S + c v_t + β_{t+1} v_{t+1} and
+    S'' = P S + k~ v_tᵀ + k_{t+1} v_{t+1}ᵀ (past L, r = k = 0 and w = 1),
+    β_t = Σ_d r_t[d] (u[d] k_t[d]); β and c summed by 16 lanes a pair
+    (lane j over its dh_p/16 consecutive rows in order, then over the
+    lanes by shuffles); a state tile of ``rows`` rows a thread and
+    ``lanes`` lanes a column group, as :func:`wkv6_tile` gives them for
+    these rows on a card of ``sms`` SMs (lane g holds rows
+    q·lanes·V + g·V + i, V = min(rows, 4); its 2 or 4 columns do not
+    change the order of its sums), rows past dh zero, each
+    lane's share of rᵀS an FMA chain over its rows, summed over the
+    lanes of its column group as the reduce-scatter does, then c v_t and
+    β v added by one FMA each. Shapes as ``wkv6``; returns v.dtype. For
+    the tests: it holds the kernel's order of f32 operations against the
+    reference, and the kernel against that order on the card."""
+    import torch.nn.functional as nnf
+
+    l, dh = r.shape[-2:]
+    rows, lanes = wkv6_tile(math.prod(r.shape[:-2]), dh, sms)
+    dhp, vec = rows * lanes, min(rows, 4)
+    pad = (0, dhp - dh, 0, l % 2)
+    r, k = (nnf.pad(x.float(), pad) for x in (r, k))
+    w = nnf.pad(w.float(), pad, value=1.0)
+    vf = nnf.pad(v.float(), (0, 0, 0, l % 2))
+    up = nnf.pad(u.float(), (0, dhp - dh))
+    r0, r1, k0, k1, w0, w1 = (x[..., i::2, :] for x in (r, k, w)
+                              for i in (0, 1))
+    v0, v1 = vf[..., 0::2, :], vf[..., 1::2, :]
+
+    def lanes_dot(a, b):                  # Σ_d a·b over 16 lanes a pair
+        a, b = (x.unflatten(-1, (16, dhp // 16)) for x in (a, b))
+        acc = torch.zeros_like(a[..., 0])
+        for i in range(dhp // 16):
+            acc = _fma(a[..., i], b[..., i], acc)
+        return _tree_sum(acc, -1)
+    b0, b1 = lanes_dot(r0, up * k0), lanes_dot(r1, up * k1)
+    cq = lanes_dot(r1, k0)
+    rt, kt, pw = r1 * w0, k0 * w1, w0 * w1
+    # rows[g, a]: lane g's a-th row, in the order of its FMA chain
+    rows_of = torch.arange(dhp, device=r.device).view(
+        rows // vec, lanes, vec).transpose(0, 1).reshape(lanes, rows)
+    s = r.new_zeros((*r.shape[:-2], dhp, dh))
+
+    def part(x):                          # xᵀ S by the lanes' tree
+        xl, sl = x[..., rows_of], s[..., rows_of, :]
+        acc = torch.zeros_like(sl[..., 0, :])
+        for a in range(rows):
+            acc = _fma(xl[..., a, None], sl[..., a, :], acc)
+        return _tree_sum(acc, -2)
+    outs = []
+    for q in range(r0.shape[-2]):
+        outs.append(_fma(b0[..., q, None], v0[..., q, :],
+                         part(r0[..., q, :])))
+        outs.append(_fma(b1[..., q, None], v1[..., q, :],
+                         _fma(cq[..., q, None], v0[..., q, :],
+                              part(rt[..., q, :]))))
+        s = _fma(k1[..., q, :, None], v1[..., q, None, :],
+                 _fma(kt[..., q, :, None], v0[..., q, None, :],
+                      pw[..., q, :, None] * s))
+    return torch.stack(outs, dim=-2)[..., :l, :].to(v.dtype)
 
 
 def check_forward(name: str, count, fn, plain, args: list) -> float:

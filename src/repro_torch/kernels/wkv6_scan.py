@@ -16,11 +16,13 @@ reference's rwkv6 block runs its own jnp scan
 (``repro.models.recurrent._wkv_scan``).
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-(or raises). ``launches`` counts kernel launches.
+(or raises: the kernel takes dh from 1 to ``MAX_DH``). ``launches``
+counts kernel launches.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -28,7 +30,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._launch import I, INPUT_DTYPES, P, check_cuda, \
     expect, ptr, stream
 
-MAX_DH = 64                   # kMaxDh in the .cu (the state in registers)
+MAX_DH = 128                  # kMaxDh in the .cu (the state in registers)
 launches = 0
 
 
@@ -71,14 +73,16 @@ def _check(r, k, v, w, u):
 
 def _launch(r, k, v, w, u):
     global launches
-    *_, l, dh = r.shape
-    if dh > MAX_DH or dh % 8:
-        raise ValueError(f"wkv6 takes dh a multiple of 8 up to {MAX_DH}, "
+    *lead, l, dh = r.shape
+    if dh > MAX_DH:
+        raise ValueError(f"wkv6 takes dh up to {MAX_DH} on the GPU, "
                          f"got {dh}")
     o = torch.empty_like(v)
+    if o.numel() == 0:                # nothing to launch, nothing counted
+        return o
     err = _c_fn()(ptr(r), ptr(k), ptr(v), ptr(w), ptr(u), ptr(o),
-                  r.numel() // (l * dh), l, dh,
-                  int(r.dtype == torch.bfloat16), stream(r.device))
+                  math.prod(lead), l, dh, int(r.dtype == torch.bfloat16),
+                  stream(r.device))
     check_cuda(err, "wkv6_fwd")
     launches += 1
     return o
@@ -113,8 +117,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """RWKV-6 WKV from a zero state, differentiable.
 
-    r, k, v, w: (..., L, dh), one type, f32 or bf16, w in (0, 1); u:
-    (dh,) f32, shared by every row. Every tensor must be contiguous. The
-    function does not depend on a chunk length (the reference's ``chunk``
-    tiles its TPU grid). Returns o (..., L, dh) in v.dtype."""
+    r, k, v, w: (..., L, dh), one type, f32 or bf16, w in [0, 1]; u:
+    (dh,) f32, shared by every row. Every tensor must be contiguous; on
+    the GPU dh is at most ``MAX_DH``. The function does not depend on a
+    chunk length (the reference's ``chunk`` tiles its TPU grid). Returns
+    o (..., L, dh) in v.dtype."""
     return _Wkv6.apply(r, k, v, w, u)

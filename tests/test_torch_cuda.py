@@ -317,13 +317,85 @@ def test_carry_kernel_chained_chunks_match_single_pass(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,l,dh,dtype", [
-    (16, 512, 64, torch.float32), (5, 50, 64, torch.bfloat16),
-    (3, 1, 64, torch.float32), (4, 33, 16, torch.float32)])
-def test_wkv6_kernel_matches_plain(dev, n, l, dh, dtype):
-    """B7 forward and gradients against autograd of its plain version."""
-    args = check.make_wkv6_inputs(dev, n, l, dh, seed=l, dtype=dtype)
+@pytest.mark.parametrize("n,l,dh,dtype,decays", [
+    (16, 512, 64, torch.float32, "sigmoid"),
+    (5, 50, 64, torch.bfloat16, "sigmoid"),
+    (3, 1, 64, torch.float32, "sigmoid"),
+    (4, 33, 16, torch.float32, "sigmoid"),
+    # the reference's own kernel-test width (4), rwkv6-7b's reduced one
+    # (16), an uneven width and the widest the kernel takes
+    (4, 50, 4, torch.float32, "model"),
+    (6, 77, 16, torch.bfloat16, "model"),
+    (4, 300, 100, torch.float32, "model"),
+    (4, 300, 128, torch.float32, "sigmoid"),
+    (4, 300, 128, torch.bfloat16, "model"),
+    # one long prompt at rwkv6-7b's 64 heads; a batch with exact zeros
+    (64, 4096, 64, torch.float32, "sigmoid"),
+    (64, 512, 64, torch.float32, "model"),
+    (64, 512, 64, torch.bfloat16, "model"),
+    # dh above 64 at more rows than the card has SMs: a row's columns
+    # split over blocks to keep each within the kernel's 512 threads
+    (512, 64, 128, torch.float32, "sigmoid"),
+    (256, 64, 100, torch.bfloat16, "model")])
+def test_wkv6_kernel_matches_plain(dev, n, l, dh, dtype, decays):
+    """B7 forward and gradients against autograd of its plain version;
+    ``decays="model"``: w as the reference's model draws it, with exact
+    zeros and a padded tail of w = 1, k = 0."""
+    args = check.make_wkv6_inputs(dev, n, l, dh, seed=l, dtype=dtype,
+                                  decays=decays)
     check.check_autograd("wkv6", kw, kw.wkv6, kw.wkv6_plain, args, seed=l)
+
+
+# f32 outputs of B7 and of its order mirrored (``check.wkv6_stepped``):
+# 2^-25 of the largest output. The two agree bit for bit but where the
+# mirror's FMA through f64 rounds twice (1.5e-8 at most in these cases
+# on an H100); the plain version's order of the same sums parts from
+# the kernel by 4.8e-7 to 1.2e-6 here (outputs up to about 4.6), 3 to 9
+# times this tolerance.
+ORDER_RTOL = 2 ** -25
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,l,dh", [
+    (3, 300, 4), (4, 77, 32), (160, 64, 64), (16, 300, 64),
+    (64, 1000, 64), (256, 64, 100), (512, 64, 128)])
+def test_wkv6_kernel_follows_its_stepped_order(dev, n, l, dh):
+    """B7 against ``check.wkv6_stepped`` with the tile ``check.wkv6_tile``
+    gives for this card (every tile the kernel has, the columns split
+    over blocks or not): the kernel's order of f32 operations, held
+    tighter than another order of the same sums could meet."""
+    args = check.make_wkv6_inputs(dev, n, l, dh, seed=n + l + dh,
+                                  decays="model")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    with torch.no_grad():
+        got = kw.wkv6(*args)
+        exp = check.wkv6_stepped(*args, sms)
+        plain = kw.wkv6_plain(*args)
+    err = (got - exp).abs().max().item()
+    tol = ORDER_RTOL * exp.abs().max().item()
+    assert err <= tol, (f"kernel vs its order: {err:.3e} > {tol:.3e} "
+                        f"(vs plain: {(got - plain).abs().max().item():.3e})")
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_launches_nothing_on_empty_input(dev):
+    """No rows or no tokens: an empty output, and no launch counted."""
+    for n, l in ((0, 5), (2, 0)):
+        args = check.make_wkv6_inputs(dev, n, l, 16, seed=0)
+        n0 = kw.launches
+        o = kw.wkv6(*args)
+        assert o.shape == (n, l, 16) and kw.launches == n0
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_refuses_dh_above_128(dev):
+    """The kernel holds S in registers up to dh 128; above, the wrapper
+    raises, naming the limit, and launches nothing."""
+    args = check.make_wkv6_inputs(dev, 2, 5, 129, seed=0)
+    n0 = kw.launches
+    with pytest.raises(ValueError, match="128"):
+        kw.wkv6(*args)
+    assert kw.launches == n0
 
 
 @pytest.mark.cuda
