@@ -38,6 +38,17 @@ Phases, each printed as a JSON line:
      step, no fused launch); throughput, TTFT and TPOT beside phase 3's,
      the share of greedy tokens equal to phase 3's streams and the
      histogram of B4's call shapes;
+     3c. overlapped serving: phase 3's traffic through the overlapped
+     scheduler (``overlap=True``, the serve CLI's default) under
+     ``torch.cuda.set_sync_debug_mode("error")``, so any synchronising
+     call in a step but retire's event wait fails it; full token
+     counts, fused_kernel paths, B1/B2 launches equal to decode steps
+     and prefill calls x 30, dispatch depth >= 1; throughput, TTFT,
+     TPOT, decode stall and dispatch depth beside phase 3's, and the
+     share of greedy tokens equal to phase 3's streams. Then 8 requests
+     through a sequential and an overlapped engine with one staged row
+     per prefill call (so the chunk boundaries agree): their greedy
+     streams must be equal token for token;
   4. cross-device: one prefill chunk and two decode steps on the card
      (kernels) and on the CPU (plain path) with the same params, logits
      and every layer's state compared; a planted fault must fail the
@@ -52,6 +63,10 @@ Phases, each printed as a JSON line:
      finetuned qkv-only for 3 steps from that checkpoint (frozen bf16
      leaves bitwise, the frozen f32 feat.w moved by weight decay alone,
      wq/wk/wv/m_mat moved);
+     5b. serve --load: 4 requests at full width served by the serve CLI
+     from phase 5's checkpoint (token counts, fused_kernel paths, B1/B2
+     launches), with the streams of an engine built on the params
+     restored from it;
   6. cross-device training: one loss and all its gradients at full
      width and 4 layers on the card (kernel) and on the CPU (plain
      path), same params and batch; a planted fault (each layer's kernel
@@ -97,6 +112,10 @@ STATE_TOL = 0.1
 TRAIN_LOSS_TOL = 1e-5
 TRAIN_GRAD_TOL = 0.07
 B, L_TRAIN = 8, 512             # phase 5 batch: 8 sequences of 512 tokens
+# the engine's readback counters, reported by the serving phases
+PIPELINE_STATS = ("decode_stall_ms_p50", "decode_stall_ms_p99",
+                  "decode_stall_ms_max", "dispatch_depth_mean",
+                  "dispatch_depth_max")
 
 
 def emit(obj) -> None:
@@ -429,16 +448,19 @@ def prefill_grant_timing(torch, dev, kp):
 
 
 def serve(torch, dev, cfg, params, counters, shapes=None,
-          shaped="fused_prf_prefill"):
+          shaped="fused_prf_prefill", overlap=False):
     """The 16 requests of the serving phases (prompts of 64-512 tokens,
     32-64 new ones, 8 slots, chunk_tokens 256) through the port's
     ``ServingEngine``, after a short warm-up engine (cuBLAS, allocator,
     libraries). Every count of ``counters`` is set to 0 just before the
     run and read just after; ``shapes``, a Counter, gets one count per
     call of the prefill kernel ``shaped`` (B2's wrapper, or B4's) in the
-    run under its "<rows>x<tokens>". Returns (the phase's JSON fields,
-    the launches, each request's tokens in submission order, engine
-    stats)."""
+    run under its "<rows>x<tokens>". ``overlap`` selects the overlapped
+    scheduler and runs it under ``set_sync_debug_mode("error")``: a
+    synchronising call anywhere in its steps raises (retire's wait is an
+    event's, which the mode does not count). Returns (the phase's JSON
+    fields, the launches, each request's tokens in submission order,
+    engine stats)."""
     import contextlib
     from unittest import mock
     from repro_torch import kernels as kops
@@ -446,7 +468,8 @@ def serve(torch, dev, cfg, params, counters, shapes=None,
 
     def engine():
         return ServingEngine(params, cfg, max_slots=8, max_len=1024,
-                             chunk_tokens=256, seed=0, device=dev)
+                             chunk_tokens=256, seed=0, overlap=overlap,
+                             device=dev)
     warm = engine()
     for r in synthetic_requests(2, cfg.vocab, seed=1, prompt_range=(8, 40),
                                 gen_range=(2, 4)):
@@ -472,7 +495,12 @@ def serve(torch, dev, cfg, params, counters, shapes=None,
         setattr(mod, attr, 0)
     with record:
         t0 = time.perf_counter()
-        results = eng.run()
+        if overlap:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            results = eng.run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
@@ -499,8 +527,20 @@ def serve(torch, dev, cfg, params, counters, shapes=None,
         "prefill_calls": st["prefill_calls"],
         "decode_steps": st["decode_steps"], "launches": launches,
         "prefill_path": st["prefill_path"], "decode_path": st["decode_path"],
+        "overlap": st["overlap"],
+        **{k: st[k] for k in PIPELINE_STATS if k in st},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     return fields, launches, [by_uid[r.uid].tokens for r in reqs], st
+
+
+def fused_launches(counters, st, cfg) -> dict:
+    """The launches a run through the fused serving kernels must count:
+    B2 once a layer a prefill call, B1 once a layer a decode step, no
+    other kernel."""
+    want = {n: 0 for n in counters}
+    want["prf_fused_prefill"] = st["prefill_calls"] * cfg.n_layers
+    want["prf_fused_decode"] = st["decode_steps"] * cfg.n_layers
+    return want
 
 
 def phase_main_path(torch, dev, counters):
@@ -526,9 +566,7 @@ def phase_main_path(torch, dev, counters):
     if st["prefill_path"] != "fused_kernel" or \
             st["decode_path"] != "fused_kernel":
         fail(f"main path ran {st['prefill_path']}/{st['decode_path']}")
-    want = {n: 0 for n in counters}
-    want["prf_fused_prefill"] = st["prefill_calls"] * cfg.n_layers
-    want["prf_fused_decode"] = st["decode_steps"] * cfg.n_layers
+    want = fused_launches(counters, st, cfg)
     if launches != want:
         fail(f"main path: launches {launches}, expected {want} (prefill "
              f"calls and decode steps x {cfg.n_layers} layers)")
@@ -575,6 +613,71 @@ def phase_two_stage_serve(torch, dev, cfg, params, counters, main):
         fail(f"two-stage serve: B4 call shapes {dict(shapes)} do not add "
              f"up to its {want['linear_attention_carry']} launches")
     return launches
+
+
+def phase_overlap_serve(torch, dev, cfg, params, counters, main):
+    """Phase 3c: phase 3's traffic through the overlapped scheduler, no
+    synchronising call in its steps but retire's event wait; then the
+    sequential and overlapped engines on 8 requests with one staged row
+    per prefill call, whose greedy streams must be equal. Returns the
+    launches."""
+    fields, launches, ovl, st = serve(torch, dev, cfg, params, counters,
+                                      overlap=True)
+    streams, main_fields = main
+    same = [a == b for s1, s2 in zip(streams, ovl) for a, b in zip(s1, s2)]
+    want = fused_launches(counters, st, cfg)
+    equal, eq_fields = overlap_equality(torch, dev, cfg, params)
+    emit({"phase": "overlap_serve", **fields,
+          "pack_fence_waits": st["pack_fence_waits"],
+          "main_path": {k: main_fields[k] for k in (
+              "throughput_tok_s", "ttft_p50_ms", "tpot_p50_ms",
+              "tpot_p99_ms", *PIPELINE_STATS) if k in main_fields},
+          "greedy_tokens_equal_to_main_path": sum(same) / len(same),
+          "rows_1_equality": eq_fields})
+    if st["prefill_path"] != "fused_kernel" or \
+            st["decode_path"] != "fused_kernel":
+        fail(f"overlapped serve ran {st['prefill_path']}/"
+             f"{st['decode_path']}")
+    if launches != want:
+        fail(f"overlapped serve: launches {launches}, expected {want} "
+             f"(prefill calls and decode steps x {cfg.n_layers} layers)")
+    if not st["dispatch_depth_max"] >= 1:
+        fail(f"overlapped serve: dispatch depth max "
+             f"{st['dispatch_depth_max']}, expected >= 1")
+    if not equal:
+        fail(f"overlapped serve: greedy streams differ from the sequential "
+             f"engine's with one staged row per prefill call "
+             f"({eq_fields})")
+    return launches
+
+
+def overlap_equality(torch, dev, cfg, params):
+    """8 requests (prompts of 64-256 tokens, 16-32 new, all at 0) through
+    a sequential and an overlapped engine with ``prefill_rows=1`` and
+    chunk_tokens 256: every grant is min(remaining, 256) in both, so the
+    chunk boundaries agree and, rows being elementwise over the batch,
+    the greedy streams must be equal. Returns (equal, JSON fields)."""
+    from repro_torch.serving import ServingEngine, synthetic_requests
+
+    streams = []
+    for overlap in (False, True):
+        eng = ServingEngine(params, cfg, max_slots=8, max_len=1024,
+                            chunk_tokens=256, prefill_rows=1, seed=0,
+                            overlap=overlap, device=dev)
+        reqs = synthetic_requests(8, cfg.vocab, seed=3,
+                                  prompt_range=(64, 256),
+                                  gen_range=(16, 32))
+        for r in reqs:
+            eng.submit(r)
+        by_uid = {r.uid: r.tokens for r in eng.run()}
+        streams.append([by_uid[r.uid] for r in reqs])
+    same = [a == b for s1, s2 in zip(*streams) for a, b in zip(s1, s2)]
+    first = next((j for j, (a, b) in enumerate(zip(*streams)) if a != b),
+                 None)
+    return streams[0] == streams[1], {
+        "requests": 8, "tokens": len(same),
+        "tokens_equal": sum(same) / len(same),
+        "first_differing_request": first}
 
 
 def drive(torch, lm, cfg, params, dev, toks, vl, feed=None, proj=None,
@@ -1146,7 +1249,6 @@ def phase_train(torch, dev, counters):
           "frozen_leaves_moved": frozen_moved,
           "trained_leaves_unchanged": trained_still,
           "launches": kl.launches})
-    shutil.rmtree(ck, ignore_errors=True)
     if frozen_moved or trained_still:
         fail(f"finetune: frozen leaves moved {frozen_moved}, trained "
              f"leaves unchanged {trained_still}")
@@ -1154,7 +1256,57 @@ def phase_train(torch, dev, counters):
         fail("finetune: non-finite loss")
     if kl.launches != 3 * cfg.n_layers:
         fail(f"finetune: linear_attention_causal launches {kl.launches}")
+    phase_serve_load(torch, dev, counters, ck, pre["params"], cfg)
+    shutil.rmtree(ck, ignore_errors=True)
     return launches
+
+
+def phase_serve_load(torch, dev, counters, ck, restored, cfg):
+    """Phase 5b: the serve CLI serves 4 requests at full width from phase
+    5's checkpoint (``--load``, overlapped scheduler): full token
+    counts, fused_kernel paths, B1/B2 launches per decode step and
+    prefill call, and the streams of an engine built on ``restored``,
+    the params restored from that checkpoint."""
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serving import ServingEngine, synthetic_requests
+
+    args = ["--arch", "smollm-135m", "--device", str(dev), "--requests",
+            "4", "--slots", "4", "--max-len", "512", "--prompt-len",
+            "64-256", "--gen", "16-32", "--chunk-tokens", "256"]
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    st = serve_cli.main(args + ["--load", str(ck)])
+    wall = time.perf_counter() - t0
+    launches = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    got = [r.tokens for r in sorted(st["results"], key=lambda r: r.uid)]
+    reqs = synthetic_requests(4, cfg.vocab, prompt_range=(64, 256),
+                              gen_range=(16, 32))
+    eng = ServingEngine(restored, dataclasses.replace(cfg, use_kernel=True),
+                        max_slots=4, max_len=512, chunk_tokens=256,
+                        overlap=True, device=dev)
+    uids = [eng.submit(r) for r in reqs]
+    by_uid = {r.uid: r.tokens for r in eng.run()}
+    want = fused_launches(counters, st, cfg)
+    emit({"phase": "serve_load", "from": str(ck.relative_to(ROOT)),
+          "wall_s": wall, "tokens": [len(t) for t in got],
+          "max_new_tokens": [r.max_new_tokens for r in reqs],
+          "prefill_path": st["prefill_path"],
+          "decode_path": st["decode_path"], "overlap": st["overlap"],
+          "launches": launches,
+          "streams_equal_to_restored_params": got == [by_uid[u]
+                                                      for u in uids]})
+    if [len(t) for t in got] != [r.max_new_tokens for r in reqs]:
+        fail(f"serve --load: tokens per request {[len(t) for t in got]}")
+    if st["prefill_path"] != "fused_kernel" or \
+            st["decode_path"] != "fused_kernel" or not st["overlap"]:
+        fail(f"serve --load ran {st['prefill_path']}/{st['decode_path']}, "
+             f"overlap {st['overlap']}")
+    if launches != want:
+        fail(f"serve --load: launches {launches}, expected {want}")
+    if got != [by_uid[u] for u in uids]:
+        fail("serve --load: streams differ from an engine on the params "
+             "restored from the checkpoint")
 
 
 def train_gaps(torch, got, ref):
@@ -1315,7 +1467,7 @@ def main() -> int:
     timing.update(phase_train_timing(torch, dev, kl, kf))
     timing.update(phase_two_stage_timing(torch, dev, kds, kl, kw))
     # each path's launches come from its own run: the fused serving
-    # kernels' from phase 3, the two-stage ones' from phase 3b, the
+    # kernels' from phase 3c, the two-stage ones' from phase 3b, the
     # training kernels' from phase 5 (prf_featmap and wkv6 lie on no
     # path: 0)
     cfg, params, launches, *main = phase_main_path(torch, dev, counters)
@@ -1323,6 +1475,11 @@ def main() -> int:
     two = phase_two_stage_serve(torch, dev, cfg, params, counters, main)
     launches.update({n: two[n] for n in ("prf_decode_step",
                                          "linear_attention_carry")})
+    # the serve CLI's default scheduler: B1's and B2's launches on the
+    # line come from its run
+    ovl = phase_overlap_serve(torch, dev, cfg, params, counters, main)
+    launches.update({n: ovl[n] for n in ("prf_fused_decode",
+                                         "prf_fused_prefill")})
     phase_two_stage_cross(torch, dev, cfg, params, toks, vl, card_run,
                           cpu_run)
     del params

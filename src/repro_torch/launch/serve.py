@@ -2,16 +2,23 @@
 
 Runs on the GPU through the hand-written kernels by default
 (``--use-kernel``, ``--device cuda``); ``--no-use-kernel`` selects the
-plain PyTorch path and ``--device cpu`` runs on the CPU.
+plain PyTorch path and ``--device cpu`` runs on the CPU. The overlapped
+scheduler is the default (``--overlap``; ``--no-overlap`` selects the
+sequential one). ``--load DIR`` serves the params of the newest
+checkpoint a trainer wrote there (``{"params", "opt"}``).
 
 Examples:
   # 8 requests over 4 slots on the GPU, greedy
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --requests 8 --slots 4 --prompt-len 16-64 --gen 32
 
-  # the reduced config on the CPU, chunked prefill
+  # the reduced config on the CPU, chunked prefill, sequential scheduler
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
-      --reduced --device cpu --chunk-tokens 16
+      --reduced --device cpu --chunk-tokens 16 --no-overlap
+
+  # serve what the port's trainer saved
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+      --load /tmp/ck
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch import checkpoint as ckpt_lib
 from repro_torch import configs as cfgs
 from repro_torch.models import lm
 from repro_torch.serving import ServingEngine, synthetic_requests
@@ -64,6 +72,13 @@ def main(argv=None) -> dict:
                          "prefill call (default: all staged)")
     ap.add_argument("--no-bucket-prefill", action="store_true",
                     help="disable pow-2 bucketing of packed chunk lengths")
+    ap.add_argument("--overlap", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="pipelined step loop: decode dispatched before "
+                         "prefill, the next chunk packed while the device "
+                         "works, tokens read back one step late without a "
+                         "blocking copy (--no-overlap = the sequential "
+                         "scheduler)")
     ap.add_argument("--use-kernel", default=True,
                     action=argparse.BooleanOptionalAction,
                     help="run prefill/decode through the fused CUDA "
@@ -75,6 +90,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--top-p", type=float, default=1.0,
                     help="per-request nucleus sampling (1.0 = off)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--load", default=None,
+                    help="checkpoint dir written by the trainer: serve "
+                         "its newest params")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -87,12 +105,18 @@ def main(argv=None) -> dict:
     cfg = dataclasses.replace(cfg, use_kernel=args.use_kernel)
 
     params = lm.init_params(cfg, seed=args.seed, device=args.device)
+    if args.load:
+        # trainer checkpoints hold {"params", "opt"}: restore the params
+        wrapped, step = ckpt_lib.restore_checkpoint(args.load,
+                                                    {"params": params})
+        params = wrapped["params"]
+        print(f"loaded params from {args.load} @ step {step}")
     engine = ServingEngine(params, cfg, max_slots=args.slots,
                            max_len=args.max_len,
                            chunk_tokens=args.chunk_tokens, seed=args.seed,
                            prefill_rows=args.prefill_rows,
                            bucket_prefill=not args.no_bucket_prefill,
-                           device=args.device)
+                           overlap=args.overlap, device=args.device)
     reqs = synthetic_requests(
         args.requests, cfg.vocab, seed=args.seed, rate=args.rate,
         prompt_range=_parse_range(args.prompt_len),
@@ -116,7 +140,15 @@ def main(argv=None) -> dict:
               f"span={span:.2f}s tokens[:8]={res.tokens[:8]}")
     st = engine.stats
     print(f"attention paths: prefill={st['prefill_path']} "
-          f"decode={st['decode_path']} scheduler=sequential")
+          f"decode={st['decode_path']} "
+          f"scheduler={'overlap' if st['overlap'] else 'sequential'}")
+    if "decode_stall_ms_p50" in st:
+        print(f"decode stall (host blocked on token readiness): "
+              f"p50={st['decode_stall_ms_p50']:.2f}ms "
+              f"p99={st['decode_stall_ms_p99']:.2f}ms "
+              f"max={st['decode_stall_ms_max']:.2f}ms; "
+              f"dispatch depth mean={st['dispatch_depth_mean']:.1f} "
+              f"max={st['dispatch_depth_max']}")
     tpots = np.array([t for r in results for t in r.tpots])
     span = max(r.finish_time for r in results) - min(
         r.arrival_time for r in results)

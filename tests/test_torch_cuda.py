@@ -416,3 +416,52 @@ def test_two_stage_decode_step_launches_b3(dev):
     assert bool(torch.isfinite(logits).all())
     assert kds.launches == n3 + cfg.n_layers
     assert kd.launches == n1
+
+
+@pytest.mark.cuda
+def test_overlapped_engine_matches_sequential(dev):
+    """At full width on the card, the overlapped engine's greedy streams
+    equal the sequential one's where the chunk schedule agrees (one
+    staged row per prefill call), and its steps make no synchronising
+    call but retire's event wait."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving import ServingEngine, synthetic_requests
+    cfg = configs.get_config("smollm-135m", use_kernel=True)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    streams = []
+    for overlap in (False, True):
+        eng = ServingEngine(params, cfg, max_slots=4, max_len=512,
+                            chunk_tokens=64, prefill_rows=1, overlap=overlap,
+                            device=dev)
+        reqs = synthetic_requests(6, cfg.vocab, seed=2,
+                                  prompt_range=(16, 160), gen_range=(8, 16))
+        uids = [eng.submit(r) for r in reqs]
+        if overlap:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = {r.uid: r.tokens for r in eng.run()}
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        streams.append([got[u] for u in uids])
+        assert eng.stats["decode_path"] == "fused_kernel"
+    assert streams[0] == streams[1]
+    assert [len(t) for t in streams[1]] == [r.max_new_tokens for r in reqs]
+
+
+@pytest.mark.cuda
+def test_pack_buffer_never_overwrites_a_pending_copy(dev):
+    """The third pack reuses the first buffer while its copy still waits
+    behind a long kernel: it must wait for that copy, so each device
+    copy holds the tokens packed for it."""
+    from repro_torch.serving.slots import PackBuffer
+    pb = PackBuffer(2, 4096, dev)
+    torch.cuda._sleep(100_000_000)          # keep the copies pending
+    a = pb.to_device(pb.pack([[1] * 1000, [2] * 1000], 1024))
+    b = pb.to_device(pb.pack([[3] * 1000], 1024))
+    pb.pack([[4] * 1000], 1024)
+    assert pb.fence_waits == 1
+    torch.cuda.synchronize()
+    assert a[:, :1000].tolist() == [[1] * 1000, [2] * 1000]
+    assert b[:, :1000].tolist() == [[3] * 1000]
+    assert not a[:, 1000:].any() and not b[:, 1000:].any()

@@ -110,10 +110,9 @@ def test_inactive_slot_state_is_bitwise_frozen(use_kernel):
     toks = torch.randint(0, tcfg.vocab, (3, 5),
                          generator=torch.Generator().manual_seed(0))
     tlm.prefill_chunk(params, tcfg, {"tokens": toks}, pool)
-    active = np.array([True, False, True])
     before = tslots.read_slots(pool, torch.tensor([0, 1, 2]))
     logits = tslots.freeze_inactive(
-        pool, active, lambda st: tlm.decode_step(
+        pool, torch.tensor([0, 2]), lambda st: tlm.decode_step(
             params, tcfg, torch.tensor([7, 9]), st))
     assert logits.shape == (2, tcfg.vocab)
     for name in ("s", "z", "c"):
