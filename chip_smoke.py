@@ -49,6 +49,15 @@ Phases, each printed as a JSON line:
      through a sequential and an overlapped engine with one staged row
      per prefill call (so the chunk boundaries agree): their greedy
      streams must be equal token for token;
+     3d. exact serving: smollm-135m at full width with exact softmax
+     attention (``kind="exact"``, a per-slot f32 KV cache of 1024
+     positions a layer; random weights from seed 0) served with phase
+     3's traffic through the overlapped scheduler under
+     ``set_sync_debug_mode("error")``: full token counts, paths
+     ``exact``, none of the seven kernels launched in the phase;
+     throughput, TTFT and TPOT beside phase 3c's; then phase 3c's 8
+     requests through both schedulers at ``prefill_rows=1``, whose
+     greedy streams must be equal;
   4. cross-device: one prefill chunk and two decode steps on the card
      (kernels) and on the CPU (plain path) with the same params, logits
      and every layer's state compared; a planted fault must fail the
@@ -57,6 +66,11 @@ Phases, each printed as a JSON line:
      card's two stages, held against the card's fused kernels and the
      CPU's plain path; a planted fault (each layer with the next layer's
      feature params) must fail;
+     4c. exact cross-device: phase 4's chunk and decode steps through
+     phase 3d's exact model on the card and on the CPU from the same
+     params: logits within phase 4's limit, each layer's kv_k and kv_v
+     within its state limit of their max, the cache lengths equal; a
+     planted fault (each layer run with the next layer's wk) must fail;
   5. training: smollm-135m at full width trained for 8 steps by the
      port's train launcher through the causal linear-attention kernel
      (loss finite and falling, 30 launches a step), checkpointed, then
@@ -67,6 +81,12 @@ Phases, each printed as a JSON line:
      from phase 5's checkpoint (token counts, fused_kernel paths, B1/B2
      launches), with the streams of an engine built on the params
      restored from it;
+     5c. the paper's scenario: smollm-135m with exact attention trained
+     for 4 steps by the train launcher (``--kernel exact``; no kernel
+     launched), checkpointed, its params transplanted into a darkformer
+     (m 256, fresh w and m_mat; ``launch.steps.transplant``), finetuned
+     qkv-only for 3 steps through B5 (3 x 30 launches), then 4 requests
+     served from the finetuned params through B1/B2;
   6. cross-device training: one loss and all its gradients at full
      width and 4 layers on the card (kernel) and on the CPU (plain
      path), same params and batch; a planted fault (each layer's kernel
@@ -648,7 +668,7 @@ def phase_overlap_serve(torch, dev, cfg, params, counters, main):
         fail(f"overlapped serve: greedy streams differ from the sequential "
              f"engine's with one staged row per prefill call "
              f"({eq_fields})")
-    return launches
+    return launches, fields
 
 
 def overlap_equality(torch, dev, cfg, params):
@@ -678,6 +698,41 @@ def overlap_equality(torch, dev, cfg, params):
         "requests": 8, "tokens": len(same),
         "tokens_equal": sum(same) / len(same),
         "first_differing_request": first}
+
+
+def phase_exact_serve(torch, dev, counters, ovl_fields):
+    """Phase 3d: phase 3's traffic through an exact smollm-135m at full
+    width, served by the overlapped scheduler under sync-debug mode; then
+    the ``prefill_rows=1`` equality of phase 3c. None of the seven
+    kernels may launch in the phase. Returns (cfg, params)."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    cfg = configs.darkify(configs.get_config("smollm-135m", use_kernel=True),
+                          "exact")
+    params = lm.init_params(cfg, seed=0, device=dev)
+    fields, launches, _, st = serve(torch, dev, cfg, params, counters,
+                                    overlap=True)
+    # the equality runs count too: nothing in the phase may launch
+    equal, eq_fields = overlap_equality(torch, dev, cfg, params)
+    phase_launches = {n: getattr(mod, attr)
+                      for n, (mod, attr) in counters.items()}
+    emit({"phase": "exact_serve", **fields,
+          "overlap_serve": {k: ovl_fields[k] for k in (
+              "throughput_tok_s", "ttft_p50_ms", "tpot_p50_ms",
+              "tpot_p99_ms", *PIPELINE_STATS) if k in ovl_fields},
+          "launches_with_equality_runs": phase_launches,
+          "rows_1_equality": eq_fields,
+          "seconds": time.perf_counter() - t0})
+    if st["prefill_path"] != "exact" or st["decode_path"] != "exact":
+        fail(f"exact serve ran {st['prefill_path']}/{st['decode_path']}")
+    if any(launches.values()) or any(phase_launches.values()):
+        fail(f"exact serve launched kernels: {phase_launches}")
+    if not equal:
+        fail(f"exact serve: greedy streams differ between the schedulers "
+             f"with one staged row per prefill call ({eq_fields})")
+    return cfg, params
 
 
 def drive(torch, lm, cfg, params, dev, toks, vl, feed=None, proj=None,
@@ -801,6 +856,68 @@ def phase_two_stage_cross(torch, dev, cfg, params, toks, vl, card, cpu):
                  f"{state_err:.3e} of their max")
     if max(fault[0]) <= CROSS_DEVICE_TOL and fault[1] <= STATE_TOL:
         fail("two-stage cross-check passes a planted fault")
+
+
+def exact_gaps(torch, got, ref):
+    """How far exact run ``got`` is from run ``ref``: the largest |logit|
+    gap over max |logit| per step, the largest gap of each layer's kv_k
+    and kv_v over that layer's max, and whether the cache lengths are
+    equal."""
+    (lg, _, sg), (lr, _, sr) = got, ref
+    for t in (*lg, *lr, sg.kv_k, sg.kv_v, sr.kv_k, sr.kv_v):
+        if not bool(torch.isfinite(t).all()):
+            fail("exact cross-device: non-finite logits or cache")
+    logit = [float((g - r).abs().max() / r.abs().max())
+             for g, r in zip(lg, lr)]
+    state = 0.0
+    for g, r in ((sg.kv_k, sr.kv_k), (sg.kv_v, sr.kv_v)):
+        per_layer = ((g - r).abs().flatten(1).amax(1)
+                     / r.abs().flatten(1).amax(1))
+        state = max(state, float(per_layer.max()))
+    return logit, state, bool(torch.equal(sg.length, sr.length))
+
+
+def phase_exact_cross(torch, dev, cfg, params):
+    """Phase 4c: phase 4's ragged chunk and two decode steps through the
+    exact model on the card and on the CPU, same params and tokens, held
+    by phase 4's limits on the logits and on each layer's cache; the
+    lengths must be equal. A planted fault (each layer run with the next
+    layer's key projection wk) must fail the same check."""
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab, (2, 64))
+    vl = np.array([64, 40], np.int32)
+    card = drive(torch, lm, cfg, params, dev, toks, vl)
+    cpu = drive(torch, lm, cfg, lm.tree_map(lambda t: t.cpu(), params),
+                "cpu", toks, vl, feed=card[1])
+    layers = params["units"]["b0"]
+    shifted = {**params, "units": {"b0": {**layers, "attn": {
+        **layers["attn"],
+        "wk": torch.roll(layers["attn"]["wk"], -1, dims=0)}}}}
+    planted = drive(torch, lm, cfg, shifted, dev, toks, vl, feed=card[1])
+    logit_err, state_err, lengths_equal = exact_gaps(torch, card, cpu)
+    fault_logit, fault_state, _ = exact_gaps(torch, planted, cpu)
+    emit({"phase": "exact_cross_device", "rel_max_err": logit_err,
+          "cache_rel_err": state_err, "lengths_equal": lengths_equal,
+          "lengths": card[2].length[0].tolist(),
+          "tolerance": CROSS_DEVICE_TOL, "state_tolerance": STATE_TOL,
+          "planted_fault": {"what": "each layer run with the next layer's "
+                                    "key projection wk",
+                            "rel_max_err": fault_logit,
+                            "cache_rel_err": fault_state},
+          "seconds": time.perf_counter() - t0})
+    if max(logit_err) > CROSS_DEVICE_TOL:
+        fail(f"exact cross-device logits differ by {max(logit_err):.3e} "
+             "of max |logit|")
+    if state_err > STATE_TOL:
+        fail(f"exact cross-device cache differs by {state_err:.3e} of its "
+             "max")
+    if not lengths_equal:
+        fail("exact cross-device: cache lengths differ")
+    if max(fault_logit) <= CROSS_DEVICE_TOL and fault_state <= STATE_TOL:
+        fail("exact cross-device check passes a planted fault")
 
 
 def phase_train_kernels(torch, dev, kl, kf):
@@ -1309,6 +1426,108 @@ def phase_serve_load(torch, dev, counters, ck, restored, cfg):
              "restored from the checkpoint")
 
 
+def phase_exact_finetune(torch, dev, counters):
+    """Phase 5c: the paper's scenario at full width. Exact smollm-135m
+    trained by the launcher for 4 steps (SyntheticLM seed 0, 8 x 512,
+    AdamW lr 3e-4; no kernel may launch) and checkpointed; the restored
+    params transplanted into a darkformer (m 256) and finetuned qkv-only
+    for 3 steps through B5 (3 x 30 launches, no other); then 4 requests
+    served from the finetuned params through B1/B2."""
+    import shutil
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import steps, train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.schedules import constant
+    from repro_torch.serving import ServingEngine, synthetic_requests
+
+    t0 = time.perf_counter()
+    ck = ROOT / "build" / "chip_smoke_exact_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+
+    def launches():
+        return {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+
+    def zero():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    zero()
+    out = train.main(["--arch", "smollm-135m", "--kernel", "exact",
+                      "--batch", str(B), "--seq", str(L_TRAIN), "--lr",
+                      "3e-4", "--warmup", "2", "--log-every", "1",
+                      "--device", str(dev), "--steps", "4", "--seed", "0",
+                      "--ckpt-dir", str(ck), "--ckpt-every", "4"])
+    exact_launches = launches()
+    cfg_e = out["config"]
+    exact_losses = [x["loss"] for x in out["metrics"]]
+    exact_ms = [x["ms"] for x in out["metrics"]]
+    del out
+    restored, step = ckpt.restore_checkpoint(
+        str(ck), {"params": lm.init_params(cfg_e, seed=1, device=dev)})
+    cfg_d = dataclasses.replace(configs.darkify(cfg_e, "darkformer", 256),
+                                use_kernel=True)
+    params = steps.transplant(restored["params"],
+                              lm.init_params(cfg_d, seed=2, device=dev))
+    del restored
+    opt_cfg = AdamWConfig(lr=3e-4)
+    opt = adamw_init(params, opt_cfg)
+    step_fn = steps.make_train_step(cfg_d, opt_cfg, constant(3e-4),
+                                    steps.qkv_only_freeze)
+    data = SyntheticLM(cfg_d.vocab, L_TRAIN, B, seed=0)
+    zero()
+    ft_losses = []
+    for i in range(3):
+        batch = {k: torch.from_numpy(v).to(dev).long()
+                 for k, v in data.batch(4 + i).items()}
+        params, opt, m = step_fn(params, opt, batch, i)
+        ft_losses.append(float(m["loss"]))
+    ft_launches = launches()
+    del opt
+
+    reqs = synthetic_requests(4, cfg_d.vocab, seed=5, prompt_range=(64, 256),
+                              gen_range=(16, 32))
+    eng = ServingEngine(params, cfg_d, max_slots=4, max_len=512,
+                        chunk_tokens=256, overlap=True, device=dev)
+    for r in reqs:
+        eng.submit(r)
+    zero()
+    by_uid = {r.uid: r.tokens for r in eng.run()}
+    serve_launches = launches()
+    st = eng.stats
+    tokens = [len(by_uid.get(r.uid, [])) for r in reqs]
+    emit({"phase": "exact_to_darkformer", "config": cfg_e.name,
+          "exact_steps": len(exact_losses), "exact_loss": exact_losses,
+          "exact_step_ms": exact_ms, "exact_launches": exact_launches,
+          "from_step": step, "num_features": cfg_d.attn.num_features,
+          "finetune_loss": ft_losses, "finetune_launches": ft_launches,
+          "served_tokens": tokens,
+          "max_new_tokens": [r.max_new_tokens for r in reqs],
+          "prefill_path": st["prefill_path"],
+          "decode_path": st["decode_path"], "serve_launches": serve_launches,
+          "seconds": time.perf_counter() - t0})
+    shutil.rmtree(ck, ignore_errors=True)
+    if not all(np.isfinite(exact_losses + ft_losses)):
+        fail(f"exact -> darkformer: losses {exact_losses} {ft_losses}")
+    if any(exact_launches.values()):
+        fail(f"exact training launched kernels: {exact_launches}")
+    want = {n: 0 for n in counters}
+    want["linear_attention_causal"] = 3 * cfg_d.n_layers
+    if ft_launches != want:
+        fail(f"exact -> darkformer finetune: launches {ft_launches}, "
+             f"expected {want}")
+    if tokens != [r.max_new_tokens for r in reqs]:
+        fail(f"exact -> darkformer serve: tokens per request {tokens}")
+    if st["prefill_path"] != "fused_kernel" or \
+            st["decode_path"] != "fused_kernel":
+        fail(f"exact -> darkformer serve ran {st['prefill_path']}/"
+             f"{st['decode_path']}")
+    if serve_launches != fused_launches(counters, st, cfg_d):
+        fail(f"exact -> darkformer serve: launches {serve_launches}")
+
+
 def train_gaps(torch, got, ref):
     """(|loss gap| / |loss|, the largest per-leaf gradient gap over that
     leaf's max |gradient| and the leaf it occurs in)."""
@@ -1477,16 +1696,22 @@ def main() -> int:
                                          "linear_attention_carry")})
     # the serve CLI's default scheduler: B1's and B2's launches on the
     # line come from its run
-    ovl = phase_overlap_serve(torch, dev, cfg, params, counters, main)
+    ovl, ovl_fields = phase_overlap_serve(torch, dev, cfg, params,
+                                          counters, main)
     launches.update({n: ovl[n] for n in ("prf_fused_decode",
                                          "prf_fused_prefill")})
     phase_two_stage_cross(torch, dev, cfg, params, toks, vl, card_run,
                           cpu_run)
-    del params
+    del params, card_run, cpu_run
+    # the exact kind: no kernel on its path
+    cfg_e, params_e = phase_exact_serve(torch, dev, counters, ovl_fields)
+    phase_exact_cross(torch, dev, cfg_e, params_e)
+    del params_e
     train_launches = phase_train(torch, dev, counters)
     launches.update({n: train_launches[n]
                      for n in ("linear_attention_causal", "prf_featmap",
                                "wkv6")})
+    phase_exact_finetune(torch, dev, counters)
     phase_train_cross_device(torch, dev, kl)
 
     emit({"kernels": [

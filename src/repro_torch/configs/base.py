@@ -12,7 +12,8 @@ DEFAULT_ATTN = FeatureConfig(kind="darkformer", num_features=256,
 
 def darkify(cfg: ModelConfig, kind: str = "darkformer",
             num_features: int = 256) -> ModelConfig:
-    """Switch a config's attention kernel between the PRF kinds."""
+    """Switch a config's attention kernel: exact <-> the PRF kinds, and
+    the random and constant baselines."""
     return dataclasses.replace(
         cfg, attn=dataclasses.replace(cfg.attn, kind=kind,
                                       num_features=num_features))

@@ -1,10 +1,18 @@
-"""The paper's PRF attention: training-time attention, resumed prefill and
-decode.
+"""The paper's attention as one entry point per mode: training-time
+attention, resumed prefill and decode, dispatched on FeatureConfig.kind:
 
-The counterpart of ``repro.core.attention`` for the PRF kinds. Layout:
-q is (B, G, Hg, L, d) — G KV groups, Hg query heads per group; k, v are
-(B, G, 1, L, d). Feature params are per group: {"w": (G, m, r),
-"m_mat": (G, r, d)}.
+  exact       -> softmax attention (optionally sliding-window)
+  performer   -> isotropic PRF linear attention
+  darkformer  -> data-aware PRF linear attention (the paper's)
+  lfk         -> learned-feature-kernel linear attention (baseline)
+  random      -> fixed random attention weights (baseline, training)
+  constant    -> uniform attention (baseline, training)
+
+The counterpart of ``repro.core.attention`` (its paged exact layout,
+``table``, is ROADMAP A9). Layout: q is (B, G, Hg, L, d) — G KV groups,
+Hg query heads per group; k, v are (B, G, 1, L, d). Feature params are
+per group: {"w": (G, m, r), "m_mat": (G, r, d)}. The exact kind and the
+baselines run no kernel, in the reference as here.
 
 Stability contract for the PRF kinds: the q features may take any
 per-(b, g, h, position) shift, since it cancels in num/den; the k
@@ -18,10 +26,13 @@ random draw for performer and darkformer (no gradient); only the lfk
 baseline trains W, and only darkformer trains M (the learned covariance
 Sigma = M^T M). The stabilizers carry no gradient either.
 
-The serving entry points advance the incoming :class:`AttnServeState`
-IN PLACE (the kernels write S, z and c where they lie; the plain path
-copies its result there) and return it beside the attention output; a
-whole-prompt prefill (no incoming state) returns a new one.
+The serving entry points advance the incoming serve state
+(:class:`AttnServeState` for the PRF kinds, :class:`KVCacheState` for
+exact) IN PLACE (the kernels write S, z and c where they lie; the plain path
+copies its result there; the exact path writes the chunk's keys and
+values into the cache where they lie and advances ``length``) and return
+it beside the attention output; a whole-prompt prefill (no incoming
+state) returns a new one.
 """
 from __future__ import annotations
 
@@ -35,11 +46,6 @@ from repro_torch.core import linear_attention as la
 
 PRF_KINDS = fm.PRF_KINDS
 NEG = torch.finfo(torch.float32).min
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue A, items A3/A9)")
 
 
 def _scale_qk(q: torch.Tensor, k: torch.Tensor):
@@ -83,19 +89,33 @@ def _qk_feature_pair(q, k, fparams, cfg: fm.FeatureConfig):
 
 
 def rf_attention(q, k, v, fparams, cfg: fm.FeatureConfig, *,
-                 causal: bool = True, chunk: int = 256,
-                 use_kernel: bool = False) -> torch.Tensor:
+                 causal: bool = True, window: Optional[int] = None,
+                 chunk: int = 256, use_kernel: bool = False,
+                 baseline_draw: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """Training-time attention over whole sequences. q: (B, G, Hg, L, d);
-    k, v: (B, G, 1, L, d). Causal with ``use_kernel`` runs the hand-written
-    ``linear_attention_causal`` kernel (its plain version on a CPU tensor),
-    reading k's features and v once per KV group; otherwise the chunked
-    plain scan. Returns (B, G, Hg, L, dv) in v.dtype."""
-    if cfg.kind in ("exact", "constant", "random"):
-        raise _not_ported(f"{cfg.kind!r} attention")
-    if cfg.kind not in PRF_KINDS:
-        raise ValueError(f"unsupported feature kind {cfg.kind!r}")
+    k, v: (B, G, 1, L, d). ``exact`` is softmax attention (``window``
+    for sliding-window); ``constant`` and ``random`` are the paper's
+    baselines, the latter with ``baseline_draw``, its (L, L) f32 logits.
+    For the PRF kinds, causal with ``use_kernel`` runs the hand-written
+    ``linear_attention_causal`` kernel (its plain version on a CPU
+    tensor), reading k's features and v once per KV group; otherwise the
+    chunked plain scan. Returns (B, G, Hg, L, dv) in v.dtype."""
     b, g, hg, l, _ = q.shape
     dv = v.shape[-1]
+    if cfg.kind == "exact":
+        qs, ks = _scale_qk(q, k)
+        return la.exact_attention(qs, ks, v, causal=causal, window=window)
+    if cfg.kind == "constant":
+        return la.constant_attention(v, causal=causal).expand(b, g, hg, l,
+                                                              dv)
+    if cfg.kind == "random":
+        if baseline_draw is None:
+            raise ValueError("the random baseline needs its (L, L) draw")
+        return la.random_attention(baseline_draw, v, causal=causal).expand(
+            b, g, hg, l, dv)
+    if cfg.kind not in PRF_KINDS:
+        raise ValueError(f"unsupported feature kind {cfg.kind!r}")
     qs, ks = _scale_qk(q, k)
     qf, kf, _ = _qk_feature_pair(qs, ks, fparams, cfg)
     if causal and use_kernel:
@@ -140,11 +160,81 @@ def _resume_qk_features(qs, ks, fparams, cfg: fm.FeatureConfig, c_in,
 class AttnServeState(NamedTuple):
     """PRF serving state: running (S, z) plus the running k-stabilizer
     ``c``. Every leaf has a leading batch axis, so the state doubles as a
-    slot pool (slot i is batch row i). The exact-attention KV cache and
-    its paged form are not ported yet."""
+    slot pool (slot i is batch row i)."""
     s: torch.Tensor                 # (B, G, Hg, m, dv) f32
     z: torch.Tensor                 # (B, G, Hg, m)     f32
     c: torch.Tensor                 # (B, G, 1, 1, 1)   f32
+
+
+class KVCacheState(NamedTuple):
+    """Exact-attention serving state: the KV cache and its write index.
+    The reference keeps these leaves in its ``AttnServeState`` beside
+    None PRF leaves; the port gives each kind its own type, so every
+    leaf of either is a tensor. ``length`` is () int32 when the batch
+    moves in lock-step, (B,) int32 per slot (each slot owns its row of
+    the cache and writes at its own index); then every leaf has a
+    leading batch axis and the state doubles as a slot pool."""
+    kv_k: torch.Tensor              # (B, G, Lmax, d) f32
+    kv_v: torch.Tensor              # (B, G, Lmax, d) f32
+    length: torch.Tensor            # () or (B,)      int32
+
+
+def _exact_prefill_resume(qs, ks, v, state: KVCacheState,
+                          window: Optional[int], out_dtype,
+                          valid_len: Optional[torch.Tensor] = None):
+    """Append an l-token chunk to the exact KV cache, in place, and attend
+    the chunk's queries over the whole valid prefix. ``state.length`` is
+    () or (B,); decode is the l = 1 case.
+
+    Without ``valid_len`` the chunk lands at [start, start + l) with
+    start = clamp(length, 0, Lmax - l), as the reference's dynamic
+    slice clamps it. ``valid_len`` ((B,) int32, with a (B,) ``length``)
+    marks ragged rows: row b writes positions [length[b], length[b] +
+    valid_len[b]) and leaves every other position bitwise as it was,
+    also where length + l > Lmax (a masked gather over the cache, never
+    a slice), and advances by valid_len[b]. Write positions stay on the
+    device: nothing here waits for it. Returns (out (B, G, Hg, l, dv) in
+    ``out_dtype``, ``state``)."""
+    b, g, _, l, _ = qs.shape
+    dev = qs.device
+    idx = state.length
+    lmax = state.kv_k.shape[2]
+    kpos = torch.arange(lmax, device=dev)
+    ar = torch.arange(l, device=dev)
+    knew = ks[:, :, 0].to(state.kv_k.dtype)              # (B, G, l, d)
+    vnew = v[:, :, 0].to(state.kv_v.dtype)
+    if valid_len is not None:
+        # per cache position, the chunk token it takes: positions in
+        # [idx, idx + valid_len) take token (pos - idx), the rest keep
+        # the old contents
+        rel = kpos[None] - idx[:, None]                  # (B, lmax)
+        keep = ((rel >= 0) & (rel < valid_len[:, None]))[:, None, :, None]
+        relc = rel.clamp(0, l - 1)[:, None, :, None]
+        for cache, new in ((state.kv_k, knew), (state.kv_v, vnew)):
+            taken = new.gather(2, relc.expand(b, g, lmax, new.shape[-1]))
+            cache.copy_(torch.where(keep, taken, cache))
+        qpos = idx[:, None] + ar[None]                   # (B, l)
+    else:
+        start = idx.clamp(0, lmax - l)
+        if idx.ndim == 0:
+            for cache, new in ((state.kv_k, knew), (state.kv_v, vnew)):
+                cache.index_copy_(2, start + ar, new)
+            qpos = (idx + ar)[None]                      # (1, l)
+        else:
+            pos = (start[:, None] + ar[None])[:, None, :, None]
+            for cache, new in ((state.kv_k, knew), (state.kv_v, vnew)):
+                cache.scatter_(2, pos.expand(b, g, l, new.shape[-1]), new)
+            qpos = idx[:, None] + ar[None]               # (B, l)
+    valid = kpos[None, None, :] <= qpos[:, :, None]      # (B|1, l, lmax)
+    if window is not None:
+        valid &= kpos[None, None, :] > qpos[:, :, None] - window
+    logits = torch.einsum("bghqd,bgkd->bghqk", qs.float(),
+                          state.kv_k.float())
+    logits = torch.where(valid[:, None, None], logits, NEG)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bghqk,bgkd->bghqd", probs, state.kv_v.float())
+    state.length.add_(l if valid_len is None else valid_len)
+    return out.to(out_dtype), state
 
 
 def init_linear_serve_state(b, g, hg, m, dv, device="cuda"
@@ -164,7 +254,9 @@ def _write_state(state: AttnServeState, s, z, c) -> AttnServeState:
 
 
 def rf_attention_prefill(q, k, v, fparams, cfg: fm.FeatureConfig, *,
-                         state: Optional[AttnServeState] = None,
+                         state=None,
+                         window: Optional[int] = None,
+                         max_len: Optional[int] = None,
                          chunk: int = 256, use_kernel: bool = False,
                          valid_len: Optional[torch.Tensor] = None,
                          proj: Optional[dict] = None):
@@ -178,7 +270,10 @@ def rf_attention_prefill(q, k, v, fparams, cfg: fm.FeatureConfig, *,
     exp(c_old - c_new) rescale of (S, z). ``valid_len`` ((B,) int32) makes
     the chunk ragged: row b advances over its first ``valid_len[b]``
     positions only; outputs at padded positions are garbage by contract.
-    With ``use_kernel`` a resumed chunk runs the fused
+    The exact kind attends over its KV cache instead
+    (:func:`_exact_prefill_resume`; a whole prompt gets a cache of
+    ``max_len`` positions, default L, and a () length) and selects no
+    kernel. With ``use_kernel`` a resumed PRF chunk runs the fused
     ``prf_fused_prefill`` kernel when ``proj`` carries the precomposed
     projection (``fm.precompose_projection``), and otherwise the two
     stages: the plain feature map, then the carried-scan kernel
@@ -187,9 +282,7 @@ def rf_attention_prefill(q, k, v, fparams, cfg: fm.FeatureConfig, *,
     v.dtype, state: a new one for the whole prompt, else ``state``
     advanced in place).
     """
-    if cfg.kind == "exact":
-        raise _not_ported("exact-attention prefill")
-    if cfg.kind not in PRF_KINDS:
+    if cfg.kind not in ("exact", *PRF_KINDS):
         raise ValueError(f"no serving path for kind {cfg.kind!r}")
     if valid_len is not None and state is None:
         raise ValueError("valid_len requires an incoming serve state "
@@ -197,6 +290,16 @@ def rf_attention_prefill(q, k, v, fparams, cfg: fm.FeatureConfig, *,
     b, g, hg, l, _ = q.shape
     dv = v.shape[-1]
     qs, ks = _scale_qk(q, k)
+    if cfg.kind == "exact":
+        if state is not None:
+            return _exact_prefill_resume(qs, ks, v, state, window, v.dtype,
+                                         valid_len=valid_len)
+        out = la.exact_attention(qs, ks, v, causal=True, window=window)
+        pad = (0, 0, 0, (max_len or l) - l)
+        return out, KVCacheState(
+            kv_k=torch.nn.functional.pad(ks[:, :, 0], pad),
+            kv_v=torch.nn.functional.pad(v[:, :, 0], pad),
+            length=torch.tensor(l, dtype=torch.int32, device=q.device))
     if state is None:
         qf, kf, kc = _qk_feature_pair(qs, ks, fparams, cfg)
         if use_kernel:
@@ -239,23 +342,28 @@ def rf_attention_prefill(q, k, v, fparams, cfg: fm.FeatureConfig, *,
     return out, _write_state(state, s, z, c_new)
 
 
-def rf_attention_decode(q, k, v, state: AttnServeState, fparams,
-                        cfg: fm.FeatureConfig, *, use_kernel: bool = False,
+def rf_attention_decode(q, k, v, state, fparams,
+                        cfg: fm.FeatureConfig, *,
+                        window: Optional[int] = None,
+                        use_kernel: bool = False,
                         proj: Optional[dict] = None):
     """One-token decode. q: (B, G, Hg, 1, d); k, v: (B, G, 1, 1, d).
-    With ``use_kernel`` the step runs the fused ``prf_fused_decode``
+    The exact kind appends to its KV cache at ``state.length`` (() or
+    (B,)) and attends over the valid prefix, the one-token case of the
+    resumed prefill chunk; it selects no kernel. For the PRF kinds, with
+    ``use_kernel`` the step runs the fused ``prf_fused_decode``
     kernel when ``proj`` carries the precomposed projection, and
     otherwise the two stages: the plain feature map, then the
     ``linear_attention_decode_step`` kernel. Without ``use_kernel``, the
     plain feature map and rank-1 update. Returns (out (B, G, Hg, 1, dv)
     in v.dtype, state advanced in place)."""
-    if cfg.kind == "exact":
-        raise _not_ported("exact-attention decode")
-    if cfg.kind not in PRF_KINDS:
+    if cfg.kind not in ("exact", *PRF_KINDS):
         raise ValueError(f"no serving path for kind {cfg.kind!r}")
     b, g, hg, _, _ = q.shape
     dv = v.shape[-1]
     qs, ks = _scale_qk(q, k)
+    if cfg.kind == "exact":
+        return _exact_prefill_resume(qs, ks, v, state, window, v.dtype)
     if use_kernel and proj is not None:
         out, _, _, _ = kops.fused_prf_decode(
             qs[..., 0, :].contiguous(), ks[:, :, 0, 0, :].contiguous(),

@@ -5,7 +5,10 @@ Runs on the GPU through the hand-written kernels by default
 plain PyTorch path and ``--device cpu`` runs on the CPU. The overlapped
 scheduler is the default (``--overlap``; ``--no-overlap`` selects the
 sequential one). ``--load DIR`` serves the params of the newest
-checkpoint a trainer wrote there (``{"params", "opt"}``).
+checkpoint a trainer wrote there (``{"params", "opt"}``). ``--kernel
+exact`` serves softmax attention over a per-slot KV cache; it has no
+kernel, so ``--use-kernel`` selects nothing there and the engine's
+paths, printed in the header, read ``exact``.
 
 Examples:
   # 8 requests over 4 slots on the GPU, greedy
@@ -15,6 +18,10 @@ Examples:
   # the reduced config on the CPU, chunked prefill, sequential scheduler
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --reduced --device cpu --chunk-tokens 16 --no-overlap
+
+  # exact softmax attention, the paper's baseline
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+      --kernel exact --max-len 1024
 
   # serve what the port's trainer saved
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
@@ -32,7 +39,7 @@ from repro_torch import configs as cfgs
 from repro_torch.models import lm
 from repro_torch.serving import ServingEngine, synthetic_requests
 
-SERVABLE = ("performer", "darkformer", "lfk")
+SERVABLE = ("exact", "performer", "darkformer", "lfk")
 
 
 def _parse_range(spec: str) -> tuple[int, int]:
@@ -83,7 +90,9 @@ def main(argv=None) -> dict:
                     action=argparse.BooleanOptionalAction,
                     help="run prefill/decode through the fused CUDA "
                          "kernels (on a CPU device their plain versions); "
-                         "--no-use-kernel selects the plain PyTorch path")
+                         "--no-use-kernel selects the plain PyTorch path; "
+                         "no effect with --kernel exact, which has no "
+                         "kernel")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0,
                     help="per-request top-k sampling (0 = off)")
@@ -129,7 +138,8 @@ def main(argv=None) -> dict:
         raise SystemExit(f"bad request: {e}")
 
     print(f"serving {args.requests} requests over {args.slots} slots "
-          f"(kernel={cfg.attn.kind}, max_len={args.max_len}, "
+          f"(kernel={cfg.attn.kind}, path={engine.stats['decode_path']}, "
+          f"max_len={args.max_len}, "
           f"rate={args.rate or 'batch'}, device={args.device})")
     results = engine.run(realtime=args.realtime)
 

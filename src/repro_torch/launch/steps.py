@@ -17,8 +17,9 @@ def make_train_step(cfg: lm.ModelConfig, opt_cfg: AdamWConfig,
     (params, opt_state, metrics).
 
     ``batch``: {"tokens", "labels"} (B, L) int64 tensors on the params'
-    device. ``gen`` is the draw of the random-attention baseline (the
-    reference folds the step into a key there); the PRF kinds read none.
+    device. ``gen`` feeds the random-attention baseline's draws; when
+    None, a generator seeded with ``step`` (the reference folds the step
+    into its key there). The other kinds read none.
     ``freeze`` is a predicate over a leaf's key path (the reference's
     ``keystr``): True zeroes the leaf's gradient, as the reference does.
     The decoupled weight decay still shrinks a frozen leaf by
@@ -29,6 +30,8 @@ def make_train_step(cfg: lm.ModelConfig, opt_cfg: AdamWConfig,
                    gen: Optional[torch.Generator] = None):
         inputs = map_with_path(lambda p, t: t.detach().requires_grad_(
             not (freeze and freeze(p))), params)
+        if gen is None and cfg.attn.kind == "random":
+            gen = torch.Generator().manual_seed(int(step))
         loss, metrics = lm.loss_fn(inputs, cfg, batch, gen)
         diff = [(p, t) for p, t in flatten(inputs) if t.requires_grad]
         grads = dict(zip((p for p, _ in diff), torch.autograd.grad(
@@ -58,3 +61,22 @@ def qkv_only_freeze(path: str) -> bool:
     q/k/v projections and the DARKFormer covariance M."""
     keep = ("['wq']", "['wk']", "['wv']", "['m_mat']")
     return not any(k in path for k in keep)
+
+
+def transplant(src: dict, dst: dict) -> dict:
+    """Checkpoint surgery for the paper's scenario, pretrained exact
+    attention finetuned under the darkformer kernel: ``dst`` (e.g. fresh
+    darkformer params) with every leaf whose key path ``src`` (e.g. the
+    exact model's params) shares taken from ``src``. The rest, the
+    feature params ``w`` and ``m_mat``, stay as ``dst`` drew them."""
+    shared = dict(flatten(src))
+
+    def take(path, t):
+        s = shared.get(path)
+        if s is None:
+            return t
+        if s.shape != t.shape:
+            raise ValueError(f"{path}: shape {tuple(s.shape)} in the "
+                             f"source, {tuple(t.shape)} in the target")
+        return s.to(t.device, t.dtype)
+    return map_with_path(take, dst)

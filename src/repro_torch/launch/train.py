@@ -3,7 +3,11 @@ and checkpoint store.
 
 Runs on the GPU through the hand-written kernels by default
 (``--use-kernel``, ``--device cuda``); ``--no-use-kernel`` selects the
-plain PyTorch path and ``--device cpu`` runs on the CPU. Checkpoints are
+plain PyTorch path and ``--device cpu`` runs on the CPU. ``--kernel``
+switches the attention: the PRF kinds (the kernel path), or exact
+softmax attention and the random and constant baselines, which have no
+kernel and run plain PyTorch (the random one draws its logits from a
+generator seeded with the step). Checkpoints are
 ``{"params", "opt"}`` in the reference's layout, so either package can
 finetune from the other's. The mesh flags, ``--simulate-failure-at``
 and the supervisor's restart loop wait with ROADMAP A13.
@@ -16,6 +20,10 @@ Examples:
   # the paper's qkv-only finetune from that checkpoint
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
       --steps 50 --finetune-from /tmp/ck --qkv-only
+
+  # exact softmax attention, the paper's pretraining baseline
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
+      --kernel exact --steps 200 --batch 8 --seq 512 --ckpt-dir /tmp/ex
 
   # the reduced config on the CPU
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
@@ -33,12 +41,13 @@ import torch
 
 from repro_torch import checkpoint as ckpt_lib
 from repro_torch import configs as cfgs
-from repro_torch.core.feature_maps import PRF_KINDS
 from repro_torch.data import C4Mock, SyntheticLM
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import lm
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.optim.schedules import cosine_warmup
+
+KINDS = ("exact", "performer", "darkformer", "lfk", "random", "constant")
 
 
 def make_data(cfg: lm.ModelConfig, args):
@@ -57,9 +66,9 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> dict:
                     choices=list(cfgs.ARCHS))
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-scale config (CPU-runnable)")
-    ap.add_argument("--kernel", default=None,
+    ap.add_argument("--kernel", default=None, choices=KINDS,
                     help=f"override the attention kernel "
-                         f"({'|'.join(PRF_KINDS)})")
+                         f"({'|'.join(KINDS)})")
     ap.add_argument("--features", type=int, default=None)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
@@ -87,10 +96,6 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> dict:
 
     cfg = cfgs.get_config(args.arch, reduced=args.reduced)
     if args.kernel:
-        if args.kernel not in PRF_KINDS:
-            raise SystemExit(f"--kernel {args.kernel!r} is not ported yet "
-                             f"(choose from {', '.join(PRF_KINDS)}; the "
-                             "rest is ROADMAP A3)")
         cfg = cfgs.darkify(cfg, args.kernel,
                            args.features or cfg.attn.num_features)
     cfg = dataclasses.replace(cfg, use_kernel=args.use_kernel)

@@ -1,8 +1,9 @@
-"""Attention mixer block: projections + RoPE + PRF attention, for training
-and serving.
+"""Attention mixer block: projections + RoPE + (PRF | exact) attention,
+for training and serving.
 
-The counterpart of ``repro.models.attention_block`` for the PRF kinds.
-GQA layout throughout: q -> (B, G, Hg, L, dh); k, v -> (B, G, 1, L, dh).
+The counterpart of ``repro.models.attention_block`` (its paged exact
+state is ROADMAP A9). GQA layout throughout: q -> (B, G, Hg, L, dh);
+k, v -> (B, G, 1, L, dh).
 """
 from __future__ import annotations
 
@@ -63,15 +64,19 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: fm.FeatureConfig, *,
                n_heads: int, n_kv: int, d_head: int, causal: bool = True,
                qk_norm: bool = False, rope_theta: float = 10000.0,
                positions: Optional[torch.Tensor] = None,
-               use_kernel: bool = False) -> torch.Tensor:
+               use_kernel: bool = False,
+               baseline_draw: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
     """Training-time attention over whole sequences x: (B, L, d_model),
-    at ``positions`` (default 0..L-1). Returns (B, L, d_model)."""
+    at ``positions`` (default 0..L-1). ``baseline_draw`` is the random
+    baseline's (L, L) draw. Returns (B, L, d_model)."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = _project(params, x, n_heads, n_kv, d_head, qk_norm,
                        positions, rope_theta)
     out = rfa.rf_attention(q, k, v, params.get("feat"), cfg, causal=causal,
-                           use_kernel=use_kernel)
+                           use_kernel=use_kernel,
+                           baseline_draw=baseline_draw)
     return _merge_heads(out, params)
 
 
@@ -118,10 +123,19 @@ def attn_decode(params, x, state, cfg, *, n_heads, n_kv, d_head, position,
 
 
 def init_attn_serve_state(cfg: fm.FeatureConfig, b, n_heads, n_kv, d_head,
-                          device="cuda") -> rfa.AttnServeState:
+                          max_len, per_slot=False, device="cuda"):
+    """A fresh serving state for one attention block. Exact: a zero f32
+    KV cache (b, n_kv, max_len, d_head) with a (b,) int32 length when
+    ``per_slot`` (each row, a serving slot, tracks its own write index),
+    else a () one. The PRF kinds: the (S, z, c) state."""
+    if cfg.kind == "exact":
+        cache = (b, n_kv, max_len, d_head)
+        return rfa.KVCacheState(
+            kv_k=torch.zeros(cache, dtype=torch.float32, device=device),
+            kv_v=torch.zeros(cache, dtype=torch.float32, device=device),
+            length=torch.zeros((b,) if per_slot else (), dtype=torch.int32,
+                               device=device))
     if cfg.kind not in fm.PRF_KINDS:
-        raise NotImplementedError(
-            f"serve state for kind {cfg.kind!r} is not ported yet "
-            "(ROADMAP.md Queue A, item A3)")
+        raise ValueError(f"no serving state for kind {cfg.kind!r}")
     return rfa.init_linear_serve_state(b, n_kv, n_heads // n_kv,
                                        cfg.num_features, d_head, device)

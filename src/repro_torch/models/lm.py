@@ -10,7 +10,8 @@ are not ported yet (ROADMAP Queue A, items A4 and A12).
 
 ``prefill_chunk`` and ``decode_step`` advance ``state`` IN PLACE: the
 kernels write each layer's (S, z, c) where it lies in the stacked pool,
-and the plain path copies its result there.
+the plain path copies its result there, and the exact kind writes each
+layer's keys and values into its KV cache and advances its ``length``.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core import feature_maps as fm
-from repro_torch.core.attention import AttnServeState
+from repro_torch.core import linear_attention as la
 from repro_torch.models import attention_block as ab
 from repro_torch.models import layers as ll
 from repro_torch.tree import tree_map
@@ -150,42 +151,49 @@ def build_decode_proj(params: dict, cfg: ModelConfig,
 def init_serve_state(cfg: ModelConfig, b: int, max_len: int,
                      per_slot: bool = False, stacked: bool = True,
                      device="cuda") -> dict:
-    """Initial serving state for b sequences: {"layers": AttnServeState
-    with leaves (n_layers, b, ...), "pos": (b,) int32 if ``per_slot``
-    else () int32}. The PRF state is fixed-size, so ``max_len`` only
-    bounds the engine's context budget."""
+    """Initial serving state for b sequences: {"layers": the block's
+    state (``AttnServeState``, or ``KVCacheState`` for exact) with leaves
+    (n_layers, b, ...), "pos": (b,) int32 if ``per_slot``
+    else () int32}. The PRF state is fixed-size, so there ``max_len``
+    only bounds the engine's context budget; the exact kind gets a KV
+    cache of ``max_len`` positions a layer and a ``length`` of
+    (n_layers, b) or, without ``per_slot``, (n_layers,)."""
     _check_servable(cfg)
     if not stacked or not can_stack_layers(cfg):
         raise _not_ported("the unit/rem serving layout")
-    st = ab.init_attn_serve_state(cfg.attn, b * cfg.n_layers, cfg.n_heads,
-                                  cfg.n_kv, cfg.head_dim, device)
-    layers = AttnServeState(*(t.reshape(cfg.n_layers, b, *t.shape[1:])
-                              for t in st))
+    st = ab.init_attn_serve_state(cfg.attn, b, cfg.n_heads, cfg.n_kv,
+                                  cfg.head_dim, max_len, per_slot=per_slot,
+                                  device=device)
+    layers = type(st)(*(t.expand(cfg.n_layers, *t.shape).clone()
+                        for t in st))
     return {"layers": layers,
             "pos": torch.zeros((b,) if per_slot else (), dtype=torch.int32,
                                device=device)}
 
 
 def _layer_slices(params, cfg, state, proj):
+    """(params, serve state, projections) of each layer, the state's
+    leaves as views into the stacked pool, so that in-place writes land
+    there."""
     sp = _layers(params, cfg)
     st = state["layers"]
     for li in range(cfg.n_layers):
         lp = tree_map(lambda t: t[li], sp)
-        ls = AttnServeState(st.s[li], st.z[li], st.c[li])
+        ls = type(st)(*(t[li] for t in st))
         lproj = None if proj is None else tree_map(lambda t: t[li],
                                                    proj["layers"])
         yield lp, ls, lproj
 
 
 def _apply_block(params, x, cfg: ModelConfig, *, mode, state=None,
-                 position=None, valid_len=None, proj=None):
+                 position=None, valid_len=None, proj=None, draw=None):
     h = ll.apply_norm(cfg.norm_kind, params["ln1"], x)
     common = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.head_dim,
                   qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
                   use_kernel=cfg.use_kernel)
     if mode == "train":
         mix = ab.attn_apply(params["attn"], h, cfg.attn, causal=cfg.causal,
-                            **common)
+                            baseline_draw=draw, **common)
     elif mode == "prefill":
         mix, _ = ab.attn_prefill(params["attn"], h, cfg.attn, state=state,
                                  position=position, valid_len=valid_len,
@@ -217,18 +225,33 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def baseline_draws(cfg: ModelConfig, l: int,
+                   gen: Optional[torch.Generator] = None,
+                   device="cpu") -> torch.Tensor:
+    """The random baseline's draws for an L-token forward: (n_layers, L,
+    L) f32, layer by layer from ``gen`` (a generator seeded 0 when None,
+    as the reference keys on PRNGKey(0)), on the CPU and then moved, so a
+    seed gives the same draws on every device."""
+    gen = gen if gen is not None else torch.Generator().manual_seed(0)
+    return torch.stack([la.random_draw(l, gen)
+                        for _ in range(cfg.n_layers)]).to(device)
+
+
 def forward_train(params, cfg: ModelConfig, batch: dict,
                   gen: Optional[torch.Generator] = None):
     """Full forward over batch["tokens"] (B, L). Returns (logits (B, L, V)
     f32, aux loss 0-d f32). With ``cfg.use_kernel`` every layer's causal
-    attention runs the ``linear_attention_causal`` kernel. ``gen`` is the
-    draw of the random-attention baseline (ROADMAP A3); the PRF kinds
-    read none."""
+    PRF attention runs the ``linear_attention_causal`` kernel. The random
+    baseline reads layer i's (L, L) logits from :func:`baseline_draws`
+    of ``gen``; the other kinds read none."""
     _check_servable(cfg)
     x = _embed_inputs(params, cfg, batch)
+    draws = (baseline_draws(cfg, x.shape[1], gen, x.device)
+             if cfg.attn.kind == "random" else None)
     sp = _layers(params, cfg)
     for li in range(cfg.n_layers):
-        x = _apply_block(tree_map(lambda t: t[li], sp), x, cfg, mode="train")
+        x = _apply_block(tree_map(lambda t: t[li], sp), x, cfg, mode="train",
+                         draw=None if draws is None else draws[li])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(params, cfg, x), aux
 
@@ -236,8 +259,9 @@ def forward_train(params, cfg: ModelConfig, batch: dict,
 def loss_fn(params, cfg: ModelConfig, batch: dict,
             gen: Optional[torch.Generator] = None):
     """Next-token cross-entropy plus z-loss over the positions with
-    ``labels >= 0``. Returns (loss 0-d f32, metrics {loss, ce, z_loss,
-    aux, accuracy}, detached)."""
+    ``labels >= 0``; ``gen`` feeds the random baseline
+    (:func:`forward_train`). Returns (loss 0-d f32, metrics {loss, ce,
+    z_loss, aux, accuracy}, detached)."""
     logits, aux = forward_train(params, cfg, batch, gen)
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)

@@ -1,4 +1,5 @@
-"""Continuous-batching serving engine over the O(1)-state PRF decode.
+"""Continuous-batching serving engine over the O(1)-state PRF decode and
+the exact-attention KV cache.
 
 The counterpart of ``repro.serving.engine``, with both of its
 schedulers. They share the pieces:
@@ -15,11 +16,14 @@ schedulers. They share the pieces:
   * ONE batched ``lm.decode_step`` over the active slots samples a
     token for each of them.
 
-With ``cfg.use_kernel`` both calls run the hand-written kernels
-(``prf_fused_prefill``, ``prf_fused_decode``, one launch per layer per
-call) against projections precomposed once here. The kernels update the
-state in place, so a decode with free slots advances only the active
-rows (``slots.freeze_inactive``): free rows stay bit-frozen.
+With ``cfg.use_kernel`` and a PRF kind both calls run the hand-written
+kernels (``prf_fused_prefill``, ``prf_fused_decode``, one launch per
+layer per call) against projections precomposed once here. The exact
+kind keeps a per-slot KV cache of ``max_len`` positions a layer and runs
+no kernel, in the reference as here; ``submit`` refuses a prompt that
+does not fit it and admission clips the decode budget to it. Every path
+updates the state in place, so a decode with free slots advances only
+the active rows (``slots.freeze_inactive``): free rows stay bit-frozen.
 
 Every small host array of a step (indices, ``valid_len``, tokens,
 sampling parameters, uniforms) reaches the device through ``to_device``:
@@ -207,10 +211,8 @@ class ServingEngine:
             raise ValueError("chunk_tokens must be >= 1")
         if prefill_rows is not None and prefill_rows < 1:
             raise ValueError("prefill_rows must be >= 1 (None = no cap)")
-        if cfg.attn.kind not in fm.PRF_KINDS:
-            raise NotImplementedError(
-                f"serving kind {cfg.attn.kind!r} is not ported yet "
-                "(ROADMAP.md Queue A, item A3)")
+        if cfg.attn.kind not in ("exact", *fm.PRF_KINDS):
+            raise ValueError(f"no serving path for kind {cfg.attn.kind!r}")
         self.params = params
         self.cfg = cfg
         self.max_slots = max_slots
@@ -236,9 +238,11 @@ class ServingEngine:
         self._step_params = dict(params)
         self._step_params["layers"] = lm.stack_layer_params(params, cfg)
         self._proj = lm.build_decode_proj(self._step_params, cfg)
-        # what the dispatch runs: the kernels only take CUDA tensors; on
-        # the CPU the same wrappers run their plain versions
-        path = ("torch" if self._proj is None else
+        # what the dispatch runs: softmax over the KV cache (no kernel),
+        # or the PRF kernels, which only take CUDA tensors (on the CPU
+        # the same wrappers run their plain versions), or plain torch
+        path = ("exact" if cfg.attn.kind == "exact" else
+                "torch" if self._proj is None else
                 "fused_kernel" if self.device.type == "cuda" else
                 "fused_plain")
         self._serve_paths = {"prefill_path": path, "decode_path": path}

@@ -2,8 +2,9 @@
 
 A pool is ``lm.init_serve_state(cfg, b=max_slots, per_slot=True)``: slot
 i is batch row i of every leaf. ``state["layers"]`` leaves carry a
-leading layer axis, so their slot axis is 1; ``state["pos"]`` has it at
-0. Every engine mutation reduces to the primitives here. The scatters
+leading layer axis, so their slot axis is 1 (the exact cache's
+``length`` too: (n_layers, slots)); ``state["pos"]`` has it at 0.
+Every engine mutation reduces to the primitives here. The scatters
 write into the pool tensors in place; the gathers return copies. None
 of them waits for the device: row indices arrive as device tensors.
 
@@ -17,13 +18,12 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core.attention import AttnServeState
-
 
 def tree_slot_map(fn, pool: dict, *others: dict) -> dict:
     """Map ``fn(pool_leaf, *other_leaves, axis=slot_axis)`` over serve
-    states of the stacked layout."""
-    layers = AttnServeState(*(
+    states of the stacked layout, of either kind (``AttnServeState``,
+    ``KVCacheState``)."""
+    layers = type(pool["layers"])(*(
         fn(p, *o, axis=1)
         for p, *o in zip(pool["layers"], *[t["layers"] for t in others])))
     return {"layers": layers,

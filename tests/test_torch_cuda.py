@@ -465,3 +465,111 @@ def test_pack_buffer_never_overwrites_a_pending_copy(dev):
     assert a[:, :1000].tolist() == [[1] * 1000, [2] * 1000]
     assert b[:, :1000].tolist() == [[3] * 1000]
     assert not a[:, 1000:].any() and not b[:, 1000:].any()
+
+
+def _exact_cfg(**kw):
+    from repro_torch import configs
+    return configs.darkify(configs.get_config("smollm-135m", **kw), "exact")
+
+
+@pytest.mark.cuda
+def test_exact_chunk_and_decode_match_cpu(dev):
+    """The exact kind (no kernel) on the card against the port's CPU run,
+    same params: a ragged chunk and two decode steps, logits and every
+    layer's KV cache within 1e-4 (f32 through 3 layers, TF32 off), the
+    cache lengths equal."""
+    from repro_torch.models import lm
+    cfg = _exact_cfg(reduced=True)
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (3, 9),
+                         generator=torch.Generator().manual_seed(1))
+    runs = []
+    for d in ("cpu", dev):
+        p = lm.tree_map(lambda t: t.to(d), params)
+        st = lm.init_serve_state(cfg, b=3, max_len=32, per_slot=True,
+                                 device=d)
+        logits, st = lm.prefill_chunk(
+            p, cfg, {"tokens": toks.to(d)}, st,
+            valid_len=torch.tensor([9, 4, 6], dtype=torch.int32, device=d))
+        out = [logits.cpu()]
+        for i in range(2):
+            logits, st = lm.decode_step(p, cfg, toks[:, i].to(d), st)
+            out.append(logits.cpu())
+        runs.append((out, {k: t.cpu() for k, t in
+                           st["layers"]._asdict().items()}))
+    (cpu_out, cpu_st), (card_out, card_st) = runs
+    for a, b in zip(card_out, cpu_out):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    assert torch.equal(card_st["length"], cpu_st["length"])
+    for name in ("kv_k", "kv_v"):
+        torch.testing.assert_close(card_st[name], cpu_st[name], atol=1e-4,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+def test_exact_ragged_write_at_cache_end(dev):
+    """A padded chunk running past the cache's end (12 + 8 > 16): on the
+    card each row writes [length, length + valid_len) and leaves every
+    other position bitwise as it was, as on the CPU; the outputs agree
+    within 1e-5."""
+    from repro_torch.core import attention as rfa
+    gen = torch.Generator().manual_seed(2)
+    b, g, hg, d, lmax, l = 3, 2, 2, 8, 16, 8
+    qs = torch.randn((b, g, hg, l, d), generator=gen)
+    ks = torch.randn((b, g, 1, l, d), generator=gen)
+    v = torch.randn((b, g, 1, l, d), generator=gen)
+    kc = torch.randn((b, g, lmax, d), generator=gen)
+    vc = torch.randn((b, g, lmax, d), generator=gen)
+    length = torch.tensor([12, 13, 8], dtype=torch.int32)
+    vl = torch.tensor([3, 2, 8], dtype=torch.int32)
+    runs = []
+    for where in ("cpu", dev):
+        st = rfa.KVCacheState(kc.clone().to(where), vc.clone().to(where),
+                              length.clone().to(where))
+        out, st = rfa._exact_prefill_resume(
+            qs.to(where), ks.to(where), v.to(where), st, None,
+            torch.float32, valid_len=vl.to(where))
+        runs.append((out.cpu(), st.kv_k.cpu(), st.kv_v.cpu(),
+                     st.length.cpu()))
+    (o_cpu, k_cpu, v_cpu, n_cpu), (o_card, k_card, v_card, n_card) = runs
+    assert torch.equal(k_card, k_cpu) and torch.equal(v_card, v_cpu)
+    assert n_card.tolist() == [15, 15, 16]
+    assert torch.equal(n_card, n_cpu)
+    torch.testing.assert_close(o_card, o_cpu, atol=1e-5, rtol=0)
+    for r in range(b):
+        lo, hi = int(length[r]), int(length[r] + vl[r])
+        assert torch.equal(k_card[r, :, :lo], kc[r, :, :lo])
+        assert torch.equal(k_card[r, :, hi:], kc[r, :, hi:])
+        assert torch.equal(k_card[r, :, lo:hi], ks[r, :, 0, :hi - lo])
+
+
+@pytest.mark.cuda
+def test_overlapped_exact_engine_matches_sequential(dev):
+    """An exact smollm-135m at full width: the overlapped engine's greedy
+    streams equal the sequential one's at one staged row per prefill
+    call, its steps make no synchronising call but retire's event wait,
+    and no kernel launches."""
+    from repro_torch.models import lm
+    from repro_torch.serving import ServingEngine, synthetic_requests
+    cfg = _exact_cfg(use_kernel=True)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    before = (kd.launches, kp.launches, kds.launches)
+    streams = []
+    for overlap in (False, True):
+        eng = ServingEngine(params, cfg, max_slots=4, max_len=512,
+                            chunk_tokens=64, prefill_rows=1, overlap=overlap,
+                            device=dev)
+        reqs = synthetic_requests(6, cfg.vocab, seed=2,
+                                  prompt_range=(16, 160), gen_range=(8, 16))
+        uids = [eng.submit(r) for r in reqs]
+        if overlap:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = {r.uid: r.tokens for r in eng.run()}
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        streams.append([got[u] for u in uids])
+        assert eng.stats["decode_path"] == "exact"
+    assert streams[0] == streams[1]
+    assert [len(t) for t in streams[1]] == [r.max_new_tokens for r in reqs]
+    assert (kd.launches, kp.launches, kds.launches) == before
