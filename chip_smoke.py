@@ -58,6 +58,26 @@ Phases, each printed as a JSON line:
      throughput, TTFT and TPOT beside phase 3c's; then phase 3c's 8
      requests through both schedulers at ``prefill_rows=1``, whose
      greedy streams must be equal;
+     3e. prefix-cache serving: a burst of system-prompt traffic
+     (``shared_prefix_requests``: 16 requests arriving at once, 80%
+     opening with one of two shared 256-token prefixes, suffixes of
+     16-128 tokens, 16-32 new ones; the reference's
+     benchmarks/serve_latency.py part 6 spaces its requests instead,
+     Poisson at 16/s over one prefix, so TTFT here is mostly the wait
+     for one of the 8 slots, not the fork) through engines with
+     ``PrefixCacheConfig()`` defaults (block 16, page 16, 64 / 256 MiB),
+     primed with each shared prefix. (a) phase 3's smollm-135m through
+     the overlapped scheduler under ``set_sync_debug_mode("error")``:
+     full token counts, forks and prefix hits, at least one snapshot
+     demoted to pinned host memory and one promoted back, B1/B2 launches
+     equal to decode steps and prefill calls x 30, the prefilled tokens
+     plus the forked ones equal to the prompts' (every forked remainder
+     ran through B2 from its seeded state); the same traffic through a
+     cache-less engine for TTFT and throughput beside. (b) the traffic
+     through cache-on and cache-less engines at ``prefill_rows=1``:
+     every greedy stream equal, token for token. (c) the same with phase
+     3d's exact model on paged KV: paths ``exact_paged``, no kernel
+     launched, streams equal to the contiguous exact engine's;
   4. cross-device: one prefill chunk and two decode steps on the card
      (kernels) and on the CPU (plain path) with the same params, logits
      and every layer's state compared; a planted fault must fail the
@@ -733,6 +753,140 @@ def phase_exact_serve(torch, dev, counters, ovl_fields):
         fail(f"exact serve: greedy streams differ between the schedulers "
              f"with one staged row per prefill call ({eq_fields})")
     return cfg, params
+
+
+# phase 3e's traffic: a burst (no arrival rate) of system-prompt
+# requests over two shared prefixes, suffixes of 16-128 tokens
+PREFIX_TRAFFIC = dict(seed=0, prefix_len=256, n_prefixes=2, reuse=0.8,
+                      suffix_range=(16, 128), gen_range=(16, 32))
+# the engine's prefix-cache counters, read as increments over a run
+PREFIX_STATS = ("prefill_calls", "decode_steps", "prefill_tokens",
+                "emitted_tokens", "forked_requests", "forked_tokens",
+                "prefix_hits", "prefix_misses", "prefix_captures",
+                "prefix_demotions", "prefix_promotions", "prefix_evictions")
+
+
+def prefix_serve(torch, dev, cfg, params, counters, cache, rows=None):
+    """Phase 3e's 16 requests through an overlapped engine (8 slots,
+    max_len 1024, chunk_tokens 256, ``prefill_rows`` ``rows``, the prefix
+    cache ``cache`` or none) under ``set_sync_debug_mode("error")``,
+    after a primer of each shared prefix plus three tokens (the
+    cache-less engine serves it too, as its warm-up). Every count of
+    ``counters`` is set to 0 just before the run and read just after.
+    Returns (JSON fields, launches, streams in submission order, the
+    stats at the end, their increments over the run)."""
+    from repro_torch.serving import (Request, ServingEngine,
+                                     shared_prefix_requests)
+
+    eng = ServingEngine(params, cfg, max_slots=8, max_len=1024,
+                        chunk_tokens=256, prefill_rows=rows, seed=0,
+                        overlap=True, prefix_cache=cache, device=dev)
+    reqs = shared_prefix_requests(16, cfg.vocab, **PREFIX_TRAFFIC)
+    n_lead = collections.Counter(tuple(r.prompt[:256]) for r in reqs)
+    for lead, n in n_lead.items():
+        if n > 1:
+            eng.submit(Request(prompt=list(lead) + [1, 2, 3],
+                               max_new_tokens=2))
+    eng.run()
+    before = dict(eng.stats)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        results = eng.run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    st = eng.stats
+    delta = {k: st[k] - before.get(k, 0) for k in PREFIX_STATS if k in st}
+    by_uid = {r.uid: r for r in results}
+    got = {r.uid: len(by_uid[r.uid].tokens) if r.uid in by_uid else 0
+           for r in reqs}
+    want = {r.uid: r.max_new_tokens for r in reqs}
+    if got != want:
+        fail(f"prefix-cache serving: tokens per request {got}, expected "
+             f"{want}")
+    ttfts = [by_uid[r.uid].ttft for r in reqs]
+    tpots = [t for r in reqs for t in by_uid[r.uid].tpots]
+    fields = {
+        "prefix_cache": cache is not None, "prefill_rows": rows,
+        "wall_s": wall, "throughput_tok_s": delta["emitted_tokens"] / wall,
+        "ttft_p50_ms": float(np.percentile(ttfts, 50)) * 1e3,
+        "tpot_p50_ms": float(np.percentile(tpots, 50)) * 1e3,
+        "prompt_tokens": sum(len(r.prompt) for r in reqs),
+        **delta, "launches": launches,
+        "prefill_path": st["prefill_path"], "decode_path": st["decode_path"],
+        **{k: st[k] for k in ("prefix_device_bytes", "prefix_host_bytes",
+                              "prefix_entries", "kv_pages_total",
+                              "kv_pages_free") if k in st}}
+    return fields, launches, [by_uid[r.uid].tokens for r in reqs], st, delta
+
+
+def phase_prefix_cache(torch, dev, counters, cfg, params, cfg_e, params_e):
+    """Phase 3e: phase 3's model, then phase 3d's exact one, serving the
+    system-prompt traffic with and without the prefix cache (module
+    docstring). Returns B1's and B2's launches in (a)."""
+    from repro_torch.serving import PrefixCacheConfig
+
+    t0 = time.perf_counter()
+    for kind, c, p in (("darkformer", cfg, params),
+                       ("exact", cfg_e, params_e)):
+        path = "exact_paged" if kind == "exact" else "fused_kernel"
+        runs = {(cache, rows): prefix_serve(
+                    torch, dev, c, p, counters,
+                    PrefixCacheConfig() if cache else None, rows)
+                for cache in (True, False) for rows in (None, 1)}
+        on, launches, _, st, d = runs[True, None]
+        s_on, s_off = runs[True, 1][2], runs[False, 1][2]
+        same = [a == b for x, y in zip(s_on, s_off) for a, b in zip(x, y)]
+        first = next((j for j, (x, y) in enumerate(zip(s_on, s_off))
+                      if x != y), None)
+        emit({"phase": "prefix_cache_serve", "kind": kind,
+              "config": c.name, "slots": 8, "max_len": 1024,
+              "chunk_tokens": 256, "traffic": PREFIX_TRAFFIC,
+              "requests": 16, "prefill_tokens_saved": d["forked_tokens"],
+              "cache_on": on, "cache_off": runs[False, None][0],
+              "rows_1": {"cache_on": runs[True, 1][0],
+                         "cache_off": runs[False, 1][0],
+                         "tokens": len(same),
+                         "tokens_equal": sum(same) / len(same),
+                         "first_differing_request": first},
+              "seconds": time.perf_counter() - t0})
+        if st["prefill_path"] != path or st["decode_path"] != path:
+            fail(f"prefix-cache serve ({kind}) ran {st['prefill_path']}/"
+                 f"{st['decode_path']}, expected {path}")
+        if d["forked_requests"] < 1 or d["prefix_hits"] < 1 \
+                or runs[True, 1][4]["forked_requests"] < 1:
+            fail(f"prefix-cache serve ({kind}): no fork")
+        if d["prefill_tokens"] + d["forked_tokens"] != on["prompt_tokens"]:
+            fail(f"prefix-cache serve ({kind}): {d['prefill_tokens']} "
+                 f"prefilled + {d['forked_tokens']} forked tokens, "
+                 f"expected the prompts' {on['prompt_tokens']}")
+        if kind == "darkformer" and (d["prefix_demotions"] < 1
+                                     or d["prefix_promotions"] < 1):
+            fail(f"prefix-cache serve: demotions {d['prefix_demotions']}, "
+                 f"promotions {d['prefix_promotions']}, expected >= 1 each")
+        for key, (_, got, _, _, dd) in runs.items():
+            want = {n: 0 for n in counters}
+            if kind == "darkformer":
+                want = fused_launches(counters, dd, c)
+            if got != want:
+                fail(f"prefix-cache serve ({kind}, cache and rows {key}): "
+                     f"launches {got}, expected {want}")
+        if kind == "darkformer":
+            b12 = launches
+        if s_on != s_off:
+            fail(f"prefix-cache serve ({kind}): greedy streams with the "
+                 f"cache differ from the cache-less engine's at "
+                 f"prefill_rows=1 ({sum(same)} of {len(same)} tokens "
+                 f"equal, first request {first})")
+    return b12
 
 
 def drive(torch, lm, cfg, params, dev, toks, vl, feed=None, proj=None,
@@ -1702,9 +1856,13 @@ def main() -> int:
                                          "prf_fused_prefill")})
     phase_two_stage_cross(torch, dev, cfg, params, toks, vl, card_run,
                           cpu_run)
-    del params, card_run, cpu_run
+    del card_run, cpu_run
     # the exact kind: no kernel on its path
     cfg_e, params_e = phase_exact_serve(torch, dev, counters, ovl_fields)
+    # the prefix cache: B1 and B2 on forked rows, exact on paged KV
+    prefix_launches = phase_prefix_cache(torch, dev, counters, cfg, params,
+                                         cfg_e, params_e)
+    del params
     phase_exact_cross(torch, dev, cfg_e, params_e)
     del params_e
     train_launches = phase_train(torch, dev, counters)
@@ -1723,6 +1881,7 @@ def main() -> int:
          **{k: timing[n][k] for k in ("ms_warm", "device_ms_warm")
             if k in timing[n]},
          "plain_ms": timing[n]["plain_ms"],
+         "launches_prefix_cache": prefix_launches[n],
          "bound_ms": timing[n]["bound_ms"],
          "bound_by": timing[n]["bound_by"], "library_ms": None}
         for n, (_, _, src, replaces) in KERNELS.items()],

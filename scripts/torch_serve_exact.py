@@ -15,8 +15,8 @@ per-slot KV cache (no kernel; ``exact``) in turns: dark, exact, exact,
 dark, ... (``--turns``), each run on a fresh engine after one warm-up
 engine per kind. Every run prints one JSON line with its kind: wall,
 throughput, TTFT p50, TPOT p50 and p99, decode stall and dispatch
-depth, steps (``scripts/torch_serve_overlap.py``'s ``run``). Then one
-profiled run of each kind: the device's busy ms over the run's wall,
+depth, steps (``scripts/torch_serve_overlap.py``'s ``run``). Then,
+unless ``--no-profile``, one profiled run of each kind: the device's busy ms over the run's wall,
 its idle share and kernel launches per decode step. Prints the card's
 name and power limit first. ``--reduced --device cpu`` rehearses the
 control flow on the CPU, where no device time exists. Imports neither
@@ -43,6 +43,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--turns", type=int, default=3,
                     help="rounds of (dark, exact, exact, dark)")
+    ap.add_argument("--no-profile", action="store_true",
+                    help="skip the profiled run of each kind")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -71,7 +73,7 @@ def main(argv=None) -> int:
         for kind in ("dark", "exact", "exact", "dark"):
             print(json.dumps({"kind": kind, **run(
                 torch, *models[kind], dev, overlap=True)}), flush=True)
-    for kind in models:
+    for kind in () if args.no_profile else models:
         print(json.dumps({"kind": kind, **run(
             torch, *models[kind], dev, overlap=True, profiled=True)}),
             flush=True)

@@ -8,11 +8,10 @@ attention, resumed prefill and decode, dispatched on FeatureConfig.kind:
   random      -> fixed random attention weights (baseline, training)
   constant    -> uniform attention (baseline, training)
 
-The counterpart of ``repro.core.attention`` (its paged exact layout,
-``table``, is ROADMAP A9). Layout: q is (B, G, Hg, L, d) — G KV groups,
-Hg query heads per group; k, v are (B, G, 1, L, d). Feature params are
-per group: {"w": (G, m, r), "m_mat": (G, r, d)}. The exact kind and the
-baselines run no kernel, in the reference as here.
+The counterpart of ``repro.core.attention``. Layout: q is (B, G, Hg, L,
+d) — G KV groups, Hg query heads per group; k, v are (B, G, 1, L, d).
+Feature params are per group: {"w": (G, m, r), "m_mat": (G, r, d)}. The
+exact kind and the baselines run no kernel, in the reference as here.
 
 Stability contract for the PRF kinds: the q features may take any
 per-(b, g, h, position) shift, since it cancels in num/den; the k
@@ -28,17 +27,21 @@ Sigma = M^T M). The stabilizers carry no gradient either.
 
 The serving entry points advance the incoming serve state
 (:class:`AttnServeState` for the PRF kinds, :class:`KVCacheState` for
-exact) IN PLACE (the kernels write S, z and c where they lie; the plain path
-copies its result there; the exact path writes the chunk's keys and
-values into the cache where they lie and advances ``length``) and return
-it beside the attention output; a whole-prompt prefill (no incoming
-state) returns a new one.
+exact, :class:`PagedKVState` for exact over shared page pools) IN PLACE
+(the kernels write S, z and c where they lie; the plain path copies its
+result there; the exact path writes the chunk's keys and values into the
+cache where they lie and advances ``length``) and return it beside the
+attention output; a whole-prompt prefill (no incoming state) returns a
+new one.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from repro_torch import kernels as kops
 from repro_torch.core import feature_maps as fm
@@ -46,6 +49,9 @@ from repro_torch.core import linear_attention as la
 
 PRF_KINDS = fm.PRF_KINDS
 NEG = torch.finfo(torch.float32).min
+# exact serving's additive mask: finite, so exp(logit + MASK_BIAS - max)
+# is 0 without an inf - inf anywhere in the kernel
+MASK_BIAS = -1e30
 
 
 def _scale_qk(q: torch.Tensor, k: torch.Tensor):
@@ -225,16 +231,104 @@ def _exact_prefill_resume(qs, ks, v, state: KVCacheState,
             for cache, new in ((state.kv_k, knew), (state.kv_v, vnew)):
                 cache.scatter_(2, pos.expand(b, g, l, new.shape[-1]), new)
             qpos = idx[:, None] + ar[None]               # (B, l)
-    valid = kpos[None, None, :] <= qpos[:, :, None]      # (B|1, l, lmax)
+    out = _attend_prefix(qs, state.kv_k, state.kv_v, qpos, window,
+                         out_dtype)
+    state.length.add_(l if valid_len is None else valid_len)
+    return out, state
+
+
+def _attend_prefix(qs, kc, vc, qpos, window: Optional[int], out_dtype):
+    """Softmax attention of the queries ``qs`` (B, G, Hg, l, d) at
+    absolute positions ``qpos`` ((B, l), or (1, l) for all rows) over
+    each row's keys and values ``kc``, ``vc`` (B, G, Lc, d) f32, masked
+    to positions <= the query's (and within ``window``).
+
+    One ``scaled_dot_product_attention`` over (B, G), a group's Hg query
+    heads stacked along its queries, with a finite additive mask; on
+    CUDA it is pinned to the memory-efficient kernel, whose blocks each
+    compute one (row, group), so a row's output does not depend on how
+    many rows are beside it. (Batched einsums do not keep that: cuBLAS
+    picks the logits' algorithm by the batch count, and on the H100 a
+    decoding row rounds differently alone and beside others.)"""
+    b, g, hg, l, d = qs.shape
+    lc = kc.shape[2]
+    kpos = torch.arange(lc, device=qs.device)
+    valid = kpos[None, None, :] <= qpos[:, :, None]      # (B|1, l, Lc)
     if window is not None:
         valid &= kpos[None, None, :] > qpos[:, :, None] - window
-    logits = torch.einsum("bghqd,bgkd->bghqk", qs.float(),
-                          state.kv_k.float())
-    logits = torch.where(valid[:, None, None], logits, NEG)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bghqk,bgkd->bghqd", probs, state.kv_v.float())
+    bias = torch.where(valid, 0.0, MASK_BIAS)[:, None, None].expand(
+        b, 1, hg, l, lc).reshape(b, 1, hg * l, lc)
+    q = qs.float().reshape(b, g, hg * l, d)
+    pin = (sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION) if qs.is_cuda
+           else contextlib.nullcontext())
+    with pin:
+        out = F.scaled_dot_product_attention(q, kc, vc, attn_mask=bias,
+                                             scale=1.0)
+    return out.view(b, g, hg, l, -1).to(out_dtype)
+
+
+class PagedKVState(NamedTuple):
+    """Exact-attention serving state over block-granular paged KV: each
+    row's page table and write index. The keys and values live in SHARED
+    page pools, (n_pages, page_size, G, d) f32 a layer, passed beside
+    the state (``lm.init_kv_pages``); ``table[b, j]`` is the physical
+    pool page holding row b's logical page j, and page 0 is the garbage
+    page that padded writes land on. The reference keeps these leaves
+    in its ``AttnServeState`` (``table`` set, ``kv_k``/``kv_v`` the
+    pools). The pools carry no slot axis, so the slot ops move page ids,
+    never pages, and rows can share physical prefix pages (the prefix
+    cache's copy-on-write fork, ``repro_torch.serving.prefix_cache``)."""
+    table: torch.Tensor             # (B, max_pages) int64
+    length: torch.Tensor            # (B,)           int32
+
+
+def _exact_paged_append_attend(qs, ks, v, state: PagedKVState, pages,
+                               window: Optional[int], out_dtype,
+                               valid_len: Optional[torch.Tensor] = None):
+    """Paged generalization of :func:`_exact_prefill_resume`: append an
+    l-token chunk to each row's pages of the pools ``pages`` (k, v), in
+    place, and attend its queries over the row's valid prefix.
+
+    Token t of row b lands at flat pool position ``table[b, p] * ps +
+    (length[b] + t) % ps`` with p = (length[b] + t) // ps clamped to
+    max_pages - 1; with ``valid_len`` the padded tokens (t >=
+    valid_len[b]) land on the garbage page 0, so a ragged chunk leaves no
+    trace in any row's pages. The read gathers the row's whole table as a
+    logically contiguous view of max_pages * ps positions and applies
+    the same prefix-masked softmax (and window) as the contiguous cache.
+    With max_pages * ps equal to that cache's length the two compute the
+    same arithmetic on the same shapes; paged against paged is bitwise,
+    since the gather erases the physical page ids. Decode is l = 1.
+
+    Rows only append at their own length, so a physical page fully
+    covered by a committed prefix never changes: the prefix cache shares
+    such pages across forked rows and copies only the partial tail page.
+    Returns (out (B, G, Hg, l, dv) in ``out_dtype``, ``state``)."""
+    b, g, _, l, _ = qs.shape
+    kpool, vpool = pages
+    npg, ps, gk, dk = kpool.shape
+    mp = state.table.shape[1]
+    dev = qs.device
+    ar = torch.arange(l, device=dev)
+    pos = state.length.long()[:, None] + ar[None]        # (B, l) absolute
+    logical = (pos // ps).clamp(max=mp - 1)
+    flat = state.table.gather(1, logical) * ps + pos % ps
+    if valid_len is not None:
+        flat = torch.where(ar[None] < valid_len[:, None], flat, 0)
+    flat = flat.reshape(-1)
+    kflat = kpool.view(npg * ps, gk, dk)
+    vflat = vpool.view(npg * ps, gk, vpool.shape[-1])
+    for pool, new in ((kflat, ks), (vflat, v)):
+        rows = new[:, :, 0].movedim(1, 2).reshape(b * l, gk, -1)
+        pool.index_copy_(0, flat, rows.to(pool.dtype))
+    # each row's pages back as a logically contiguous (B, G, Lc, d) view
+    gidx = (state.table[:, :, None] * ps
+            + torch.arange(ps, device=dev)).reshape(b, mp * ps)
+    kc = kflat[gidx].movedim(2, 1).contiguous()
+    vc = vflat[gidx].movedim(2, 1).contiguous()
+    out = _attend_prefix(qs, kc, vc, pos, window, out_dtype)
     state.length.add_(l if valid_len is None else valid_len)
-    return out.to(out_dtype), state
+    return out, state
 
 
 def init_linear_serve_state(b, g, hg, m, dv, device="cuda"
@@ -259,28 +353,30 @@ def rf_attention_prefill(q, k, v, fparams, cfg: fm.FeatureConfig, *,
                          max_len: Optional[int] = None,
                          chunk: int = 256, use_kernel: bool = False,
                          valid_len: Optional[torch.Tensor] = None,
-                         proj: Optional[dict] = None):
+                         proj: Optional[dict] = None, pages=None):
     """Causal pass over a prompt: the whole prompt (``state`` None) or a
     chunk that resumes from ``state``.
 
-    Whole prompt: causal attention from zero (the ``linear_attention_causal``
-    kernel under ``use_kernel``, else the chunked plain scan) and a fresh
-    state from the prompt's features. Resumed: the chunk attends to the
-    carried prefix, and the stabilizer is a running max with an online
-    exp(c_old - c_new) rescale of (S, z). ``valid_len`` ((B,) int32) makes
-    the chunk ragged: row b advances over its first ``valid_len[b]``
-    positions only; outputs at padded positions are garbage by contract.
-    The exact kind attends over its KV cache instead
-    (:func:`_exact_prefill_resume`; a whole prompt gets a cache of
-    ``max_len`` positions, default L, and a () length) and selects no
-    kernel. With ``use_kernel`` a resumed PRF chunk runs the fused
-    ``prf_fused_prefill`` kernel when ``proj`` carries the precomposed
-    projection (``fm.precompose_projection``), and otherwise the two
-    stages: the plain feature map, then the carried-scan kernel
-    ``linear_attention_prefill_chunk``. Without ``use_kernel``, the plain
-    feature map and carried-state scan. Returns (out (B, G, Hg, L, dv) in
-    v.dtype, state: a new one for the whole prompt, else ``state``
-    advanced in place).
+    Whole prompt: causal attention from zero (the
+    ``linear_attention_causal`` kernel under ``use_kernel``, else the
+    chunked plain scan) and a fresh state from the prompt's features.
+    Resumed: the chunk attends to the carried prefix, and the stabilizer
+    is a running max with an online exp(c_old - c_new) rescale of (S,
+    z). ``valid_len`` ((B,) int32) makes the chunk ragged: row b
+    advances over its first ``valid_len[b]`` positions only; outputs at
+    padded positions are garbage by contract. The exact kind attends
+    over its KV cache instead (:func:`_exact_prefill_resume`; a whole
+    prompt gets a cache of ``max_len`` positions, default L, and a ()
+    length), or over the page pools ``pages`` (k, v) for a
+    :class:`PagedKVState` (:func:`_exact_paged_append_attend`), and
+    selects no kernel. With ``use_kernel`` a resumed PRF chunk runs the
+    fused ``prf_fused_prefill`` kernel when ``proj`` carries the
+    precomposed projection (``fm.precompose_projection``), and otherwise
+    the two stages: the plain feature map, then the carried-scan kernel
+    ``linear_attention_prefill_chunk``. Without ``use_kernel``, the
+    plain feature map and carried-state scan. Returns (out (B, G, Hg, L,
+    dv) in v.dtype, state: a new one for the whole prompt, else
+    ``state`` advanced in place).
     """
     if cfg.kind not in ("exact", *PRF_KINDS):
         raise ValueError(f"no serving path for kind {cfg.kind!r}")
@@ -291,6 +387,10 @@ def rf_attention_prefill(q, k, v, fparams, cfg: fm.FeatureConfig, *,
     dv = v.shape[-1]
     qs, ks = _scale_qk(q, k)
     if cfg.kind == "exact":
+        if isinstance(state, PagedKVState):
+            return _exact_paged_append_attend(qs, ks, v, state, pages,
+                                              window, v.dtype,
+                                              valid_len=valid_len)
         if state is not None:
             return _exact_prefill_resume(qs, ks, v, state, window, v.dtype,
                                          valid_len=valid_len)
@@ -346,11 +446,12 @@ def rf_attention_decode(q, k, v, state, fparams,
                         cfg: fm.FeatureConfig, *,
                         window: Optional[int] = None,
                         use_kernel: bool = False,
-                        proj: Optional[dict] = None):
+                        proj: Optional[dict] = None, pages=None):
     """One-token decode. q: (B, G, Hg, 1, d); k, v: (B, G, 1, 1, d).
     The exact kind appends to its KV cache at ``state.length`` (() or
     (B,)) and attends over the valid prefix, the one-token case of the
-    resumed prefill chunk; it selects no kernel. For the PRF kinds, with
+    resumed prefill chunk (over the page pools ``pages`` for a
+    :class:`PagedKVState`); it selects no kernel. For the PRF kinds, with
     ``use_kernel`` the step runs the fused ``prf_fused_decode``
     kernel when ``proj`` carries the precomposed projection, and
     otherwise the two stages: the plain feature map, then the
@@ -363,6 +464,9 @@ def rf_attention_decode(q, k, v, state, fparams,
     dv = v.shape[-1]
     qs, ks = _scale_qk(q, k)
     if cfg.kind == "exact":
+        if isinstance(state, PagedKVState):
+            return _exact_paged_append_attend(qs, ks, v, state, pages,
+                                              window, v.dtype)
         return _exact_prefill_resume(qs, ks, v, state, window, v.dtype)
     if use_kernel and proj is not None:
         out, _, _, _ = kops.fused_prf_decode(

@@ -8,7 +8,12 @@ sequential one). ``--load DIR`` serves the params of the newest
 checkpoint a trainer wrote there (``{"params", "opt"}``). ``--kernel
 exact`` serves softmax attention over a per-slot KV cache; it has no
 kernel, so ``--use-kernel`` selects nothing there and the engine's
-paths, printed in the header, read ``exact``.
+paths, printed in the header, read ``exact``. ``--prefix-cache`` captures
+prefix snapshots at block boundaries and admits later requests that
+share a cached prefix by forking its state (for exact attention over
+paged KV, path ``exact_paged``); ``--shared-prefix N`` serves traffic
+whose prompts open with a shared N-token prefix, ``--prompt-len`` then
+giving the suffix's range.
 
 Examples:
   # 8 requests over 4 slots on the GPU, greedy
@@ -22,6 +27,11 @@ Examples:
   # exact softmax attention, the paper's baseline
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --kernel exact --max-len 1024
+
+  # system-prompt traffic through the prefix cache
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+      --requests 16 --slots 8 --max-len 1024 --chunk-tokens 256 \
+      --prefix-cache --shared-prefix 256 --prompt-len 16-128 --gen 16-32
 
   # serve what the port's trainer saved
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
@@ -37,7 +47,8 @@ import numpy as np
 from repro_torch import checkpoint as ckpt_lib
 from repro_torch import configs as cfgs
 from repro_torch.models import lm
-from repro_torch.serving import ServingEngine, synthetic_requests
+from repro_torch.serving import (PrefixCacheConfig, ServingEngine,
+                                 shared_prefix_requests, synthetic_requests)
 
 SERVABLE = ("exact", "performer", "darkformer", "lfk")
 
@@ -93,6 +104,29 @@ def main(argv=None) -> dict:
                          "--no-use-kernel selects the plain PyTorch path; "
                          "no effect with --kernel exact, which has no "
                          "kernel")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="capture prefix snapshots at block boundaries "
+                         "and admit later requests sharing a cached "
+                         "prefix by forking its state (O(1) for the PRF "
+                         "kinds; exact switches to paged KV with "
+                         "copy-on-write page sharing)")
+    ap.add_argument("--prefix-block", type=int, default=16,
+                    help="prefix-cache capture/match granularity in "
+                         "tokens (must divide --chunk-tokens)")
+    ap.add_argument("--prefix-device-mb", type=int, default=64,
+                    help="device-tier snapshot budget (MiB) before LRU "
+                         "demotion to host")
+    ap.add_argument("--prefix-host-mb", type=int, default=256,
+                    help="host-tier snapshot budget (MiB) before LRU "
+                         "eviction")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="exact paged-KV page size in tokens "
+                         "(prefix-cache engines only)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="generate prefix-heavy traffic: N-token shared "
+                         "prompt prefix on ~80%% of requests, "
+                         "--prompt-len then the suffix's range (0 = "
+                         "fully random prompts)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0,
                     help="per-request top-k sampling (0 = off)")
@@ -120,17 +154,33 @@ def main(argv=None) -> dict:
                                                     {"params": params})
         params = wrapped["params"]
         print(f"loaded params from {args.load} @ step {step}")
+    pc = None
+    if args.prefix_cache:
+        pc = PrefixCacheConfig(block_tokens=args.prefix_block,
+                               device_bytes=args.prefix_device_mb << 20,
+                               host_bytes=args.prefix_host_mb << 20,
+                               page_size=args.page_size)
     engine = ServingEngine(params, cfg, max_slots=args.slots,
                            max_len=args.max_len,
                            chunk_tokens=args.chunk_tokens, seed=args.seed,
                            prefill_rows=args.prefill_rows,
                            bucket_prefill=not args.no_bucket_prefill,
-                           overlap=args.overlap, device=args.device)
-    reqs = synthetic_requests(
-        args.requests, cfg.vocab, seed=args.seed, rate=args.rate,
-        prompt_range=_parse_range(args.prompt_len),
-        gen_range=_parse_range(args.gen), temperature=args.temperature,
-        top_k=args.top_k, top_p=args.top_p)
+                           overlap=args.overlap, prefix_cache=pc,
+                           device=args.device)
+    if args.shared_prefix > 0:
+        reqs = shared_prefix_requests(
+            args.requests, cfg.vocab, seed=args.seed, rate=args.rate,
+            prefix_len=args.shared_prefix,
+            suffix_range=_parse_range(args.prompt_len),
+            gen_range=_parse_range(args.gen),
+            temperature=args.temperature)
+    else:
+        reqs = synthetic_requests(
+            args.requests, cfg.vocab, seed=args.seed, rate=args.rate,
+            prompt_range=_parse_range(args.prompt_len),
+            gen_range=_parse_range(args.gen),
+            temperature=args.temperature, top_k=args.top_k,
+            top_p=args.top_p)
     try:
         for r in reqs:
             engine.submit(r)
@@ -172,6 +222,17 @@ def main(argv=None) -> dict:
               f"p99={st['ttft_p99'] * 1e3:.0f}ms")
     print(f"slot occupancy: {st['mean_occupancy'] * 100:.0f}% over "
           f"{st['decode_steps']} decode steps")
+    if "prefix_hits" in st:
+        print(f"prefix cache: {st['prefix_hits']} hits, "
+              f"{st['prefix_misses']} misses, "
+              f"{st['forked_requests']} forked requests "
+              f"({st['forked_tokens']} prompt tokens not prefilled), "
+              f"{st['prefix_captures']} captures, "
+              f"{st['prefix_demotions']} demotions, "
+              f"{st['prefix_promotions']} promotions, "
+              f"{st['prefix_evictions']} evictions; device "
+              f"{st['prefix_device_bytes'] / 2**20:.1f} MiB, host "
+              f"{st['prefix_host_bytes'] / 2**20:.1f} MiB")
     print(f"prefill: {st['prefill_tokens']} tokens in "
           f"{st['prefill_chunks']} chunks over {st['prefill_calls']} "
           f"batched calls ({st['prefill_rows_per_call']:.1f} rows/call, "

@@ -1,8 +1,8 @@
 """Attention mixer block: projections + RoPE + (PRF | exact) attention,
 for training and serving.
 
-The counterpart of ``repro.models.attention_block`` (its paged exact
-state is ROADMAP A9). GQA layout throughout: q -> (B, G, Hg, L, dh);
+The counterpart of ``repro.models.attention_block``. GQA layout
+throughout: q -> (B, G, Hg, L, dh);
 k, v -> (B, G, 1, L, dh).
 """
 from __future__ import annotations
@@ -82,12 +82,13 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: fm.FeatureConfig, *,
 
 def attn_prefill(params, x, cfg, *, n_heads, n_kv, d_head, state=None,
                  position=None, qk_norm=False, rope_theta=10000.0,
-                 use_kernel=False, valid_len=None, proj=None):
+                 use_kernel=False, valid_len=None, proj=None, pages=None):
     """Prefill a whole prompt (``state`` and ``position`` None: positions
     0..L-1, a new state) or one prompt chunk that resumes from ``state``
     at chunk start ``position`` (() int, or (B,) per-row starts).
     ``valid_len`` marks ragged rows; ``proj`` selects the fused kernel
-    under ``use_kernel``. Returns (mix (B, L, d_model), the new state or
+    under ``use_kernel``; ``pages`` are the layer's (k, v) page pools of
+    a paged exact ``state``. Returns (mix (B, L, d_model), the new state or
     ``state`` advanced in place)."""
     l = x.shape[1]
     ar = torch.arange(l, device=x.device)
@@ -101,15 +102,16 @@ def attn_prefill(params, x, cfg, *, n_heads, n_kv, d_head, state=None,
                        positions, rope_theta)
     out, state = rfa.rf_attention_prefill(
         q, k, v, params.get("feat"), cfg, state=state,
-        use_kernel=use_kernel, valid_len=valid_len, proj=proj)
+        use_kernel=use_kernel, valid_len=valid_len, proj=proj, pages=pages)
     return _merge_heads(out, params), state
 
 
 def attn_decode(params, x, state, cfg, *, n_heads, n_kv, d_head, position,
                 qk_norm=False, rope_theta=10000.0, use_kernel=False,
-                proj=None):
-    """x: (B, 1, d_model); position: () int current index, or (B,) per
-    slot. Returns (mix (B, 1, d_model), state advanced in place)."""
+                proj=None, pages=None):
+    """x: (B, 1, d_model); position: () int current index, or (B,) per slot;
+    ``pages`` as in :func:`attn_prefill`. Returns (mix (B, 1, d_model),
+    state advanced in place)."""
     if position.ndim == 0:
         positions = position[None]
     else:
@@ -118,7 +120,7 @@ def attn_decode(params, x, state, cfg, *, n_heads, n_kv, d_head, position,
                        positions, rope_theta)
     out, state = rfa.rf_attention_decode(q, k, v, state, params.get("feat"),
                                          cfg, use_kernel=use_kernel,
-                                         proj=proj)
+                                         proj=proj, pages=pages)
     return _merge_heads(out, params), state
 
 
@@ -139,3 +141,15 @@ def init_attn_serve_state(cfg: fm.FeatureConfig, b, n_heads, n_kv, d_head,
         raise ValueError(f"no serving state for kind {cfg.kind!r}")
     return rfa.init_linear_serve_state(b, n_kv, n_heads // n_kv,
                                        cfg.num_features, d_head, device)
+
+
+def init_paged_attn_state(b: int, max_pages: int, device="cuda"
+                          ) -> rfa.PagedKVState:
+    """A fresh paged exact-KV serve state for one attention block: each
+    row's page table (all on the garbage page 0) and write index. The
+    shared page pools carry no slot axis and live outside the slot pool
+    (``lm.init_kv_pages``), so the slot ops in
+    ``repro_torch.serving.slots`` move tables and lengths, never pages."""
+    return rfa.PagedKVState(
+        table=torch.zeros((b, max_pages), dtype=torch.int64, device=device),
+        length=torch.zeros((b,), dtype=torch.int32, device=device))

@@ -12,6 +12,9 @@ are not ported yet (ROADMAP Queue A, items A4 and A12).
 kernels write each layer's (S, z, c) where it lies in the stacked pool,
 the plain path copies its result there, and the exact kind writes each
 layer's keys and values into its KV cache and advances its ``length``.
+The paged exact layout (``init_paged_serve_state``) writes them into the
+shared page pools (``init_kv_pages``) passed beside the state as
+``pages=``.
 """
 from __future__ import annotations
 
@@ -171,10 +174,43 @@ def init_serve_state(cfg: ModelConfig, b: int, max_len: int,
                                device=device)}
 
 
-def _layer_slices(params, cfg, state, proj):
-    """(params, serve state, projections) of each layer, the state's
-    leaves as views into the stacked pool, so that in-place writes land
-    there."""
+def init_paged_serve_state(cfg: ModelConfig, b: int, max_len: int,
+                           page_size: int, device="cuda") -> dict:
+    """Slot pool for the block-granular paged exact-KV layout: {"layers":
+    ``PagedKVState`` with a (n_layers, b, max_pages) page table and a
+    (n_layers, b) write index, "pos": (b,) int32}, max_pages =
+    ceil(max_len / page_size). Exact and layer-stacked configs only. The
+    keys and values live in the shared pools of :func:`init_kv_pages`,
+    passed beside the state to :func:`prefill_chunk` and
+    :func:`decode_step` as ``pages=``; the slot ops see only this tree,
+    so forking a cached prefix into N rows copies page IDS, not keys and
+    values (``repro_torch.serving.prefix_cache``)."""
+    if cfg.attn.kind != "exact" or not can_stack_layers(cfg):
+        raise ValueError(
+            f"{cfg.name}: paged KV serve states need an exact-attention "
+            f"layer-stacked config (kind={cfg.attn.kind}, "
+            f"stackable={can_stack_layers(cfg)})")
+    _check_servable(cfg)
+    st = ab.init_paged_attn_state(b, -(-max_len // page_size), device)
+    return {"layers": type(st)(*(t.expand(cfg.n_layers, *t.shape).clone()
+                                 for t in st)),
+            "pos": torch.zeros((b,), dtype=torch.int32, device=device)}
+
+
+def init_kv_pages(cfg: ModelConfig, n_pages: int, page_size: int,
+                  device="cuda") -> dict:
+    """The shared per-layer exact-KV page pools: {"k", "v"} each
+    (n_layers, n_pages, page_size, G, d_head) f32. Page 0 is the garbage
+    page that padded writes land on."""
+    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=torch.float32, device=device),
+            "v": torch.zeros(shape, dtype=torch.float32, device=device)}
+
+
+def _layer_slices(params, cfg, state, proj, pages=None):
+    """(params, serve state, projections, page pools) of each layer, the
+    state's leaves and the pools as views into the stacked tensors, so
+    that in-place writes land there."""
     sp = _layers(params, cfg)
     st = state["layers"]
     for li in range(cfg.n_layers):
@@ -182,11 +218,14 @@ def _layer_slices(params, cfg, state, proj):
         ls = type(st)(*(t[li] for t in st))
         lproj = None if proj is None else tree_map(lambda t: t[li],
                                                    proj["layers"])
-        yield lp, ls, lproj
+        lpages = None if pages is None else (pages["k"][li],
+                                             pages["v"][li])
+        yield lp, ls, lproj, lpages
 
 
 def _apply_block(params, x, cfg: ModelConfig, *, mode, state=None,
-                 position=None, valid_len=None, proj=None, draw=None):
+                 position=None, valid_len=None, proj=None, draw=None,
+                 pages=None):
     h = ll.apply_norm(cfg.norm_kind, params["ln1"], x)
     common = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.head_dim,
                   qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
@@ -197,10 +236,11 @@ def _apply_block(params, x, cfg: ModelConfig, *, mode, state=None,
     elif mode == "prefill":
         mix, _ = ab.attn_prefill(params["attn"], h, cfg.attn, state=state,
                                  position=position, valid_len=valid_len,
-                                 proj=proj, **common)
+                                 proj=proj, pages=pages, **common)
     else:
         mix, _ = ab.attn_decode(params["attn"], h, state, cfg.attn,
-                                position=position, proj=proj, **common)
+                                position=position, proj=proj, pages=pages,
+                                **common)
     x = x + mix
     h2 = ll.apply_norm(cfg.norm_kind, params["ln2"], x)
     return x + ll.mlp_apply(params["ffn"], h2, cfg.mlp_kind)
@@ -289,7 +329,8 @@ def _serve_proj(params, cfg: ModelConfig, proj: Optional[dict],
 
 def prefill_chunk(params, cfg: ModelConfig, batch: dict, state: dict,
                   valid_len: Optional[torch.Tensor] = None,
-                  proj: Optional[dict] = None, fused: bool = True):
+                  proj: Optional[dict] = None, fused: bool = True,
+                  pages: Optional[dict] = None):
     """Advance ``state`` in place over one prompt chunk (tokens (B, L)).
 
     ``state["pos"]`` is the chunk's start offset. ``valid_len`` ((B,)
@@ -300,16 +341,19 @@ def prefill_chunk(params, cfg: ModelConfig, batch: dict, state: dict,
     ``proj`` (built here when None); ``fused=False`` drops ``proj`` and
     runs the two stages instead, the plain feature map and the
     ``linear_attention_prefill_chunk`` kernel (the oracle the fused
-    kernel is tested against). Returns (logits (B, V) f32, state).
+    kernel is tested against). A paged exact ``state``
+    (:func:`init_paged_serve_state`) writes into the page pools ``pages``
+    (:func:`init_kv_pages`) in place. Returns (logits (B, V) f32, state).
     """
     if "layers" not in state:
         raise _not_ported("the unit/rem serving layout")
     x = _embed_inputs(params, cfg, batch)
     pos = state["pos"]
     proj = _serve_proj(params, cfg, proj, fused)
-    for lp, ls, lproj in _layer_slices(params, cfg, state, proj):
+    for lp, ls, lproj, lpg in _layer_slices(params, cfg, state, proj, pages):
         x = _apply_block(lp, x, cfg, state=ls, mode="prefill",
-                         position=pos, valid_len=valid_len, proj=lproj)
+                         position=pos, valid_len=valid_len, proj=lproj,
+                         pages=lpg)
     state["pos"] = pos + (x.shape[1] if valid_len is None else valid_len)
     if valid_len is None:
         x_last = x[:, -1]
@@ -331,13 +375,15 @@ def prefill(params, cfg: ModelConfig, batch: dict, max_len: int):
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, state: dict,
-                proj: Optional[dict] = None, fused: bool = True):
+                proj: Optional[dict] = None, fused: bool = True,
+                pages: Optional[dict] = None):
     """One serving step, advancing ``state`` in place. token: (B,) ->
     (logits (B, V) f32, state). With ``cfg.use_kernel`` every layer runs
     the fused ``prf_fused_decode`` kernel against ``proj`` (built here
     when None); ``fused=False`` drops ``proj`` and runs the two stages
     instead, the plain feature map and the
-    ``linear_attention_decode_step`` kernel."""
+    ``linear_attention_decode_step`` kernel. ``pages`` as in
+    :func:`prefill_chunk`."""
     if "layers" not in state:
         raise _not_ported("the unit/rem serving layout")
     pos = state["pos"]
@@ -346,8 +392,8 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, state: dict,
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     x = x.to(cfg.param_dtype)
     proj = _serve_proj(params, cfg, proj, fused)
-    for lp, ls, lproj in _layer_slices(params, cfg, state, proj):
+    for lp, ls, lproj, lpg in _layer_slices(params, cfg, state, proj, pages):
         x = _apply_block(lp, x, cfg, state=ls, mode="decode", position=pos,
-                         proj=lproj)
+                         proj=lproj, pages=lpg)
     state["pos"] = pos + 1
     return _logits(params, cfg, x[:, 0]), state

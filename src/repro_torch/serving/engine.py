@@ -66,12 +66,37 @@ from (seed, uid, token index) alone, so a row's draws do not depend on
 the step count, the batch around it, the chunk boundaries or the
 scheduler. The draws differ from the reference package's threefry draws.
 
-Not ported yet: the prefix cache and paged exact KV, and mesh-sharded
-pools (ROADMAP.md Queue A, items A9, A13).
+``prefix_cache=`` (True, or a ``PrefixCacheConfig``) adds admission-time
+prefix reuse (``repro_torch.serving.prefix_cache``). Chunked prefill
+captures a snapshot of a staging row (a one-row gather) whenever its
+cursor lands on a ``block_tokens`` multiple, and when its prompt is
+done; a later request whose prompt opens with a cached prefix is
+admitted by FORKING the snapshot: one broadcast scatter seeds its
+staging row (``slots.fork_slots``) and its cursor starts at the cached
+length, so only the rest of the prompt is prefilled, through the same
+``prefill_chunk`` calls (B2 under the kernels) from the seeded state.
+For the PRF kinds the fork costs the fixed-size (S, z, c) whatever the
+prefix's length. The exact kind switches both pools to block-granular
+PAGED KV (path ``exact_paged``): rows hold page tables over shared page
+pools (``lm.init_kv_pages``), a fork shares the prefix's full pages
+(refcounted, ``PageAllocator``) and copies only its partial tail page,
+and an admission that finds no free page waits in the queue. The pages
+of a freed row go back to the allocator only at the head of the next
+step, after its table is reset to the garbage page 0 behind whatever
+was already enqueued for it. Every copy, table write, seed and snapshot
+gather is enqueued on the one stream the kernels launch on, and no page
+id is read back on the host: stream order is what makes reusing a page
+on the host safe. Both schedulers share the admission path, so forking
+composes with overlap, cancel and flush; ``stats`` gains the
+``prefix_*`` counters, ``forked_requests`` and ``forked_tokens``.
+
+Not ported yet: mesh-sharded pools and snapshots (ROADMAP.md Queue A,
+item A13).
 """
 from __future__ import annotations
 
 import bisect
+import functools
 import time
 from typing import Optional, Sequence, Union
 
@@ -80,7 +105,11 @@ import torch
 
 from repro_torch.core import feature_maps as fm
 from repro_torch.models import lm
+from repro_torch.serving import prefix_cache as pcache
 from repro_torch.serving import slots as slot_ops
+from repro_torch.serving.prefix_cache import (NoFreePages, PageAllocator,
+                                              PrefixCache,
+                                              PrefixCacheConfig)
 from repro_torch.serving.request import Request, RequestResult
 
 
@@ -199,13 +228,16 @@ class ServingEngine:
     staged admissions share the packed prefill call (None = all).
     ``bucket_prefill`` pads packed chunk lengths to powers of two.
     ``overlap`` selects the pipelined step loop (module docstring); the
-    default, False, is the sequential scheduler.
+    default, False, is the sequential scheduler. ``prefix_cache`` (True
+    for the defaults, or a ``PrefixCacheConfig``) turns on snapshot
+    capture and fork-on-admit, with paged KV for the exact kind.
     """
 
     def __init__(self, params, cfg: lm.ModelConfig, *, max_slots: int = 4,
                  max_len: int = 256, chunk_tokens: Optional[int] = None,
                  seed: int = 0, prefill_rows: Optional[int] = None,
                  bucket_prefill: bool = True, overlap: bool = False,
+                 prefix_cache: Union[bool, PrefixCacheConfig, None] = None,
                  device="cuda"):
         if chunk_tokens is not None and chunk_tokens < 1:
             raise ValueError("chunk_tokens must be >= 1")
@@ -223,11 +255,53 @@ class ServingEngine:
         self.overlap = overlap
         self.seed = seed
         self.device = torch.device(device)
+        if prefix_cache is True:
+            prefix_cache = PrefixCacheConfig()
+        self._pc_cfg: Optional[PrefixCacheConfig] = prefix_cache or None
+        # a snapshot is captured only where a cursor lands exactly on a
+        # block boundary: with a block_tokens that does not divide
+        # chunk_tokens the grants can step over every boundary, and the
+        # fork's parity with a cold start assumes the alignment
+        if (self._pc_cfg is not None and chunk_tokens is not None
+                and chunk_tokens % self._pc_cfg.block_tokens):
+            raise ValueError(
+                f"prefix-cache block_tokens={self._pc_cfg.block_tokens}"
+                f" must divide chunk_tokens={chunk_tokens}: capture "
+                "points fire only when a prefill cursor lands on a "
+                "block boundary")
+        # with a prefix cache the exact kind serves from paged KV: rows
+        # hold page tables over shared page pools, so a cached prefix's
+        # pages can be shared by its forks
+        self._paged = self._pc_cfg is not None and cfg.attn.kind == "exact"
+        if self._paged:
+            ps = self._pc_cfg.page_size
+            self._page_size = ps
+            self._max_pages = -(-max_len // ps)
+            # page 0 is the garbage page; beyond every slot's worst case,
+            # cache_pages keep cached prefixes resident while all slots
+            # are busy
+            cache_pages = self._pc_cfg.cache_pages or 2 * self._max_pages
+            n_pages = 1 + max_slots * self._max_pages + cache_pages
+            self._pages = lm.init_kv_pages(cfg, n_pages, ps, self.device)
+            self._alloc = PageAllocator(n_pages)
+            self._page_bytes_each = (2 * cfg.n_layers * ps * cfg.n_kv
+                                     * cfg.head_dim * 4)
 
-        def pool(b):
-            return lm.init_serve_state(cfg, b=b, max_len=max_len,
-                                       per_slot=True, stacked=True,
-                                       device=self.device)
+            def pool(b):
+                return lm.init_paged_serve_state(cfg, b, max_len, ps,
+                                                 device=self.device)
+        else:
+            self._pages = self._alloc = None
+
+            def pool(b):
+                return lm.init_serve_state(cfg, b=b, max_len=max_len,
+                                           per_slot=True, stacked=True,
+                                           device=self.device)
+        # the physical page ids each slot owns (refcounts in _alloc);
+        # freed slots wait in _pending_clear until _flush_freed resets
+        # their tables and releases their pages
+        self._slot_pages: list[Optional[list[int]]] = [None] * max_slots
+        self._pending_clear: list[int] = []
         self.pool = pool(max_slots)
         # row i holds the partial prefill state of the admission
         # reserved on slot i
@@ -241,11 +315,22 @@ class ServingEngine:
         # what the dispatch runs: softmax over the KV cache (no kernel),
         # or the PRF kernels, which only take CUDA tensors (on the CPU
         # the same wrappers run their plain versions), or plain torch
-        path = ("exact" if cfg.attn.kind == "exact" else
+        path = ("exact_paged" if self._paged else
+                "exact" if cfg.attn.kind == "exact" else
                 "torch" if self._proj is None else
                 "fused_kernel" if self.device.type == "cuda" else
                 "fused_plain")
         self._serve_paths = {"prefill_path": path, "decode_path": path}
+        # prefix -> snapshot store: demotion to pinned host memory and
+        # promotion back never wait; an evicted paged entry hands its
+        # pages back to the allocator
+        self.prefix_cache: Optional[PrefixCache] = None
+        if self._pc_cfg is not None:
+            self.prefix_cache = PrefixCache(
+                self._pc_cfg, to_host=pcache.snapshot_to_host,
+                to_device=functools.partial(pcache.snapshot_to_device,
+                                            device=self.device),
+                release_pages=self._alloc.release if self._paged else None)
 
         self._slots: list[Optional[_Slot]] = [None] * max_slots
         self._active = np.zeros(max_slots, bool)
@@ -276,7 +361,8 @@ class ServingEngine:
                        "prefill_calls": 0, "prefill_padded_tokens": 0,
                        "prefill_rows_max": 0,
                        "max_prefill_tokens_per_step": 0,
-                       "emitted_tokens": 0, "admitted": 0, "finished": 0}
+                       "emitted_tokens": 0, "admitted": 0, "finished": 0,
+                       "forked_requests": 0, "forked_tokens": 0}
 
     # -- clock ------------------------------------------------------------
 
@@ -381,6 +467,29 @@ class ServingEngine:
         self._uids[i] = 0
         if i in self._prefill_order:
             self._prefill_order.remove(i)
+        if self._slot_pages[i] is not None:
+            # the pages go back at the head of the next step, after the
+            # row's table is reset (_flush_freed)
+            self._pending_clear.append(i)
+
+    def _flush_freed(self) -> None:
+        """Reset the pool and staging page tables of the slots freed
+        since the last step to the garbage page, then release their
+        pages. Runs at the head of a step, before admission can hand the
+        pages out again: the resets are enqueued behind every write
+        already enqueued for those rows (one stream), so a reused page
+        is never written by a freed row's in-flight decode or chunk."""
+        if not self._pending_clear:
+            return
+        rows = sorted(set(self._pending_clear))
+        idx = self._idx(rows)
+        slot_ops.fork_slots(self.pool, self._fresh_row, idx)
+        slot_ops.fork_slots(self.staging, self._fresh_row, idx)
+        self._dispatch_seq += 2
+        for i in rows:
+            self._alloc.release(self._slot_pages[i])
+            self._slot_pages[i] = None
+        self._pending_clear.clear()
 
     def _activate(self, i: int) -> None:
         req = self._slots[i].req
@@ -400,28 +509,123 @@ class ServingEngine:
         return sample_tokens(logits, uniforms, self._temps[rows],
                              self._top_ks[rows], self._top_ps[rows])
 
+    def _paged_admit_pages(self, req: Request, ent) -> tuple:
+        """Build an admission's page table: the cached prefix's fully
+        covered pages are SHARED (refcount retained), its partial tail
+        page is queued for a copy on write, and fresh pages cover the
+        rest of prompt and generation budget. Returns (table (max_pages,)
+        int64, owned page ids, [(src, dst)] tail copies). Raises
+        NoFreePages, after trying a cache reclaim and with this call's
+        refcounts unwound, to defer the admission."""
+        ps = self._page_size
+        budget = min(req.max_new_tokens, self.max_len - len(req.prompt))
+        n_total = -(-(len(req.prompt) + budget) // ps)
+        n_shared = 0 if ent is None else len(ent.tokens) // ps
+        shared = [] if ent is None else list(ent.pages[:n_shared])
+        tail_src = (ent.pages[n_shared]
+                    if ent is not None and len(ent.tokens) % ps else None)
+        n_new = n_total - n_shared
+        # pin the match BEFORE any reclaim or alloc: a reclaim that could
+        # evict the entry being forked would drop its pages into the LIFO
+        # free list, where alloc() hands them out again as this request's
+        # writable growth pages. The retains double as the slot's own
+        # refs on the shared pages; the extra ref on the tail source
+        # keeps the copy's source alive even if a later admission of the
+        # same batch evicts the entry (_admissions releases it once the
+        # batched copy is enqueued).
+        pinned = shared + ([] if tail_src is None else [tail_src])
+        self._alloc.retain(pinned)
+        try:
+            if n_new > self._alloc.n_free:
+                self.prefix_cache.reclaim_pages(self._alloc, n_new,
+                                                exclude=ent)
+            fresh = self._alloc.alloc(n_new)      # raises NoFreePages
+        except NoFreePages:
+            self._alloc.release(pinned)
+            raise
+        copies = [] if tail_src is None else [(tail_src, fresh[0])]
+        own = shared + fresh
+        table = np.zeros(self._max_pages, np.int64)
+        table[:len(own)] = own
+        return table, own, copies
+
+    def _seed(self, row: dict, idxs: list, tables: list) -> None:
+        """Seed staging rows ``idxs`` from the one-row state ``row`` in
+        one broadcast scatter (paged rows also get their own tables)."""
+        tabs = (to_device(np.stack(tables), self.device) if self._paged
+                else None)
+        slot_ops.fork_slots(self.staging, row, self._idx(idxs), tabs)
+        self._dispatch_seq += 1
+
     def _admissions(self, now: float) -> None:
         """Reserve a free slot, with a freshly seeded staging row, for
-        every arrived request, FIFO."""
-        admitted: list[int] = []
+        every arrived request, FIFO. With a prefix cache, admission first
+        matches the longest cached prefix and seeds the staging row from
+        its snapshot instead (fork-on-admit): the cursor starts at the
+        cached length, so only the rest of the prompt is prefilled.
+        Admissions of one entry share one broadcast seed; paged
+        admissions build their page tables here (one batched copy for
+        every forked tail page) and stay queued while the page pool is
+        exhausted even after evicting cached prefixes."""
+        pc = self.prefix_cache
+        fresh_adm: list[int] = []
+        fresh_tables: list = []
+        forks: dict[str, list] = {}    # entry key -> [ent, idxs, tables]
+        copies: list[tuple[int, int]] = []
         while self._queue and self._queue[0].arrival_time <= now:
             free = [i for i in range(self.max_slots)
                     if self._slots[i] is None]
             if not free:
                 break
-            req = self._queue.pop(0)
+            req = self._queue[0]
+            ent = pc.match(req.prompt) if pc is not None else None
+            table = own = None
+            if self._paged:
+                try:
+                    table, own, cps = self._paged_admit_pages(req, ent)
+                except NoFreePages:
+                    # backpressure: the request stays queued; undo the
+                    # match's count so that the retry counts once
+                    if ent is not None:
+                        pc.hits -= 1
+                    else:
+                        pc.misses -= 1
+                    break
+                copies.extend(cps)
+            self._queue.pop(0)
             i = free[0]
             result = RequestResult(uid=req.uid,
                                    prompt=list(map(int, req.prompt)),
                                    arrival_time=req.arrival_time)
             budget = min(req.max_new_tokens, self.max_len - len(req.prompt))
             self._slots[i] = _Slot(req, result, budget)
+            self._slot_pages[i] = own
             self._prefill_order.append(i)
-            admitted.append(i)
-        if admitted:
-            slot_ops.fork_slots(self.staging, self._fresh_row,
-                                self._idx(admitted))
+            if ent is not None:
+                self._slots[i].cursor = len(ent.tokens)
+                self._stats["forked_requests"] += 1
+                self._stats["forked_tokens"] += len(ent.tokens)
+                grp = forks.setdefault(ent.key, [ent, [], []])
+                grp[1].append(i)
+                grp[2].append(table)
+            else:
+                fresh_adm.append(i)
+                fresh_tables.append(table)
+        if copies:
+            # one batched copy on write of every forked tail page, over
+            # the k and v pools of every layer
+            src = self._idx([s for s, _ in copies])
+            dst = self._idx([d for _, d in copies])
+            for pages in self._pages.values():
+                pages.index_copy_(1, dst, pages.index_select(1, src))
             self._dispatch_seq += 1
+            # drop the tail-source pins: the copies are enqueued, and
+            # stream order protects their source from any later reuse
+            self._alloc.release([s for s, _ in copies])
+        if fresh_adm:
+            self._seed(self._fresh_row, fresh_adm, fresh_tables)
+        for ent, idxs, tables in forks.values():
+            self._seed(pc.device_state(ent), idxs, tables)
 
     def _plan_prefill(self) -> list[tuple[int, int]]:
         """Token-budget packer: split this step's prompt-token budget
@@ -473,6 +677,36 @@ class ServingEngine:
         self._stats["max_prefill_tokens_per_step"] = max(
             self._stats["max_prefill_tokens_per_step"], spent)
 
+    def _maybe_capture(self, i: int) -> None:
+        """Capture a prefix snapshot of slot i's staging row when its
+        cursor just landed on a ``block_tokens`` multiple or, with
+        ``capture_final``, completed the prompt (the multi-turn reuse
+        point). The snapshot is a one-row gather, a copy, enqueued behind
+        the chunk that advanced the row; a paged row's entry also retains
+        the pages covering the prefix, so they outlive the donor slot."""
+        pc = self.prefix_cache
+        if pc is None:
+            return
+        slot = self._slots[i]
+        cur = slot.cursor
+        final = cur == len(slot.req.prompt)
+        if not ((cur > 0 and cur % pc.cfg.block_tokens == 0)
+                or (final and pc.cfg.capture_final)):
+            return
+        tokens = slot.req.prompt[:cur]
+        if pc.has(tokens):
+            return
+        snap = slot_ops.read_slots(self.staging, self._idx([i]))
+        self._dispatch_seq += 1
+        if self._paged:
+            n_cov = -(-cur // self._page_size)
+            pages = list(self._slot_pages[i][:n_cov])
+            self._alloc.retain(pages)
+            pc.put(tokens, snap, pages=pages,
+                   page_bytes=n_cov * self._page_bytes_each)
+        else:
+            pc.put(tokens, snap)
+
     def _pack_grants(self, grants: list[tuple[int, int]]) -> dict:
         """Pack the granted prompt slices into the idle half of the
         token double buffer."""
@@ -501,12 +735,13 @@ class ServingEngine:
         logits, sub = lm.prefill_chunk(
             self._step_params, self.cfg,
             {"tokens": self._pack.to_device(ch["toks"])}, sub,
-            valid_len=vl, proj=self._proj)
+            valid_len=vl, proj=self._proj, pages=self._pages)
         slot_ops.write_slots(self.staging, sub, idx)
         self._dispatch_seq += 1
         self._record_prefill_stats(len(ts), int(ts.sum()), l_pad)
         for i, _, t in ch["grants"]:
             self._slots[i].cursor += t
+            self._maybe_capture(i)
         return logits
 
     def _decode(self, feed: torch.Tensor) -> tuple:
@@ -521,7 +756,7 @@ class ServingEngine:
         logits = slot_ops.freeze_inactive(
             self.pool, idx,
             lambda st: lm.decode_step(self._step_params, self.cfg, toks, st,
-                                      proj=self._proj))
+                                      proj=self._proj, pages=self._pages))
         self._dispatch_seq += 1
         return rows, idx, self._sample(logits, rows, counts)
 
@@ -595,6 +830,7 @@ class ServingEngine:
         if self.overlap:
             return self._step_overlap()
         finished: list[RequestResult] = []
+        self._flush_freed()
         self._admissions(self._now())
         self._prefill_work()
         # admission may already exhaust a request (budget/eos on token 1)
@@ -741,6 +977,7 @@ class ServingEngine:
         prefill, pack (module docstring)."""
         finished: list[RequestResult] = []
         self._retire(finished)
+        self._flush_freed()
         self._admissions(self._now())
         first = self._merge_pending()
         dec = self._dispatch_decode()
@@ -806,6 +1043,13 @@ class ServingEngine:
         s = dict(self._stats)
         s.update(self._serve_paths)
         s["overlap"] = self.overlap
+        s["paged_kv"] = self._paged
+        if self.prefix_cache is not None:
+            s.update(self.prefix_cache.stats)
+        if self._paged:
+            s["kv_page_size"] = self._page_size
+            s["kv_pages_total"] = self._alloc.n_pages
+            s["kv_pages_free"] = self._alloc.n_free
         steps = max(s["decode_steps"], 1)
         s["mean_occupancy"] = (s["decode_slot_steps"]
                                / (steps * self.max_slots))

@@ -88,3 +88,37 @@ def synthetic_requests(n: int, vocab: int, *, seed: int = 0,
             temperature=temperature, top_k=top_k, top_p=top_p,
             arrival_time=t))
     return reqs
+
+
+def shared_prefix_requests(n: int, vocab: int, *, seed: int = 0,
+                           rate: float = 0.0, prefix_len: int = 96,
+                           n_prefixes: int = 1, reuse: float = 0.8,
+                           suffix_range: tuple[int, int] = (16, 32),
+                           gen_range: tuple[int, int] = (16, 32),
+                           temperature: float = 0.0) -> list[Request]:
+    """Prefix-heavy request stream: a ``reuse`` share of the requests
+    opens with one of ``n_prefixes`` shared ``prefix_len``-token prompts
+    (system-prompt and few-shot traffic, what the prefix cache is for),
+    followed by a private random suffix; the rest are random control
+    prompts of the same total length. ``rate`` spaces arrivals as in
+    :func:`synthetic_requests`. The draws come from ``random.Random(seed)``
+    in the reference package's order, so the same arguments give its
+    prompts."""
+    rng = random.Random(seed)
+    prefixes = [[rng.randrange(vocab) for _ in range(prefix_len)]
+                for _ in range(n_prefixes)]
+    t, reqs = 0.0, []
+    for _ in range(n):
+        if rate > 0:
+            t += rng.expovariate(rate)
+        suffix = [rng.randrange(vocab)
+                  for _ in range(rng.randint(*suffix_range))]
+        if rng.random() < reuse:
+            prompt = rng.choice(prefixes) + suffix
+        else:
+            prompt = [rng.randrange(vocab)
+                      for _ in range(prefix_len)] + suffix
+        reqs.append(Request(prompt=prompt,
+                            max_new_tokens=rng.randint(*gen_range),
+                            temperature=temperature, arrival_time=t))
+    return reqs

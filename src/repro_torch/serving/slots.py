@@ -1,10 +1,14 @@
 """Slot-layout module: row surgery on the engine's serve-state pools.
 
-A pool is ``lm.init_serve_state(cfg, b=max_slots, per_slot=True)``: slot
-i is batch row i of every leaf. ``state["layers"]`` leaves carry a
+A pool is ``lm.init_serve_state(cfg, b=max_slots, per_slot=True)``, or
+``lm.init_paged_serve_state`` for the exact kind over paged KV: slot i
+is batch row i of every leaf. ``state["layers"]`` leaves carry a
 leading layer axis, so their slot axis is 1 (the exact cache's
-``length`` too: (n_layers, slots)); ``state["pos"]`` has it at 0.
-Every engine mutation reduces to the primitives here. The scatters
+``length`` and the paged state's ``table`` and ``length`` too);
+``state["pos"]`` has it at 0. The paged layout's page pools carry no
+slot axis and are not part of the tree, so every primitive here moves
+page IDS, never pages. Every engine mutation reduces to the primitives
+here. The scatters
 write into the pool tensors in place; the gathers return copies. None
 of them waits for the device: row indices arrive as device tensors.
 
@@ -21,8 +25,8 @@ import torch
 
 def tree_slot_map(fn, pool: dict, *others: dict) -> dict:
     """Map ``fn(pool_leaf, *other_leaves, axis=slot_axis)`` over serve
-    states of the stacked layout, of either kind (``AttnServeState``,
-    ``KVCacheState``)."""
+    states of the stacked layout, of any kind (``AttnServeState``,
+    ``KVCacheState``, ``PagedKVState``)."""
     layers = type(pool["layers"])(*(
         fn(p, *o, axis=1)
         for p, *o in zip(pool["layers"], *[t["layers"] for t in others])))
@@ -45,14 +49,26 @@ def write_slots(pool: dict, new: dict, idx: torch.Tensor) -> dict:
     return pool
 
 
-def fork_slots(pool: dict, row: dict, idx: torch.Tensor) -> dict:
-    """Broadcast a ONE-row serve state into slots ``idx`` (the admission
-    seed from the engine's fresh-row template), in place."""
+def fork_slots(pool: dict, row: dict, idx: torch.Tensor,
+               tables: Optional[torch.Tensor] = None) -> dict:
+    """Broadcast a ONE-row serve state into slots ``idx``, in place: the
+    admission seed, from the engine's fresh-row template or a cached
+    prefix snapshot (the prefix cache's fork). ``row`` is read, never
+    written: it is expanded, and each slot gets a copy. For the PRF kinds
+    the row is the fixed-size (S, z, c), so forking a prefix into P
+    requests costs P rows whatever the prefix's length. A paged row gives
+    each slot its own page table, ``tables`` ((P, max_pages) on the
+    pool's device: shared prefix pages, then the slot's own)."""
     def _spread(p, axis):
         shape = list(p.shape)
         shape[axis] = idx.shape[0]
         return p.expand(shape)
-    return write_slots(pool, tree_slot_map(_spread, row), idx)
+    rows = tree_slot_map(_spread, row)
+    if tables is not None:
+        layers = rows["layers"]
+        rows["layers"] = layers._replace(
+            table=tables.expand(layers.table.shape[0], *tables.shape))
+    return write_slots(pool, rows, idx)
 
 
 def merge_slots(dst: dict, src: dict, idx: torch.Tensor) -> dict:

@@ -573,3 +573,201 @@ def test_overlapped_exact_engine_matches_sequential(dev):
     assert streams[0] == streams[1]
     assert [len(t) for t in streams[1]] == [r.max_new_tokens for r in reqs]
     assert (kd.launches, kp.launches, kds.launches) == before
+
+
+
+def _shared_prefix_traffic(vocab, n=6, seed=4):
+    """Requests that all open with one 64-token prefix (private suffixes
+    of 8-40 tokens), and the primer that caches it: its cursor lands on
+    64 at chunk_tokens 32 or 64."""
+    from repro_torch.serving import Request, shared_prefix_requests
+    reqs = shared_prefix_requests(n, vocab, seed=seed, prefix_len=64,
+                                  reuse=1.0, suffix_range=(8, 40),
+                                  gen_range=(6, 12))
+    primer = Request(prompt=list(reqs[0].prompt[:64]) + [1, 2, 3],
+                     max_new_tokens=2)
+    return primer, reqs
+
+
+def _primed_run(eng, primer, reqs, sync_error=False):
+    """Serve the primer, then ``reqs`` (under sync-debug "error" if
+    asked). Returns (their greedy streams in submission order, the
+    engine's stats after the primer, B1's and B2's launches in the
+    run)."""
+    import copy
+    eng.submit(copy.copy(primer))
+    eng.run()
+    before = dict(eng.stats)
+    uids = [eng.submit(copy.copy(r)) for r in reqs]
+    n1, n2 = kd.launches, kp.launches
+    if sync_error:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = {r.uid: r.tokens for r in eng.run()}
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return ([got[u] for u in uids], before,
+            (kd.launches - n1, kp.launches - n2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [False, True])
+def test_forked_prf_streams_match_cold_start(dev, overlap):
+    """The reduced smollm-135m through the kernels with a prefix cache:
+    every request forks the primed 64-token prefix and prefills only its
+    suffix, through B2 from the seeded state (B2 launches once a layer a
+    prefill call, and the prefilled tokens are exactly the suffixes); the
+    greedy streams equal a cache-less engine's at one staged row per
+    prefill call, and the overlapped steps make no synchronising call
+    but retire's event wait."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving import PrefixCacheConfig, ServingEngine
+    cfg = configs.get_config("smollm-135m", reduced=True, use_kernel=True)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    primer, reqs = _shared_prefix_traffic(cfg.vocab)
+    streams = []
+    for cache in (None, PrefixCacheConfig(block_tokens=16, page_size=16)):
+        eng = ServingEngine(params, cfg, max_slots=3, max_len=128,
+                            chunk_tokens=32, prefill_rows=1, overlap=overlap,
+                            prefix_cache=cache, device=dev)
+        got, before, (b1, b2) = _primed_run(eng, primer, reqs,
+                                            sync_error=overlap)
+        streams.append(got)
+        st = eng.stats
+        assert st["decode_path"] == "fused_kernel"
+        assert b2 == (st["prefill_calls"] - before["prefill_calls"]
+                      ) * cfg.n_layers
+        assert b1 == (st["decode_steps"] - before["decode_steps"]
+                      ) * cfg.n_layers
+        if cache is not None:
+            assert st["forked_requests"] - before["forked_requests"] == 6
+            assert (st["prefill_tokens"] - before["prefill_tokens"]
+                    == sum(len(r.prompt) - 64 for r in reqs))
+    assert streams[0] == streams[1]
+    assert [len(t) for t in streams[1]] == [r.max_new_tokens for r in reqs]
+
+
+@pytest.mark.cuda
+def test_snapshot_demotion_and_promotion_round_trip(dev):
+    """A full-width smollm-135m snapshot (S, z, c, pos) demoted into
+    pinned host memory and promoted back, both behind a long kernel so
+    the copies are still pending when they are enqueued: no call waits,
+    and after the stream drains the host copy and the promoted state are
+    bitwise the snapshot. Through the store, a device budget of one
+    snapshot demotes the older entry and a hit promotes it."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving import PrefixCache, PrefixCacheConfig
+    from repro_torch.serving import prefix_cache as pcm
+    from repro_torch.serving import slots as slot_ops
+    cfg = configs.get_config("smollm-135m")
+    pool = lm.init_serve_state(cfg, b=2, max_len=64, per_slot=True,
+                               device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for t in pool["layers"]:
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    pool["pos"].copy_(torch.tensor([17, 300], device=dev))
+    snaps = [slot_ops.read_slots(pool, torch.tensor([i], device=dev))
+             for i in range(2)]
+    want = [[t.cpu() for t in (*s["layers"], s["pos"])] for s in snaps]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.cuda._sleep(50_000_000)
+        host = pcm.snapshot_to_host(snaps[0])
+        back = pcm.snapshot_to_device(host, dev)
+        pc = PrefixCache(PrefixCacheConfig(block_tokens=4,
+                                           device_bytes=pcm._tree_bytes(
+                                               snaps[0])),
+                         to_host=pcm.snapshot_to_host,
+                         to_device=lambda s: pcm.snapshot_to_device(s, dev))
+        pc.put([1] * 4, snaps[0])
+        pc.put([2] * 4, snaps[1])                  # demotes [1] * 4
+        ent = pc.match([1] * 5)
+        promoted = pc.device_state(ent)            # demotes [2] * 4
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert pc.stats["prefix_demotions"] == 2
+    assert pc.stats["prefix_promotions"] == 1
+    host.wait()
+    leaves = [(*host.tree["layers"], host.tree["pos"]),
+              (*back["layers"], back["pos"]),
+              (*promoted["layers"], promoted["pos"])]
+    assert all(t.is_pinned() for t in leaves[0])
+    for got in leaves:
+        for a, b in zip(got, want[0]):
+            assert torch.equal(a.cpu(), b)
+    ent2 = pc.match([2] * 5)
+    assert ent2.on_host
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(
+        (*pc.device_state(ent2)["layers"],), want[1][:3]))
+
+
+@pytest.mark.cuda
+def test_paged_exact_engine_matches_contiguous(dev):
+    """An exact smollm-135m at full width over paged KV (pages of 16,
+    max_len 512, a multiple of them, so the gathered view has the
+    cache's length): every request forks the primed prefix, sharing its
+    pages, and the greedy streams equal the contiguous exact engine's at
+    one staged row per prefill call; the overlapped steps make no
+    synchronising call, and no kernel launches."""
+    from repro_torch.models import lm
+    from repro_torch.serving import PrefixCacheConfig, ServingEngine
+    cfg = _exact_cfg(use_kernel=True)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    primer, reqs = _shared_prefix_traffic(cfg.vocab)
+    before = (kd.launches, kp.launches, kds.launches)
+    streams = []
+    for cache in (None, PrefixCacheConfig()):
+        eng = ServingEngine(params, cfg, max_slots=4, max_len=512,
+                            chunk_tokens=64, prefill_rows=1, overlap=True,
+                            prefix_cache=cache, device=dev)
+        got, pre, _ = _primed_run(eng, primer, reqs, sync_error=True)
+        streams.append(got)
+        st = eng.stats
+        assert st["decode_path"] == ("exact_paged" if cache else "exact")
+        if cache is not None:
+            assert st["forked_requests"] - pre["forked_requests"] == 6
+    assert streams[0] == streams[1]
+    assert [len(t) for t in streams[1]] == [r.max_new_tokens for r in reqs]
+    assert (kd.launches, kp.launches, kds.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["darkformer", "exact"])
+def test_decode_row_does_not_depend_on_the_batch(dev, kind):
+    """The numerical contract a fork's parity rests on: at full width, a
+    decode step over 8 prefilled rows gives each row the logits it gets
+    decoded alone. Bitwise for darkformer (B1 computes each row on its
+    own). For exact, within two bf16 ulps of the row's largest logit
+    (|gap| <= 2^-6 max|logit|): the engine needs equal greedy tokens,
+    which no tolerance guarantees at a tie, so phase 3e of chip_smoke.py
+    holds the streams themselves."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving import slots as slot_ops
+    cfg = configs.get_config("smollm-135m", use_kernel=True)
+    if kind == "exact":
+        cfg = configs.darkify(cfg, "exact")
+    params = lm.init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (8, 64), generator=gen).to(dev)
+    st = lm.init_serve_state(cfg, b=8, max_len=1024, per_slot=True,
+                             device=dev)
+    lm.prefill_chunk(params, cfg, {"tokens": toks}, st)
+    nxt = torch.randint(0, cfg.vocab, (8,), generator=gen).to(dev)
+
+    def step(rows):
+        idx = torch.tensor(rows, device=dev)
+        logits, _ = lm.decode_step(params, cfg, nxt[idx],
+                                   slot_ops.read_slots(st, idx))
+        return logits
+    full = step(list(range(8)))
+    for i in range(8):
+        alone = step([i])[0]
+        if kind == "darkformer":
+            assert torch.equal(alone, full[i]), i
+        else:
+            gap = (alone.float() - full[i].float()).abs().max()
+            assert gap <= 2 ** -6 * full[i].float().abs().max(), (i, gap)
