@@ -104,9 +104,16 @@ Phases, each printed as a JSON line:
      5c. the paper's scenario: smollm-135m with exact attention trained
      for 4 steps by the train launcher (``--kernel exact``; no kernel
      launched), checkpointed, its params transplanted into a darkformer
-     (m 256, fresh w and m_mat; ``launch.steps.transplant``), finetuned
-     qkv-only for 3 steps through B5 (3 x 30 launches), then 4 requests
-     served from the finetuned params through B1/B2;
+     (m 256, fresh w and m_mat; ``launch.steps.transplant``); the exact
+     model's layer-0 q anisotropy (``lm.collect_qk``); the whitening
+     calibration (``lm.whitening_calibrate`` on one 8 x 512 batch: B5
+     once a layer and no other launch, its seconds, max |M Lambda M^T -
+     I| with Lambda in f64 from its taps); card vs CPU calibration at 4
+     layers (Sigma = M^T M and the taps), with a planted fault; the
+     eval loss of the exact, the transplanted and the calibrated models;
+     the calibrated params finetuned qkv-only for 3 steps through B5 (3
+     x 30 launches, m_mat moved), then 4 requests served from the
+     finetuned params through B1/B2;
   6. cross-device training: one loss and all its gradients at full
      width and 4 layers on the card (kernel) and on the CPU (plain
      path), same params and batch; a planted fault (each layer's kernel
@@ -151,6 +158,15 @@ STATE_TOL = 0.1
 # 0.027 (wo); the planted fault: 7.0e-5 and 1.52. Limits at 2.3x, 2.6x.
 TRAIN_LOSS_TOL = 1e-5
 TRAIN_GRAD_TOL = 0.07
+# phase 5c, the whitening calibration: max |M Lambda M^T - I| over every
+# (layer, group), Lambda recomputed in f64 from the taps the pass read;
+# and, card vs CPU at 4 layers, bf16, the largest gap in Sigma = M^T M
+# over max |Sigma| of a (layer, group). Sound readings on an H100: 4.8e-6
+# and 1.4e-3 (bf16 against f32 taps on the CPU: up to 2.8e-3); the
+# planted fault (each layer calibrated from the next layer's taps): 0.17
+# at its least
+WHITEN_TOL = 1e-3
+CAL_SIGMA_TOL = 0.02
 B, L_TRAIN = 8, 512             # phase 5 batch: 8 sequences of 512 tokens
 # the engine's readback counters, reported by the serving phases
 PIPELINE_STATS = ("decode_stall_ms_p50", "decode_stall_ms_p99",
@@ -1580,16 +1596,124 @@ def phase_serve_load(torch, dev, counters, ck, restored, cfg):
              "restored from the checkpoint")
 
 
+def sigma(torch, m_mat):
+    """Sigma = M^T M of every (layer, group) in f64: what two devices that
+    calibrate the same model agree on (eigh fixes M's rows only up to
+    sign and rotation within near-equal eigenvalues)."""
+    m = m_mat.double()
+    return torch.einsum("lgrd,lgre->lgde", m, m)
+
+
+def shrunk_cov64(torch, q, k, scale, shrink=0.05):
+    """A (layer, group)'s shrunk covariance in f64 from its taps."""
+    d = q.shape[-1]
+    x = torch.cat([(q.double() * scale).reshape(-1, d),
+                   (k.double() * scale).reshape(-1, d)])
+    x = x - x.mean(0)
+    cov = x.T @ x / x.shape[0]
+    eye = torch.eye(d, dtype=torch.float64, device=x.device)
+    return (1 - shrink) * cov + shrink * torch.trace(cov) / d * eye
+
+
+def whitening_gaps(torch, m_mat, taps, cfg):
+    """max |M Lambda M^T - I| of each layer over its groups, Lambda in
+    f64 from the taps the calibration read."""
+    scale = cfg.head_dim ** -0.25
+    out = []
+    for li in range(cfg.n_layers):
+        q, k = taps[f"unit{li}/b0"]
+        gap = 0.0
+        for gi in range(cfg.n_kv):
+            m = m_mat[li, gi].double()
+            w = m @ shrunk_cov64(torch, q[:, gi], k[:, gi], scale) @ m.T
+            eye = torch.eye(w.shape[0], dtype=torch.float64,
+                            device=w.device)
+            gap = max(gap, float((w - eye).abs().max()))
+        out.append(gap)
+    return out
+
+
+def calibrate_cross_device(torch, dev, cfg_d):
+    """Phase 5c (4): ``whitening_calibrate`` of smollm-135m at full width
+    and 4 layers (bf16, darkformer m 256, params from seed 0), batch
+    2 x 256, on the card and on the CPU from the same params: each
+    (layer, group)'s Sigma gap over its max |Sigma|, each layer's taps'
+    gap over their max |tap|; then the card's run again with a planted
+    fault (each layer calibrated from the next layer's taps)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(cfg_d, n_layers=4)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    cpu_params = lm.tree_map(lambda t: t.cpu(), params)
+    cfg_cpu = dataclasses.replace(cfg, use_kernel=False)
+    data = SyntheticLM(cfg.vocab, 256, 2, seed=0).batch(0)
+    batch = {k: torch.from_numpy(v).long() for k, v in data.items()}
+    card_batch = {k: t.to(dev) for k, t in batch.items()}
+
+    def m_of(p):
+        return p["units"]["b0"]["attn"]["feat"]["m_mat"]
+    m_card = m_of(lm.whitening_calibrate(params, cfg, card_batch)).cpu()
+    m_cpu = m_of(lm.whitening_calibrate(cpu_params, cfg_cpu, batch))
+    card, cpu = sigma(torch, m_card), sigma(torch, m_cpu)
+    # M itself: rows whose sign eigh chose otherwise, and the largest row
+    # gap once signs agree, over max |M| (reported, not checked)
+    sign = torch.sign((m_card.double() * m_cpu.double()).sum(-1,
+                                                             keepdim=True))
+    m_flipped = int((sign < 0).sum())
+    m_gap = float((m_card.double() * sign - m_cpu.double()).abs().max()
+                  / m_cpu.double().abs().max())
+    taps_card = lm.collect_qk(params, cfg, card_batch)
+    taps_cpu = lm.collect_qk(cpu_params, cfg_cpu, batch)
+    tap_gap = [max(float((a.cpu().float() - b.float()).abs().max()
+                         / b.float().abs().max())
+                   for a, b in zip(taps_card[n], taps_cpu[n]))
+               for n in taps_cpu]
+    del taps_card, taps_cpu
+    sound = lm.collect_qk
+
+    def planted(*a, **kw):
+        t = sound(*a, **kw)
+        return {f"unit{i}/b0": t[f"unit{(i + 1) % len(t)}/b0"]
+                for i in range(len(t))}
+    try:
+        lm.collect_qk = planted
+        fault = sigma(torch, m_of(lm.whitening_calibrate(
+            params, cfg, card_batch))).cpu()
+    finally:
+        lm.collect_qk = sound
+
+    def gaps(got):
+        return [[float((got[li, gi] - cpu[li, gi]).abs().max()
+                       / cpu[li, gi].abs().max())
+                 for gi in range(cfg.n_kv)] for li in range(cfg.n_layers)]
+    return {"n_layers": cfg.n_layers, "batch": 2, "seq": 256,
+            "sigma_rel_err": gaps(card), "tap_rel_err": tap_gap,
+            "m_rows_sign_flipped": [m_flipped, sign.numel()],
+            "m_row_rel_err_signs_aligned": m_gap,
+            "sigma_tolerance": CAL_SIGMA_TOL,
+            "tap_tolerance": CROSS_DEVICE_TOL,
+            "planted_fault": {"what": "each layer calibrated from the next "
+                                      "layer's taps",
+                              "sigma_rel_err": gaps(fault)}}
+
+
 def phase_exact_finetune(torch, dev, counters):
     """Phase 5c: the paper's scenario at full width. Exact smollm-135m
     trained by the launcher for 4 steps (SyntheticLM seed 0, 8 x 512,
     AdamW lr 3e-4; no kernel may launch) and checkpointed; the restored
-    params transplanted into a darkformer (m 256) and finetuned qkv-only
-    for 3 steps through B5 (3 x 30 launches, no other); then 4 requests
-    served from the finetuned params through B1/B2."""
+    params transplanted into a darkformer (m 256); the exact model's
+    layer-0 q anisotropy; ``lm.whitening_calibrate`` on batch 10 000
+    (B5 once a layer, no other launch), its whitening gap, and card vs
+    CPU calibration at 4 layers with a planted fault; the eval loss of
+    the exact, the transplanted (M = I) and the calibrated models; the
+    calibrated params finetuned qkv-only for 3 steps through B5 (3 x 30
+    launches, no other; m_mat moved); then 4 requests served from the
+    finetuned params through B1/B2."""
     import shutil
     from repro_torch import checkpoint as ckpt
     from repro_torch import configs
+    from repro_torch.core import calibration as cal
     from repro_torch.data import SyntheticLM
     from repro_torch.launch import steps, train
     from repro_torch.models import lm
@@ -1623,23 +1747,67 @@ def phase_exact_finetune(torch, dev, counters):
         str(ck), {"params": lm.init_params(cfg_e, seed=1, device=dev)})
     cfg_d = dataclasses.replace(configs.darkify(cfg_e, "darkformer", 256),
                                 use_kernel=True)
-    params = steps.transplant(restored["params"],
-                              lm.init_params(cfg_d, seed=2, device=dev))
+    exact_params = restored["params"]
+    dark = steps.transplant(exact_params,
+                            lm.init_params(cfg_d, seed=2, device=dev))
     del restored
+    data = SyntheticLM(cfg_d.vocab, L_TRAIN, B, seed=0)
+
+    def batch_at(i):
+        return {k: torch.from_numpy(v).to(dev).long()
+                for k, v in data.batch(i).items()}
+    calib = batch_at(10_000)
+    t_cal = time.perf_counter()
+    q0 = lm.collect_qk(exact_params, cfg_e, calib)["unit0/b0"][0]
+    aniso = float(cal.anisotropy_score(q0.reshape(-1, q0.shape[-1])))
+    del q0
+    # the calibration pass, counted; the taps it reads are kept for the
+    # whitening check
+    seen = {}
+    sound = lm.collect_qk
+
+    def keep(*a, **kw):
+        seen.update(sound(*a, **kw))
+        return seen
+    zero()
+    torch.cuda.synchronize()
+    t0_cal = time.perf_counter()
+    try:
+        lm.collect_qk = keep
+        params = lm.whitening_calibrate(dark, cfg_d, calib)
+    finally:
+        lm.collect_qk = sound
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0_cal
+    calib_launches = launches()
+    m_cal = params["units"]["b0"]["attn"]["feat"]["m_mat"].clone()
+    white = whitening_gaps(torch, m_cal, seen, cfg_d)
+    seen.clear()
+    cross = calibrate_cross_device(torch, dev, cfg_d)
+    held_out = batch_at(20_000)
+    eval_loss = {
+        "exact": float(steps.make_eval_step(cfg_e)(exact_params,
+                                                   held_out)["loss"]),
+        "darkformer_identity_m": float(steps.make_eval_step(cfg_d)(
+            dark, held_out)["loss"]),
+        "darkformer_calibrated": float(steps.make_eval_step(cfg_d)(
+            params, held_out)["loss"])}
+    del dark, exact_params, held_out, calib
+    cal_s = time.perf_counter() - t_cal
+
     opt_cfg = AdamWConfig(lr=3e-4)
     opt = adamw_init(params, opt_cfg)
     step_fn = steps.make_train_step(cfg_d, opt_cfg, constant(3e-4),
                                     steps.qkv_only_freeze)
-    data = SyntheticLM(cfg_d.vocab, L_TRAIN, B, seed=0)
     zero()
     ft_losses = []
     for i in range(3):
-        batch = {k: torch.from_numpy(v).to(dev).long()
-                 for k, v in data.batch(4 + i).items()}
-        params, opt, m = step_fn(params, opt, batch, i)
+        params, opt, m = step_fn(params, opt, batch_at(4 + i), i)
         ft_losses.append(float(m["loss"]))
     ft_launches = launches()
-    del opt
+    m_moved = float((params["units"]["b0"]["attn"]["feat"]["m_mat"]
+                     - m_cal).abs().max())
+    del opt, m_cal
 
     reqs = synthetic_requests(4, cfg_d.vocab, seed=5, prompt_range=(64, 256),
                               gen_range=(16, 32))
@@ -1656,7 +1824,17 @@ def phase_exact_finetune(torch, dev, counters):
           "exact_steps": len(exact_losses), "exact_loss": exact_losses,
           "exact_step_ms": exact_ms, "exact_launches": exact_launches,
           "from_step": step, "num_features": cfg_d.attn.num_features,
+          "anisotropy_layer0_q": aniso,
+          "calibration": {"batch": [B, L_TRAIN], "seconds": calib_s,
+                          "launches": calib_launches,
+                          "whitening_gap_by_layer": white,
+                          "whitening_gap": max(white),
+                          "whitening_tolerance": WHITEN_TOL,
+                          "cross_device": cross,
+                          "phase_seconds": cal_s},
+          "eval_loss": eval_loss,
           "finetune_loss": ft_losses, "finetune_launches": ft_launches,
+          "m_mat_moved": m_moved,
           "served_tokens": tokens,
           "max_new_tokens": [r.max_new_tokens for r in reqs],
           "prefill_path": st["prefill_path"],
@@ -1668,6 +1846,25 @@ def phase_exact_finetune(torch, dev, counters):
     if any(exact_launches.values()):
         fail(f"exact training launched kernels: {exact_launches}")
     want = {n: 0 for n in counters}
+    want["linear_attention_causal"] = cfg_d.n_layers
+    if calib_launches != want:
+        fail(f"calibration: launches {calib_launches}, expected {want}")
+    if not (math.isfinite(aniso) and 0.0 <= aniso < 1.0):
+        fail(f"calibration: anisotropy score {aniso}")
+    if not max(white) <= WHITEN_TOL:
+        fail(f"calibration: whitening gap {max(white):.3e} > {WHITEN_TOL}")
+    worst = max(max(r) for r in cross["sigma_rel_err"])
+    fault = min(min(r) for r in cross["planted_fault"]["sigma_rel_err"])
+    if not worst <= CAL_SIGMA_TOL:
+        fail(f"calibration card vs CPU: Sigma gap {worst:.3e}")
+    if not max(cross["tap_rel_err"]) <= CROSS_DEVICE_TOL:
+        fail(f"calibration card vs CPU: taps {cross['tap_rel_err']}")
+    if not fault > CAL_SIGMA_TOL:
+        fail(f"calibration card vs CPU passes a planted fault ({fault:.3e})")
+    if not all(map(math.isfinite, eval_loss.values())):
+        fail(f"exact -> darkformer: eval losses {eval_loss}")
+    if not m_moved > 0.0:
+        fail("exact -> darkformer finetune left m_mat at its calibration")
     want["linear_attention_causal"] = 3 * cfg_d.n_layers
     if ft_launches != want:
         fail(f"exact -> darkformer finetune: launches {ft_launches}, "

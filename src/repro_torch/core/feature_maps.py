@@ -1,5 +1,6 @@
 """Positive random feature (PRF) maps: config, projection draws, the
-feature maps and the decode-time projection precompose.
+whitening init of M, the feature maps and the decode-time projection
+precompose.
 
 The counterpart of ``repro.core.feature_maps`` (``trig_features``, for
 benchmarks only, waits with ROADMAP A14). The isotropic Performer kinds
@@ -85,6 +86,26 @@ def init_feature_params(gen: torch.Generator, cfg: FeatureConfig,
         eye = torch.eye(r, d_head, dtype=dtype)
         params["m_mat"] = eye.expand(n_groups, r, d_head).clone()
     return params
+
+
+def whitening_init(lam: torch.Tensor, r: Optional[int] = None
+                   ) -> torch.Tensor:
+    """M = Lambda^{-1/2} from a calibration covariance (App. C / Prop C.1).
+
+    lam: (..., d, d) SPD covariance of q/k from a calibration batch, any
+    leading axes batched into one ``eigh``. Returns (..., r, d) with the
+    top-r whitening directions (full rank if r is None): rows sorted by
+    descending variance, eigenvalues floored at 1e-8. Each row's sign is
+    what ``eigh`` returns.
+    """
+    evals, evecs = torch.linalg.eigh(lam)
+    evals = torch.clamp(evals, min=1e-8)
+    # eigh returns ascending order; take the largest-variance directions.
+    inv_sqrt = evecs * torch.rsqrt(evals)[..., None, :]
+    m_full = inv_sqrt.transpose(-1, -2).flip(-2)
+    if r is not None:
+        m_full = m_full[..., :r, :]
+    return m_full
 
 
 def _stabilizer(logits: torch.Tensor, stabilize: bool) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""The LM stack: config, init, the training forward and loss, resumable
-prefill and decode.
+"""The LM stack: config, init, the training forward and loss, the
+calibration taps and whitening calibration, resumable prefill and
+decode.
 
 The counterpart of ``repro.models.lm`` for homogeneous attention stacks
 in the layer-stacked layout: params and serve state carry a leading
@@ -23,6 +24,7 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.core import calibration as cal
 from repro_torch.core import feature_maps as fm
 from repro_torch.core import linear_attention as la
 from repro_torch.models import attention_block as ab
@@ -316,6 +318,74 @@ def loss_fn(params, cfg: ModelConfig, batch: dict,
     metrics = {"loss": loss, "ce": ce, "z_loss": zl, "aux": aux,
                "accuracy": acc}
     return loss, {k: t.detach() for k, t in metrics.items()}
+
+
+def collect_qk(params, cfg: ModelConfig, batch: dict, *,
+               draws: Optional[torch.Tensor] = None) -> dict:
+    """Run the stack and capture post-RoPE q/k of every attention block.
+
+    Calibration tap for the whitening init (App. C): returns
+    {"unit<li>/b0": (q, k)} with q: (B, G, Hg, L, dh), k: (B, G, 1, L, dh),
+    in the model's dtype. Every block runs as in :func:`forward_train`,
+    without gradient (with ``cfg.use_kernel`` a PRF layer launches
+    ``linear_attention_causal`` once). The random baseline reads layer
+    li's (L, L) logits from ``draws`` ((n_layers, L, L)), else from
+    :func:`baseline_draws` of a generator seeded 0."""
+    _check_servable(cfg)
+    taps: dict = {}
+    with torch.no_grad():
+        x = _embed_inputs(params, cfg, batch)
+        l = x.shape[1]
+        if cfg.attn.kind == "random" and draws is None:
+            draws = baseline_draws(cfg, l, device=x.device)
+        positions = torch.arange(l, device=x.device)
+        sp = _layers(params, cfg)
+        for li in range(cfg.n_layers):
+            bp = tree_map(lambda t: t[li], sp)
+            h = ll.apply_norm(cfg.norm_kind, bp["ln1"], x)
+            q, k, _ = ab._project(bp["attn"], h, cfg.n_heads, cfg.n_kv,
+                                  cfg.head_dim, cfg.qk_norm, positions,
+                                  cfg.rope_theta)
+            taps[f"unit{li}/b0"] = (q, k)
+            x = _apply_block(bp, x, cfg, mode="train",
+                             draw=None if draws is None else draws[li])
+    return taps
+
+
+def whitening_calibrate(params, cfg: ModelConfig, batch: dict,
+                        shrink: float = 0.05):
+    """Set every darkformer m_mat to Lambda^{-1/2} from a calibration batch
+    (scaled q/k statistics; the d^{-1/4} temperature is absorbed so the
+    covariance matches what the feature map actually sees).
+
+    Returns a new tree with a new ``m_mat`` (n_layers, G, r, d) and every
+    other leaf shared; ``params`` is left as it was, and returned itself
+    for any other kind. The taps are cast to f32 before the scale; each
+    covariance accumulates in f64 and rounds to f32, and the shrinkage
+    and one batched ``eigh`` over every (layer, group) run in f32 on the
+    params' device, whatever the model's dtype (the reference's ``eigh``
+    raises on bf16). Each row's sign is what ``eigh`` returns, so
+    Sigma = M^T M, not M, is what two devices agree on. ``eigh``
+    synchronises: calibrate offline, not inside a serving step."""
+    if cfg.attn.kind != "darkformer":
+        return params
+    taps = collect_qk(params, cfg, batch)
+    scale = cfg.head_dim ** -0.25
+    d = cfg.head_dim
+
+    def lam(t_q, t_k):
+        return cal.shrinkage_covariance(torch.cat(
+            [(t_q.float() * scale).reshape(-1, d),
+             (t_k.float() * scale).reshape(-1, d)]), shrink)
+    lams = torch.stack([
+        torch.stack([lam(q[:, gi], k[:, gi]) for gi in range(q.shape[1])])
+        for q, k in (taps[f"unit{li}/b0"] for li in range(cfg.n_layers))])
+    del taps
+    new = tree_map(lambda t: t, params)
+    fp = _layers(new, cfg)["attn"]["feat"]
+    fp["m_mat"] = fm.whitening_init(lams, fp["m_mat"].shape[-2]).to(
+        fp["m_mat"].dtype)
+    return new
 
 
 def _serve_proj(params, cfg: ModelConfig, proj: Optional[dict],

@@ -771,3 +771,123 @@ def test_decode_row_does_not_depend_on_the_batch(dev, kind):
         else:
             gap = (alone.float() - full[i].float()).abs().max()
             assert gap <= 2 ** -6 * full[i].float().abs().max(), (i, gap)
+
+
+def _calibration_case():
+    """The reduced f32 smollm-135m (seed 0) and a 4 x 32 SyntheticLM batch
+    on the CPU."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import lm
+    cfg = configs.get_config("smollm-135m", reduced=True)
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    data = SyntheticLM(cfg.vocab, 32, 4, seed=0).batch(0)
+    return cfg, params, {k: torch.from_numpy(v).long()
+                         for k, v in data.items()}
+
+
+@pytest.mark.cuda
+def test_whitening_calibration_matches_cpu(dev):
+    """``lm.whitening_calibrate`` on the card (through B5) against the
+    port's CPU run from the same params and batch: each (layer, group)'s
+    Sigma = M^T M within 1e-3 of its max |Sigma| (M's rows are fixed by
+    eigh only up to sign), and on the card M Lambda M^T = I within 1e-3,
+    Lambda in f64 from the card's taps; the input params untouched."""
+    import dataclasses
+    from repro_torch.models import lm
+    cfg, params, batch = _calibration_case()
+    kcfg = dataclasses.replace(cfg, use_kernel=True)
+    card_params = lm.tree_map(lambda t: t.to(dev), params)
+    card_batch = {k: t.to(dev) for k, t in batch.items()}
+    m_cpu = lm.whitening_calibrate(params, cfg, batch)[
+        "units"]["b0"]["attn"]["feat"]["m_mat"].double()
+    m_card = lm.whitening_calibrate(card_params, kcfg, card_batch)[
+        "units"]["b0"]["attn"]["feat"]["m_mat"].double()
+    assert torch.equal(card_params["units"]["b0"]["attn"]["feat"]["m_mat"],
+                       params["units"]["b0"]["attn"]["feat"]["m_mat"].to(dev))
+    s_cpu = torch.einsum("lgrd,lgre->lgde", m_cpu, m_cpu)
+    s_card = torch.einsum("lgrd,lgre->lgde", m_card, m_card).cpu()
+    for li in range(cfg.n_layers):
+        for gi in range(cfg.n_kv):
+            gap = (s_card[li, gi] - s_cpu[li, gi]).abs().max()
+            assert gap <= 1e-3 * s_cpu[li, gi].abs().max(), (li, gi, gap)
+    taps = lm.collect_qk(card_params, kcfg, card_batch)
+    scale = cfg.head_dim ** -0.25
+    d = cfg.head_dim
+    for li in range(cfg.n_layers):
+        q, k = taps[f"unit{li}/b0"]
+        for gi in range(cfg.n_kv):
+            x = torch.cat([(q[:, gi].double() * scale).reshape(-1, d),
+                           (k[:, gi].double() * scale).reshape(-1, d)])
+            x = x - x.mean(0)
+            cov = x.T @ x / x.shape[0]
+            lam = 0.95 * cov + 0.05 * torch.trace(cov) / d * torch.eye(
+                d, dtype=torch.float64, device=dev)
+            m = m_card[li, gi]
+            white = m @ lam @ m.T
+            eye = torch.eye(d, dtype=torch.float64, device=dev)
+            assert float((white - eye).abs().max()) <= 1e-3, (li, gi)
+
+
+@pytest.mark.cuda
+def test_calibration_covariance_ignores_tf32_setting(dev):
+    """With TF32 on for the process, the calibration's covariance (f64
+    accumulation, rounded to f32) is the CPU's within 1e-6 of max
+    |Lambda| (TF32's 10-bit mantissa would part by ~1e-3), and the
+    setting is left as it was."""
+    from repro_torch.core import calibration as cal
+    x = torch.randn(4096, 64, generator=torch.Generator().manual_seed(2))
+    x = x * torch.linspace(0.1, 3.0, 64)
+    ref = cal.shrinkage_covariance(x)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = cal.shrinkage_covariance(x.to(dev)).cpu()
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_collect_qk_launches_the_scan_once_a_layer(dev):
+    """``lm.collect_qk`` under ``use_kernel`` on the card: B5 launched once
+    a layer and no other kernel; every tap within 1e-4 of the CPU's."""
+    import dataclasses
+    from repro_torch.models import lm
+    cfg, params, batch = _calibration_case()
+    kcfg = dataclasses.replace(cfg, use_kernel=True)
+    counters = (kl, "launches"), (kl, "carry_launches"), (kd, "launches"), \
+        (kp, "launches"), (kds, "launches"), (kf, "launches"), \
+        (kw, "launches")
+    for mod, attr in counters:
+        setattr(mod, attr, 0)
+    taps = lm.collect_qk(lm.tree_map(lambda t: t.to(dev), params), kcfg,
+                         {k: t.to(dev) for k, t in batch.items()})
+    counts = [getattr(mod, attr) for mod, attr in counters]
+    assert counts == [cfg.n_layers, 0, 0, 0, 0, 0, 0], counts
+    ref = lm.collect_qk(params, cfg, batch)
+    assert list(taps) == list(ref)
+    for name in ref:
+        for a, b in zip(taps[name], ref[name]):
+            torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_expected_variance_draws_the_same_pairs_on_both_devices(dev):
+    """One seed, the same (q, k) pairs on the card and on the CPU: the
+    expected variances within 1e-4 relative (the pairs drawn on the CPU
+    and moved; f32 sums in another order)."""
+    from repro_torch.core import variance as vr
+    gen = torch.Generator().manual_seed(4)
+    a = torch.randn(8, 8, generator=gen)
+    q, _ = torch.linalg.qr(a)
+    lam = (q * torch.linspace(0.05, 0.4, 8)) @ q.T
+    star = vr.optimal_sigma_star(lam)
+    for sigma in (None, star):
+        cpu = vr.expected_variance(torch.Generator().manual_seed(9), lam,
+                                   sigma)
+        card = vr.expected_variance(
+            torch.Generator().manual_seed(9), lam.to(dev),
+            None if sigma is None else sigma.to(dev))
+        assert card.device.type == "cuda"
+        assert abs(float(card) - float(cpu)) <= 1e-4 * abs(float(cpu))
