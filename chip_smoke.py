@@ -9,7 +9,9 @@ Phases, each printed as a JSON line:
      nvcc (one process per source, in parallel);
   2. kernels vs plain: each CUDA kernel held against its plain PyTorch
      version on the card, at the smollm-135m and darkformer-2b head
-     geometries and at the main paths' shapes (the training kernels and
+     geometries and at the main paths' shapes (prf_fused_decode and
+     prf_fused_prefill also at phase 7's five head layouts, bf16, 8
+     slots and the packer's four ragged grants; the training kernels and
      wkv6 with gradients), then timed (CUDA events, and device time
      from the profiler) at the main paths' shapes beside its plain
      version and its bound: the fused serving kernels at the smollm-135m
@@ -117,19 +119,43 @@ Phases, each printed as a JSON line:
   6. cross-device training: one loss and all its gradients at full
      width and 4 layers on the card (kernel) and on the CPU (plain
      path), same params and batch; a planted fault (each layer's kernel
-     call fed the next layer's key features) must fail the same check.
+     call fed the next layer's key features) must fail the same check;
+  7. the homogeneous attention configs at full width, random weights
+     from seed 0 drawn on the card, one model at a time: (a) granite-8b
+     at its 36 layers (d_head 128, 32 H / 8 KV, untied head) and (b)
+     granite-moe-3b-a800m at its 32 (40 experts, top-8), each serving 8
+     requests (prompts of 64-256 tokens, 16-32 new ones) through the
+     overlapped scheduler under
+     ``set_sync_debug_mode("error")``: full token counts, fused_kernel
+     paths, B1/B2 launches equal to decode steps and prefill calls x
+     layers; TTFT, TPOT, throughput, the params' init seconds and peak
+     device memory; for (b) then phase 3c's 8 requests through both
+     schedulers at ``prefill_rows=1``, whose greedy streams must be
+     equal; (c) qwen3-32b at 4 of its 64 layers, yi-34b at 4 of 60 and
+     qwen3-moe-235b-a22b at 2 of 94, full width, 4 requests each, with
+     the same checks; (d) for each of the five, phase 4's card-against-CPU
+     check on its served params' first 2 layers, with its planted fault;
+     for the MoE configs the CPU's run takes the card's experts (bf16
+     router inputs that differ in their last bits move near-tied experts
+     and, through the capacity positions, the drops after them), the
+     card's capacity positions and kept flags must equal the CPU's
+     cumulative sum over them, and every token the CPU's own top-k
+     routes elsewhere must lie within the router's card-CPU perturbation
+     at the swapped experts (``RouteTap``).
 Then the kernels line (all seven kernels: launches on their path, max
 error, time and device time, prf_fused_decode's and prf_decode_step's
 cold beside their warm ones, plain time,
 bound: bytes at 3.35 TB/s or operations at 67 TFLOP/s of f32, for
 linear_attention_causal, linear_attention_carry and prf_featmap, which
-run on the tensor cores, at 495 TFLOP/s of TF32) and, last, the
+run on the tensor cores, at 495 TFLOP/s of TF32; B1's and B2's launches
+in phase 3e's and each phase 7 model's serving run beside) and, last, the
 ``{"ok": true, ...}`` line. Exits non-zero, without that line, when there is no CUDA device
 or any phase fails. Imports neither JAX nor the reference package.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -353,6 +379,33 @@ def phase_kernels(torch, dev, kd, kp):
                           eps=1e-8)
         err["prf_fused_prefill"] = max(err["prf_fused_prefill"], e)
         cases.append({"case": name, "max_abs_err": e})
+    # phase 7's head layouts (G, Hg, d_head, m), read from its configs, at
+    # its input type: B1 at 8 slots, B2 at each of the packer's grants
+    from repro_torch import configs
+    for arch, _, _ in HOMOGENEOUS:
+        c = configs.get_config(arch)
+        g, hg, d, m = (c.n_kv, c.n_heads // c.n_kv, c.head_dim,
+                       c.attn.num_features)
+        geo = f"{arch} G={g} Hg={hg} d={d} m={m}"
+        args = kc.make_inputs(dev, 8, g, hg, d, m, d, None, True,
+                              seed=200 + len(cases), dtype=torch.bfloat16)
+        e = kc.check_case(f"decode {geo} bf16 B=8", lambda: kd.launches,
+                          kd.fused_prf_decode, kd.prf_fused_decode_plain,
+                          args, state, eps=1e-8)
+        err["prf_fused_decode"] = max(err["prf_fused_decode"], e)
+        cases.append({"case": f"decode {geo} bf16 B=8", "max_abs_err": e})
+        for b, l, vl in kc.PACKER_GRANTS:
+            name = f"prefill {geo} bf16 B={b} L={l} valid_len={list(vl)}"
+            args = kc.make_inputs(dev, b, g, hg, d, m, d, l, True,
+                                  seed=200 + len(cases),
+                                  dtype=torch.bfloat16)
+            vlt = torch.tensor(vl, dtype=torch.int32, device=dev)
+            e = kc.check_case(name, lambda: kp.launches,
+                              kp.fused_prf_prefill,
+                              kp.prf_fused_prefill_plain, args, state, vlt,
+                              eps=1e-8)
+            err["prf_fused_prefill"] = max(err["prf_fused_prefill"], e)
+            cases.append({"case": name, "max_abs_err": e})
     emit({"phase": "kernels_vs_plain", "tolerance_f32": kc.F32_TOL,
           "tolerance_bf16_out": kc.BF16_OUT_TOL, "cases": cases})
     return err
@@ -504,14 +557,16 @@ def prefill_grant_timing(torch, dev, kp):
 
 
 def serve(torch, dev, cfg, params, counters, shapes=None,
-          shaped="fused_prf_prefill", overlap=False):
+          shaped="fused_prf_prefill", overlap=False, requests=16,
+          prompt_range=(64, 512), gen_range=(32, 64)):
     """The 16 requests of the serving phases (prompts of 64-512 tokens,
-    32-64 new ones, 8 slots, chunk_tokens 256) through the port's
-    ``ServingEngine``, after a short warm-up engine (cuBLAS, allocator,
-    libraries). Every count of ``counters`` is set to 0 just before the
-    run and read just after; ``shapes``, a Counter, gets one count per
-    call of the prefill kernel ``shaped`` (B2's wrapper, or B4's) in the
-    run under its "<rows>x<tokens>". ``overlap`` selects the overlapped
+    32-64 new ones, 8 slots, chunk_tokens 256; phase 7 asks for other
+    counts and lengths) through the port's ``ServingEngine``, after a
+    short warm-up engine (cuBLAS, allocator, libraries). Every count of
+    ``counters`` is set to 0 just before the run and read just after;
+    ``shapes``, a Counter, gets one count per call of the prefill kernel
+    ``shaped`` (B2's wrapper, or B4's) in the run under its
+    "<rows>x<tokens>". ``overlap`` selects the overlapped
     scheduler and runs it under ``set_sync_debug_mode("error")``: a
     synchronising call anywhere in its steps raises (retire's wait is an
     event's, which the mode does not count). Returns (the phase's JSON
@@ -534,8 +589,9 @@ def serve(torch, dev, cfg, params, counters, shapes=None,
     del warm
 
     eng = engine()
-    reqs = synthetic_requests(16, cfg.vocab, seed=0,
-                              prompt_range=(64, 512), gen_range=(32, 64))
+    reqs = synthetic_requests(requests, cfg.vocab, seed=0,
+                              prompt_range=prompt_range,
+                              gen_range=gen_range)
     for r in reqs:
         eng.submit(r)
     torch.cuda.synchronize()
@@ -948,13 +1004,15 @@ def gaps(torch, got, ref):
     return logit, state
 
 
-def phase_cross_device(torch, dev, cfg, params):
-    """Phase 4: the card's kernel path vs the CPU's plain path, same
-    params, same tokens: one ragged prefill chunk, two decode steps; the
-    logits of every step and every layer's final state are compared.
+def cross_device(torch, dev, cfg, params, what="cross-device", tap=None):
+    """Phase 4's recipe: the card's kernel path vs the CPU's plain path,
+    same params, same tokens: one ragged prefill chunk, two decode steps;
+    the logits of every step and every layer's final state are compared.
     A planted fault (each layer run with the next layer's projection)
-    must fail the same check. Returns (tokens, valid lengths, the card's
-    run, the CPU's run) for phase 4b."""
+    must fail the same check; ``what`` names the check in a failure.
+    ``tap`` (a :class:`RouteTap`) wraps the card's and the CPU's runs.
+    Returns (the JSON fields, a function that runs the checks, tokens,
+    valid lengths, the card's run, the CPU's run)."""
     from repro_torch.models import lm
 
     cpu_cfg = dataclasses.replace(cfg, use_kernel=False)
@@ -962,9 +1020,16 @@ def phase_cross_device(torch, dev, cfg, params):
     rng = np.random.default_rng(3)
     toks = rng.integers(0, cfg.vocab, (2, 64))
     vl = np.array([64, 40], np.int32)
-    card = drive(torch, lm, cfg, params, dev, toks, vl)
-    cpu = drive(torch, lm, cpu_cfg, cpu_params, "cpu", toks, vl,
-                feed=card[1])
+    with tap.card(vl) if tap else contextlib.nullcontext():
+        card = drive(torch, lm, cfg, params, dev, toks, vl)
+    with tap.cpu() if tap else contextlib.nullcontext():
+        cpu = drive(torch, lm, cpu_cfg, cpu_params, "cpu", toks, vl,
+                    feed=card[1])
+    free = None
+    if tap:         # the CPU's own routing, for the record
+        free = gaps(torch, card, drive(torch, lm, cpu_cfg, cpu_params,
+                                       "cpu", toks, vl, feed=card[1]))
+    del cpu_params
     shifted = lm.tree_map(lambda t: torch.roll(t, 1, dims=0),
                           lm.build_decode_proj(params, cfg))
     planted = drive(torch, lm, cfg, params, dev, toks, vl, feed=card[1],
@@ -973,20 +1038,132 @@ def phase_cross_device(torch, dev, cfg, params):
     fault_logit, fault_state = gaps(torch, planted, cpu)
     agree = [float((g.argmax(-1) == c.argmax(-1)).float().mean())
              for g, c in zip(card[0], cpu[0])]
-    emit({"phase": "cross_device", "rel_max_err": logit_err,
-          "state_rel_err": state_err, "tolerance": CROSS_DEVICE_TOL,
-          "state_tolerance": STATE_TOL, "argmax_agreement": agree,
-          "planted_fault": {"what": "each layer run with the next layer's "
-                                    "projection A, M",
-                            "rel_max_err": fault_logit,
-                            "state_rel_err": fault_state}})
-    if max(logit_err) > CROSS_DEVICE_TOL:
-        fail(f"cross-device logits differ by {max(logit_err):.3e} of "
-             "max |logit|")
-    if state_err > STATE_TOL:
-        fail(f"cross-device state differs by {state_err:.3e} of its max")
-    if max(fault_logit) <= CROSS_DEVICE_TOL and fault_state <= STATE_TOL:
-        fail("cross-device check passes a planted fault")
+    fields = {"rel_max_err": logit_err,
+              "state_rel_err": state_err, "tolerance": CROSS_DEVICE_TOL,
+              "state_tolerance": STATE_TOL, "argmax_agreement": agree,
+              "planted_fault": {"what": "each layer run with the next "
+                                        "layer's projection A, M",
+                                "rel_max_err": fault_logit,
+                                "state_rel_err": fault_state}}
+    if tap:
+        fields["routing"] = {**tap.fields(), "cpu_own_routing": {
+            "rel_max_err": free[0], "state_rel_err": free[1]}}
+
+    def check():
+        if max(logit_err) > CROSS_DEVICE_TOL:
+            fail(f"{what} logits differ by {max(logit_err):.3e} of "
+                 "max |logit|")
+        if state_err > STATE_TOL:
+            fail(f"{what} state differs by {state_err:.3e} of its max")
+        if max(fault_logit) <= CROSS_DEVICE_TOL and \
+                fault_state <= STATE_TOL:
+            fail(f"{what} check passes a planted fault")
+        if tap and fields["routing"]["moved_beyond_perturbation"]:
+            fail(f"{what}: the CPU routes tokens elsewhere than the card "
+                 f"beyond the router's perturbation ({fields['routing']})")
+    return fields, check, toks, vl, card, cpu
+
+
+class RouteTap:
+    """MoE routing across phase 7 (d)'s card and CPU runs. Router logits
+    computed from bf16 activations that differ in their last bits (the
+    kernels' sums against the plain path's) move a token's k-th and
+    (k+1)-th experts past each other wherever their probabilities lie
+    closer than that perturbation, and a moved pair shifts the capacity
+    positions, so the drops, of the pairs after it: a discontinuity, not
+    a fault. So ``card(valid_len)`` records the routing of every
+    ``moe_route`` call of the card's run, and ``cpu()`` gives each call
+    of the CPU's run the card's experts, with the capacity positions and
+    kept flags computed on the CPU from them (which must equal the
+    card's: its cumulative sum is checked at full width) and the gates
+    from the CPU's own probabilities at those experts. Where the CPU's
+    own top-k set differs it records the token's k-th minus (k+1)-th
+    probability on the CPU (its margin) and the largest card-CPU gap of
+    the probabilities at the experts in one set but not the other. An
+    expert i the CPU keeps and j the card keeps instead bound the margin
+    by p_i - p_j on the CPU, which the card reverses, so by twice that
+    gap: ``fields()`` summarises them over the valid tokens, and a token
+    whose margin exceeds twice its gap has moved beyond the
+    perturbation, and fails the phase."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.routes, self.valid, self.rows, self.pairs = [], None, [], 0
+
+    @contextlib.contextmanager
+    def card(self, valid_len):
+        from unittest import mock
+        from repro_torch.models import layers as ll
+        route = ll.moe_route
+        self.valid = valid_len
+
+        def tap(x, router, cfg):
+            out = route(x, router, cfg)
+            self.routes.append(out)
+            return out
+        with mock.patch.object(ll, "moe_route", tap):
+            yield
+
+    @contextlib.contextmanager
+    def cpu(self):
+        from unittest import mock
+        from repro_torch.models import layers as ll
+        torch = self.torch
+        route = ll.moe_route
+        calls = iter(self.routes)
+
+        def forced(x, router, cfg):
+            probs, _, idx, _, _, cap = route(x, router, cfg)
+            c_probs, _, c_idx, c_pos, c_in, c_cap = next(calls)
+            c_probs, c_idx = c_probs.cpu(), c_idx.cpu()
+            if c_cap != cap:
+                fail(f"MoE routing: capacity {c_cap} on the card, {cap} on "
+                     "the CPU")
+            pos, in_cap = ll.moe_positions(c_idx, cfg.num_experts, cap)
+            if not (torch.equal(pos, c_pos.cpu())
+                    and torch.equal(in_cap, c_in.cpu())):
+                fail("MoE routing: the card's capacity positions or kept "
+                     "flags differ from the CPU's cumulative sum over the "
+                     "card's experts")
+            l = x.shape[1]
+            valid = (torch.arange(l)[None] < torch.tensor(self.valid)[:, None]
+                     if l > 1 else torch.ones(x.shape[:2], dtype=torch.bool))
+            chosen = torch.zeros_like(probs, dtype=torch.bool)
+            swapped = (chosen.scatter(-1, idx, True)
+                       ^ chosen.scatter(-1, c_idx, True))
+            moved = swapped.any(-1) & valid
+            top = probs.topk(cfg.top_k + 1, dim=-1).values
+            self.pairs += pos.numel()
+            self.rows.append({
+                "tokens": int(valid.sum()), "moved": int(moved.sum()),
+                "margin": (top[..., -2] - top[..., -1])[moved],
+                "gap": ((c_probs - probs).abs() * swapped).amax(-1)[moved]})
+            gates = probs.gather(-1, c_idx)
+            gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
+            return probs, gates, c_idx, pos, in_cap, cap
+        with mock.patch.object(ll, "moe_route", forced):
+            yield
+
+    def fields(self) -> dict:
+        margins = [float(m) for r in self.rows for m in r["margin"]]
+        gaps_ = [float(g) for r in self.rows for g in r["gap"]]
+        return {"calls": len(self.rows),
+                "tokens_routed": sum(r["tokens"] for r in self.rows),
+                "tokens_moved": sum(r["moved"] for r in self.rows),
+                "positions_checked": self.pairs,
+                "largest_margin_moved": max(margins, default=0.0),
+                "largest_prob_gap_moved": max(gaps_, default=0.0),
+                "moved_beyond_perturbation": sum(
+                    m > 2 * g for m, g in zip(margins, gaps_))}
+
+
+def phase_cross_device(torch, dev, cfg, params):
+    """Phase 4: :func:`cross_device` at phase 3's model. Returns (tokens,
+    valid lengths, the card's run, the CPU's run) for phase 4b."""
+    fields, check, toks, vl, card, cpu = cross_device(torch, dev, cfg,
+                                                      params)
+    emit({"phase": "cross_device", **fields})
+    check()
     return toks, vl, card, cpu
 
 
@@ -1975,6 +2152,94 @@ def phase_train_cross_device(torch, dev, kl, seed: int = 0):
         fail("cross-device training check passes a planted fault")
 
 
+# phase 7: the homogeneous attention configs at full width: (arch, the
+# depth served, None for the config's own, the requests sent). The
+# dense qwen3-32b and yi-34b (65 and 69 GB of bf16 params) leave no room
+# for a pool on the 80 GB card, and qwen3-moe-235b-a22b (2.5 B params a
+# layer) does not fit at all, so their depth is cut, never their width
+HOMOGENEOUS = (("granite-8b", None, 8), ("granite-moe-3b-a800m", None, 8),
+               ("qwen3-32b", 4, 4), ("yi-34b", 4, 4),
+               ("qwen3-moe-235b-a22b", 2, 4))
+# (d): the first layers of the served params, held card against CPU
+CROSS_LAYERS = 2
+
+
+def phase_homogeneous(torch, dev, counters):
+    """Phase 7: the five homogeneous attention configs at full width,
+    random weights from seed 0 drawn on the card (the host draws about
+    1e8 a second: minutes at these sizes), one model at a time (its
+    params freed before the next). Each is served through the overlapped
+    scheduler under ``set_sync_debug_mode("error")`` (8 slots, max_len 1024,
+    chunk_tokens 256; prompts of 64-256 tokens, 16-32 new ones): full
+    token counts, fused_kernel paths, B1 = decode steps x layers and B2 =
+    prefill calls x layers and no other launch. The MoE config served at
+    full depth then sends 8 requests through both schedulers at
+    ``prefill_rows=1``, whose greedy streams must be equal. Last,
+    phase 4's card-against-CPU check on the served params' first
+    ``CROSS_LAYERS`` layers, with its planted fault, the MoE configs'
+    CPU run on the card's routing (:class:`RouteTap`). Returns {arch:
+    B1's and B2's launches in its serving run}."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    out = {}
+    for arch, depth, n_req in HOMOGENEOUS:
+        t0 = time.perf_counter()
+        cfg = configs.get_config(arch, use_kernel=True)
+        full_depth = cfg.n_layers
+        if depth:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = lm.init_params(cfg, seed=0, device=dev, draw_on=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        param_gb = torch.cuda.memory_allocated() / 1e9
+        fields, launches, _, st = serve(
+            torch, dev, cfg, params, counters, overlap=True,
+            requests=n_req, prompt_range=(64, 256), gen_range=(16, 32))
+        equal, eq_fields = True, None
+        if cfg.moe and depth is None:
+            equal, eq_fields = overlap_equality(torch, dev, cfg, params)
+        sub_cfg = dataclasses.replace(cfg, n_layers=CROSS_LAYERS)
+        sub = {**params, "units": {"b0": lm.tree_map(
+            lambda t: t[:CROSS_LAYERS], params["units"]["b0"])}}
+        t_cross = time.perf_counter()
+        cross, check, *_ = cross_device(
+            torch, dev, sub_cfg, sub, f"{arch} cross-device",
+            tap=RouteTap(torch) if cfg.moe else None)
+        emit({"phase": "homogeneous", "arch": arch, **fields,
+              "full_depth": full_depth, "depth_cut": depth is not None,
+              "qk_norm": cfg.qk_norm, "rope_theta": cfg.rope_theta,
+              "tie_embeddings": cfg.tie_embeddings,
+              "moe": None if cfg.moe is None else dataclasses.asdict(
+                  cfg.moe),
+              "param_init_s": init_s, "param_gb": param_gb,
+              "rows_1_equality": eq_fields,
+              "cross_device": {"n_layers": CROSS_LAYERS, **cross,
+                               "seconds": time.perf_counter() - t_cross},
+              "seconds": time.perf_counter() - t0})
+        if st["prefill_path"] != "fused_kernel" or \
+                st["decode_path"] != "fused_kernel":
+            fail(f"{arch}: served {st['prefill_path']}/"
+                 f"{st['decode_path']}")
+        want = fused_launches(counters, st, cfg)
+        if launches != want:
+            fail(f"{arch}: launches {launches}, expected {want} (prefill "
+                 f"calls and decode steps x {cfg.n_layers} layers)")
+        if not equal:
+            fail(f"{arch}: greedy streams differ between the schedulers "
+                 f"with one staged row per prefill call ({eq_fields})")
+        check()
+        out[arch] = {n: launches[n] for n in ("prf_fused_decode",
+                                              "prf_fused_prefill")}
+        del params, sub
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 # every kernel of the port: (its module, its launch counter, its CUDA
 # source, the Pallas TPU kernel it replaces)
 KERNELS = {
@@ -2068,6 +2333,7 @@ def main() -> int:
                                "wkv6")})
     phase_exact_finetune(torch, dev, counters)
     phase_train_cross_device(torch, dev, kl)
+    homogeneous = phase_homogeneous(torch, dev, counters)
 
     emit({"kernels": [
         {"name": n, "route": "cuda",
@@ -2079,6 +2345,8 @@ def main() -> int:
             if k in timing[n]},
          "plain_ms": timing[n]["plain_ms"],
          "launches_prefix_cache": prefix_launches[n],
+         "launches_homogeneous": {a: h.get(n, 0)
+                                  for a, h in homogeneous.items()},
          "bound_ms": timing[n]["bound_ms"],
          "bound_by": timing[n]["bound_by"], "library_ms": None}
         for n, (_, _, src, replaces) in KERNELS.items()],

@@ -50,7 +50,7 @@ def params_from_jax(tree_of_numpy: dict, cfg: lm.ModelConfig,
     if "rem" in tree_of_numpy:
         raise NotImplementedError(
             "remainder (unscanned) layers are not ported yet "
-            "(ROADMAP.md Queue A, item A4)")
+            "(ROADMAP.md Queue A, item A12b)")
     lm._check_servable(cfg)
     return tree_from_jax(tree_of_numpy, device)
 

@@ -41,7 +41,8 @@ class FeatureConfig:
 def gaussian_projection(gen: torch.Generator, m: int, r: int,
                         dtype=torch.float32) -> torch.Tensor:
     """Plain iid N(0,1) projection rows, shape (m, r)."""
-    return torch.randn((m, r), generator=gen, dtype=torch.float32).to(dtype)
+    return torch.randn((m, r), generator=gen, dtype=torch.float32,
+                       device=gen.device).to(dtype)
 
 
 def orthogonal_projection(gen: torch.Generator, m: int, r: int,
@@ -55,13 +56,14 @@ def orthogonal_projection(gen: torch.Generator, m: int, r: int,
     nblocks = -(-m // r)
     blocks = []
     for _ in range(nblocks):
-        g = torch.randn((r, r), generator=gen, dtype=torch.float32)
+        g = torch.randn((r, r), generator=gen, dtype=torch.float32,
+                        device=gen.device)
         q, _ = torch.linalg.qr(g)
         blocks.append(q)
     w = torch.cat(blocks, dim=0)[:m]
     norms = torch.linalg.norm(
-        torch.randn((m, r), generator=gen, dtype=torch.float32), dim=-1,
-        keepdim=True)
+        torch.randn((m, r), generator=gen, dtype=torch.float32,
+                    device=gen.device), dim=-1, keepdim=True)
     return (w * norms).to(dtype)
 
 
@@ -83,7 +85,7 @@ def init_feature_params(gen: torch.Generator, cfg: FeatureConfig,
                      for _ in range(n_groups)])
     params = {"w": w}
     if cfg.kind == "darkformer":
-        eye = torch.eye(r, d_head, dtype=dtype)
+        eye = torch.eye(r, d_head, dtype=dtype, device=w.device)
         params["m_mat"] = eye.expand(n_groups, r, d_head).clone()
     return params
 

@@ -19,6 +19,11 @@ F32_TOL = dict(atol=1e-4, rtol=1e-3)
 # keeps 8 significant bits, so an ulp is at most 2^-7 of the value), plus
 # 1e-4 for the f32 rounding differences of results near zero
 BF16_OUT_TOL = dict(atol=1e-4, rtol=2 ** -6)
+# the packer's four grants at chunk_tokens 256 (rows, tokens a row), with
+# ragged valid lengths: a full row, one token, an empty row
+PACKER_GRANTS = ((8, 32, (32, 1, 20, 32, 7, 32, 0, 32)),
+                 (4, 64, (64, 1, 0, 40)), (2, 128, (128, 77)),
+                 (1, 256, (256,)))
 
 
 def make_inputs(dev, b, g, hg, d, m, dv, l, dark, seed,

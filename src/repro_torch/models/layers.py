@@ -1,10 +1,13 @@
-"""Model substrate: init, norms, RoPE and the dense MLPs.
+"""Model substrate: init, norms, RoPE, the dense MLPs and MoE.
 
-The counterpart of ``repro.models.layers`` (MoE is not ported yet,
-ROADMAP A12). Params are plain dicts of tensors with the reference's key
-names, so a reference param tree maps leaf for leaf (``bridge``).
+The counterpart of ``repro.models.layers``. Params are plain dicts of
+tensors with the reference's key names, so a reference param tree maps
+leaf for leaf (``bridge``). MoE's ``dispatch_spec`` (sharding
+constraints on the dispatch buffers) waits with ROADMAP A13.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -12,10 +15,11 @@ import torch.nn.functional as F
 
 def trunc_normal(gen: torch.Generator, shape, scale: float,
                  dtype=torch.float32) -> torch.Tensor:
-    """N(0, scale / fan_in) truncated at two standard deviations."""
+    """N(0, scale / fan_in) truncated at two standard deviations, drawn
+    on ``gen``'s device."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = (scale / fan_in) ** 0.5
-    t = torch.empty(shape, dtype=torch.float32)
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, a=-2.0, b=2.0, generator=gen)
     return (std * t).to(dtype)
 
@@ -87,3 +91,89 @@ def mlp_apply(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     else:
         h = F.gelu(x @ params["w_up"], approximate="tanh")
     return h @ params["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (top-k, capacity-based dispatch, GShard style)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff: int                    # per-expert hidden
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+
+
+def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig,
+             dtype=torch.float32) -> dict:
+    # draw order follows the reference's key split: router, gate, up, out
+    e, f = cfg.num_experts, cfg.d_ff
+    return {"router": trunc_normal(gen, (d_model, e), 1.0, torch.float32),
+            "w_gate": trunc_normal(gen, (e, d_model, f), 1.0, dtype),
+            "w_up": trunc_normal(gen, (e, d_model, f), 1.0, dtype),
+            "w_out": trunc_normal(gen, (e, f, d_model), 1.0, dtype)}
+
+
+def moe_route(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig):
+    """The routing of :func:`moe_apply`: x (B, L, d) -> (probs (B, L, E)
+    f32, gates (B, L, K) f32 renormalised, idx (B, L, K) expert ids in
+    descending probability, pos (B, L, K) each pair's slot in its
+    expert's capacity buffer, in_cap (B, L, K) bool, cap). One capacity
+    group per batch row: the row's (token, k) pairs take their expert's
+    slots in (l, k) order, and a pair at ``pos >= cap`` is dropped."""
+    l = x.shape[1]
+    e, k = cfg.num_experts, cfg.top_k
+    cap = max(1, int(cfg.capacity_factor * k * l / e))
+    probs = torch.softmax(x.float() @ router, dim=-1)
+    gates, idx = torch.topk(probs, k, dim=-1, sorted=True)
+    gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
+    return probs, gates, idx, *moe_positions(idx, e, cap), cap
+
+
+def moe_positions(idx: torch.Tensor, num_experts: int, cap: int):
+    """idx (B, L, K) expert ids -> (pos (B, L, K) each pair's slot in its
+    expert's capacity buffer, in_cap (B, L, K) bool): a cumulative sum
+    over each row's (token, k) pairs in (l, k) order; ``pos >= cap``
+    is dropped."""
+    b, l, k = idx.shape
+    sel = (idx[..., None] == torch.arange(num_experts, device=idx.device)
+           ).int()
+    pos_e = sel.reshape(b, l * k, num_experts).cumsum(1) - 1  # (B, L*K, E)
+    pos = pos_e.reshape(b, l, k, num_experts).gather(
+        -1, idx[..., None])[..., 0]
+    return pos, pos < cap
+
+
+def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig):
+    """x: (B, L, d) -> (out (B, L, d) in x's dtype, aux loss 0-d f32).
+
+    Router logits in f32, softmax, top-k with the gates renormalised;
+    the Switch load-balancing loss w · E · Σ_e mean(probs_e) ·
+    mean(top-1 == e). Each kept (token, k) pair is scattered into a (B,
+    E, cap, d) buffer by ADDING, as the reference's ``.at[].add``: a
+    dropped pair lands on slot cap - 1 as zeros and leaves the token that
+    holds the slot as it is. The experts' SwiGLU runs as batched
+    products over the buffer; the outputs are gathered back and combined
+    with the gates (zero for dropped pairs) in x's dtype."""
+    b, l, d = x.shape
+    e = cfg.num_experts
+    probs, gate_vals, idx, pos, in_cap, cap = moe_route(
+        x, params["router"], cfg)
+    me = probs.mean((0, 1))                                  # (E,)
+    ce = (idx[..., 0, None] == torch.arange(e, device=x.device)
+          ).float().mean((0, 1))
+    aux = cfg.aux_loss_weight * e * (me * ce).sum()
+    pos_c = pos.clamp(0, cap - 1)
+    b_idx = torch.arange(b, device=x.device)[:, None, None].expand_as(idx)
+    upd = x[:, :, None, :] * in_cap[..., None].to(x.dtype)
+    xin = torch.zeros((b, e, cap, d), dtype=x.dtype,
+                      device=x.device).index_put(
+        (b_idx, idx, pos_c), upd, accumulate=True)           # (B, E, C, d)
+    h = (F.silu(torch.einsum("becd,edf->becf", xin, params["w_gate"]))
+         * torch.einsum("becd,edf->becf", xin, params["w_up"]))
+    xout = torch.einsum("becf,efd->becd", h, params["w_out"])
+    gathered = xout[b_idx, idx, pos_c]                       # (B, L, K, d)
+    gates = (gate_vals * in_cap.float()).to(x.dtype)
+    return torch.einsum("blkd,blk->bld", gathered, gates), aux

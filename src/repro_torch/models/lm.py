@@ -5,9 +5,12 @@ decode.
 The counterpart of ``repro.models.lm`` for homogeneous attention stacks
 in the layer-stacked layout: params and serve state carry a leading
 (n_layers,) axis (the state under ``state["layers"]``) and the layers run
-as a Python loop over it, in training as in serving. The unit/rem
-layout, the recurrent and MoE blocks, the non-text modalities and remat
-are not ported yet (ROADMAP Queue A, items A4 and A12).
+as a Python loop over it, in training as in serving. The feed-forward
+is a dense MLP or, with ``cfg.moe``, the capacity-routed mixture of
+experts, whose load-balancing loss the training forward sums over the
+layers (serving drops it, as the reference does). The unit/rem layout,
+the recurrent blocks, the non-text modalities and remat are not ported
+yet (ROADMAP Queue A, items A12b, A12c, A12e and A13).
 
 ``prefill_chunk`` and ``decode_step`` advance ``state`` IN PLACE: the
 kernels write each layer's (S, z, c) where it lies in the stacked pool,
@@ -47,6 +50,7 @@ class ModelConfig:
     rope_theta: float = 10000.0           # <=0 disables RoPE
     qk_norm: bool = False
     mlp_kind: str = "swiglu"              # swiglu|geglu|gelu
+    moe: Optional[ll.MoEConfig] = None
     tie_embeddings: bool = True
     norm_kind: str = "rmsnorm"
     embed_scale: bool = False             # gemma-style sqrt(d) embed scale
@@ -75,7 +79,7 @@ class ModelConfig:
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue A, items A4/A12)")
+        f"{what} is not ported yet (ROADMAP.md Queue A, items A12b/A12c)")
 
 
 def _check_servable(cfg: ModelConfig) -> None:
@@ -85,39 +89,49 @@ def _check_servable(cfg: ModelConfig) -> None:
 
 def _block_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     dt = cfg.param_dtype
+    attn = ab.attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv,
+                        cfg.head_dim, cfg.attn, cfg.qk_norm, dt)
+    ffn = (ll.moe_init(gen, cfg.d_model, cfg.moe, dt) if cfg.moe else
+           ll.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dt))
     return {"ln1": ll.norm_init(cfg.norm_kind, cfg.d_model, dt),
             "ln2": ll.norm_init(cfg.norm_kind, cfg.d_model, dt),
-            "attn": ab.attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv,
-                                 cfg.head_dim, cfg.attn, cfg.qk_norm, dt),
-            "ffn": ll.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
-                               dt)}
-
-
-def _stack(trees: list) -> Any:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+            "attn": attn, "ffn": ffn}
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
-                device="cuda") -> dict:
+                device="cuda", draw_on="cpu") -> dict:
     """Random params from ``seed``, in the reference's tree layout:
-    {"embed", "final_norm", "units": {"b0": leaves (n_layers, ...)}}.
-    Drawn on the CPU with a ``torch.Generator`` and then moved, so a seed
-    gives the same params on every device."""
+    {"embed", "final_norm", "units": {"b0": leaves (n_layers, ...)},
+    "lm_head" when untied}. Drawn with a ``torch.Generator`` on
+    ``draw_on``, layer after layer, each layer written into its slice of
+    stacked tensors allocated once on ``device``, so the host holds one
+    layer's draws at a time (granite-8b's 8.2 B parameters never sit on
+    the host). Drawn on the CPU (the default), a seed gives the same
+    params on every device; drawn on a card (``draw_on=device``), other
+    numbers, the same on every card, in seconds where the CPU takes
+    minutes at full width."""
     _check_servable(cfg)
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=draw_on).manual_seed(seed)
     dt = cfg.param_dtype
     params: dict[str, Any] = {
-        "embed": ll.trunc_normal(gen, (cfg.vocab, cfg.d_model), 1.0, dt),
-        "final_norm": ll.norm_init(cfg.norm_kind, cfg.d_model, dt),
-        "units": {"b0": _stack([_block_init(gen, cfg)
-                                for _ in range(cfg.n_layers)])},
+        "embed": ll.trunc_normal(gen, (cfg.vocab, cfg.d_model), 1.0,
+                                 dt).to(device),
+        "final_norm": tree_map(lambda t: t.to(device), ll.norm_init(
+            cfg.norm_kind, cfg.d_model, dt)),
     }
+    layers = None
+    for li in range(cfg.n_layers):
+        block = _block_init(gen, cfg)
+        if layers is None:
+            layers = tree_map(lambda t: torch.empty(
+                (cfg.n_layers, *t.shape), dtype=t.dtype, device=device),
+                block)
+        tree_map(lambda dst, src: dst[li].copy_(src), layers, block)
+    params["units"] = {"b0": layers}
     if not cfg.tie_embeddings:
         params["lm_head"] = ll.trunc_normal(gen, (cfg.d_model, cfg.vocab),
-                                            1.0, dt)
-    return tree_map(lambda t: t.to(device), params)
+                                            1.0, dt).to(device)
+    return params
 
 
 def can_stack_layers(cfg: ModelConfig) -> bool:
@@ -228,6 +242,8 @@ def _layer_slices(params, cfg, state, proj, pages=None):
 def _apply_block(params, x, cfg: ModelConfig, *, mode, state=None,
                  position=None, valid_len=None, proj=None, draw=None,
                  pages=None):
+    """One block: attention, then the dense or MoE feed-forward. Returns
+    (x, the block's aux loss: 0-d f32 with MoE, else None)."""
     h = ll.apply_norm(cfg.norm_kind, params["ln1"], x)
     common = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.head_dim,
                   qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
@@ -245,12 +261,15 @@ def _apply_block(params, x, cfg: ModelConfig, *, mode, state=None,
                                 **common)
     x = x + mix
     h2 = ll.apply_norm(cfg.norm_kind, params["ln2"], x)
-    return x + ll.mlp_apply(params["ffn"], h2, cfg.mlp_kind)
+    if cfg.moe:
+        f, aux = ll.moe_apply(params["ffn"], h2, cfg.moe)
+        return x + f, aux
+    return x + ll.mlp_apply(params["ffn"], h2, cfg.mlp_kind), None
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Token embeddings (text only; audio and vlm inputs are ROADMAP
-    A12)."""
+    A12e)."""
     tok = params["embed"][batch["tokens"]]
     if cfg.embed_scale:
         tok = tok * torch.tensor(cfg.d_model ** 0.5, dtype=tok.dtype)
@@ -282,7 +301,8 @@ def baseline_draws(cfg: ModelConfig, l: int,
 def forward_train(params, cfg: ModelConfig, batch: dict,
                   gen: Optional[torch.Generator] = None):
     """Full forward over batch["tokens"] (B, L). Returns (logits (B, L, V)
-    f32, aux loss 0-d f32). With ``cfg.use_kernel`` every layer's causal
+    f32, aux loss 0-d f32: the MoE load-balancing losses summed over the
+    layers, zero without MoE). With ``cfg.use_kernel`` every layer's causal
     PRF attention runs the ``linear_attention_causal`` kernel. The random
     baseline reads layer i's (L, L) logits from :func:`baseline_draws`
     of ``gen``; the other kinds read none."""
@@ -291,10 +311,13 @@ def forward_train(params, cfg: ModelConfig, batch: dict,
     draws = (baseline_draws(cfg, x.shape[1], gen, x.device)
              if cfg.attn.kind == "random" else None)
     sp = _layers(params, cfg)
-    for li in range(cfg.n_layers):
-        x = _apply_block(tree_map(lambda t: t[li], sp), x, cfg, mode="train",
-                         draw=None if draws is None else draws[li])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for li in range(cfg.n_layers):
+        x, aux_l = _apply_block(tree_map(lambda t: t[li], sp), x, cfg,
+                                mode="train",
+                                draw=None if draws is None else draws[li])
+        if aux_l is not None:
+            aux = aux + aux_l
     return _logits(params, cfg, x), aux
 
 
@@ -347,8 +370,8 @@ def collect_qk(params, cfg: ModelConfig, batch: dict, *,
                                   cfg.head_dim, cfg.qk_norm, positions,
                                   cfg.rope_theta)
             taps[f"unit{li}/b0"] = (q, k)
-            x = _apply_block(bp, x, cfg, mode="train",
-                             draw=None if draws is None else draws[li])
+            x, _ = _apply_block(bp, x, cfg, mode="train",
+                                draw=None if draws is None else draws[li])
     return taps
 
 
@@ -421,9 +444,9 @@ def prefill_chunk(params, cfg: ModelConfig, batch: dict, state: dict,
     pos = state["pos"]
     proj = _serve_proj(params, cfg, proj, fused)
     for lp, ls, lproj, lpg in _layer_slices(params, cfg, state, proj, pages):
-        x = _apply_block(lp, x, cfg, state=ls, mode="prefill",
-                         position=pos, valid_len=valid_len, proj=lproj,
-                         pages=lpg)
+        x, _ = _apply_block(lp, x, cfg, state=ls, mode="prefill",
+                            position=pos, valid_len=valid_len, proj=lproj,
+                            pages=lpg)
     state["pos"] = pos + (x.shape[1] if valid_len is None else valid_len)
     if valid_len is None:
         x_last = x[:, -1]
@@ -463,7 +486,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, state: dict,
     x = x.to(cfg.param_dtype)
     proj = _serve_proj(params, cfg, proj, fused)
     for lp, ls, lproj, lpg in _layer_slices(params, cfg, state, proj, pages):
-        x = _apply_block(lp, x, cfg, state=ls, mode="decode", position=pos,
-                         proj=lproj, pages=lpg)
+        x, _ = _apply_block(lp, x, cfg, state=ls, mode="decode",
+                            position=pos, proj=lproj, pages=lpg)
     state["pos"] = pos + 1
     return _logits(params, cfg, x[:, 0]), state

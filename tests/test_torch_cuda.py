@@ -42,6 +42,14 @@ def dev():
     (4, 1, 8, 256, 256, 256, False, True, torch.bfloat16),
     (3, 2, 2, 16, 32, 16, True, False, torch.float32),
     (2, 2, 3, 32, 64, 40, True, True, torch.float32),     # a partial tile
+    # d_head 128 at m 256: granite-8b's (8, 4), yi-34b's (8, 7),
+    # qwen3-32b's (8, 8) and qwen3-moe-235b-a22b's (4, 16) KV groups
+    (8, 8, 4, 128, 256, 128, True, True, torch.bfloat16),
+    (3, 8, 7, 128, 256, 128, True, True, torch.bfloat16),
+    (8, 8, 7, 128, 256, 128, True, False, torch.float32),
+    (8, 8, 8, 128, 256, 128, True, True, torch.bfloat16),
+    (8, 4, 16, 128, 256, 128, True, True, torch.bfloat16),
+    (1, 4, 16, 128, 256, 128, True, True, torch.float32),
 ])
 def test_decode_kernel_matches_plain(dev, b, g, hg, d, m, dv, dark, stab,
                                      dtype):
@@ -160,6 +168,27 @@ def test_prefill_kernel_at_grant_shapes(dev, b, l, valid_len):
                 assert torch.equal(got[row], old[row])
 
 
+# the packer's four grants at d_head 128, m 256, dv 128 and the KV groups
+# of granite-8b (8, 4), yi-34b (8, 7), qwen3-32b (8, 8) and
+# qwen3-moe-235b-a22b (4, 16), ragged
+D128_GROUPS = [(8, 4), (8, 7), (8, 8), (4, 16)]
+D128_GRANTS = check.PACKER_GRANTS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,valid_len", D128_GRANTS)
+@pytest.mark.parametrize("g,hg", D128_GROUPS)
+def test_prefill_kernel_at_d128_heads(dev, g, hg, b, l, valid_len):
+    """B2 at the new configs' heads and the main path's input type (bf16
+    q/k/v, f32 state), each grant of the packer."""
+    args = check.make_inputs(dev, b, g, hg, 128, 256, 128, l, True,
+                             seed=b + l + hg, dtype=torch.bfloat16)
+    vl = torch.tensor(valid_len, dtype=torch.int32, device=dev)
+    check.check_case("prefill d128", lambda: kp.launches,
+                     kp.fused_prf_prefill, kp.prf_fused_prefill_plain, args,
+                     (5, 6, 7), vl, eps=1e-8)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,l", [(8, 32), (4, 64), (2, 128), (1, 256)])
 def test_prefill_kernel_updates_in_place_without_pool_copies(dev, b, l):
@@ -196,6 +225,12 @@ def test_prefill_kernel_updates_in_place_without_pool_copies(dev, b, l):
     (2, 3, 3, 3, 300, 256, 64, torch.float32),   # kf, v per query head
     (1, 2, 5, 1, 130, 36, 12, torch.float32),    # 3 + 2 heads, narrow m, dv
     (1, 1, 2, 1, 70, 30, 10, torch.bfloat16),    # rows not 16-byte multiples
+    # d_head 128 at m 256: the KV groups of granite-8b, yi-34b, qwen3-32b
+    # and qwen3-moe-235b-a22b
+    (2, 8, 4, 1, 512, 256, 128, torch.bfloat16),
+    (1, 8, 7, 1, 300, 256, 128, torch.float32),
+    (1, 8, 8, 1, 256, 256, 128, torch.bfloat16),
+    (1, 4, 16, 1, 512, 256, 128, torch.bfloat16),
 ])
 def test_linear_attention_kernel_matches_plain(dev, b, g, hg, hk, l, m, dv,
                                                dtype):
@@ -251,6 +286,14 @@ def test_featmap_kernel_matches_plain(dev, n, d, r, m, dark, dtype):
     (2, 1, 8, 8, 256, 256, torch.bfloat16),
     (3, 2, 2, 1, 32, 8, torch.float32),    # dv within one tile
     (3, 2, 2, 2, 32, 8, torch.bfloat16),
+    # d_head 128 at m 256: granite-8b's, yi-34b's, qwen3-32b's and
+    # qwen3-moe-235b-a22b's KV groups
+    (8, 8, 4, 1, 256, 128, torch.bfloat16),
+    (8, 8, 7, 1, 256, 128, torch.float32),
+    (3, 8, 7, 1, 256, 128, torch.bfloat16),
+    (8, 8, 8, 1, 256, 128, torch.bfloat16),
+    (8, 4, 16, 1, 256, 128, torch.bfloat16),
+    (2, 4, 16, 16, 256, 128, torch.float32),
 ])
 def test_decode_step_kernel_matches_plain(dev, b, g, hg, hk, m, dv, dtype):
     """B3 against its plain version, S and z advanced where they lie."""
@@ -295,6 +338,13 @@ F32, BF16 = torch.float32, torch.bfloat16
     (2, 3, 3, 1, 64, 256, 64, F32, True),
     (1, 3, 3, 1, 128, 256, 64, BF16, True),
     (2, 3, 3, 1, 5, 256, 64, F32, True),
+    # d_head 128 at m 256: the four grants at granite-8b's, yi-34b's,
+    # qwen3-32b's and qwen3-moe-235b-a22b's KV groups
+    (8, 8, 4, 1, 32, 256, 128, BF16, True),
+    (4, 8, 7, 1, 64, 256, 128, F32, True),
+    (2, 8, 8, 1, 128, 256, 128, BF16, True),
+    (1, 4, 16, 1, 256, 256, 128, BF16, True),
+    (8, 4, 16, 1, 32, 256, 128, F32, False),
 ])
 def test_carry_kernel_matches_plain(dev, b, g, hg, hk, l, m, dv, dtype,
                                     rho):
@@ -891,3 +941,119 @@ def test_expected_variance_draws_the_same_pairs_on_both_devices(dev):
             None if sigma is None else sigma.to(dev))
         assert card.device.type == "cuda"
         assert abs(float(card) - float(cpu)) <= 1e-4 * abs(float(cpu))
+
+
+# moe_apply, card against CPU: a token's routing may differ only where its
+# k-th and (k+1)-th router probabilities lie within MOE_NEAR_TIE (f32
+# logits in other summation orders differ by ~1e-7 of a logit); the
+# combined bf16 output within MOE_BF16_TOL of its largest magnitude (the
+# experts' bf16 products and the combine round on each device)
+MOE_NEAR_TIE = 1e-6
+MOE_BF16_TOL = 0.02
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l", [(8, 32), (1, 256), (8, 1)])
+def test_moe_apply_matches_cpu(dev, b, l):
+    """granite-moe-3b-a800m's MoE widths (d 1536, 40 experts, top-8,
+    d_ff 512, bf16 experts, f32 router) at the packer's 8 x 32 and 1 x 256
+    grants and at a decode step: in every capacity group (batch row)
+    without a near-tie at the top-k boundary, the experts each token picks
+    and each pair's capacity position and kept flag are the CPU's, the
+    output is within MOE_BF16_TOL of the CPU's, and the aux loss agrees."""
+    from repro_torch.models import layers as ll
+    cfg = ll.MoEConfig(num_experts=40, top_k=8, d_ff=512)
+    gen = torch.Generator().manual_seed(b * 1000 + l)
+    params = ll.moe_init(gen, 1536, cfg, torch.bfloat16)
+    x = torch.randn((b, l, 1536), generator=gen).to(torch.bfloat16)
+    card = {n: t.to(dev) for n, t in params.items()}
+    with torch.no_grad():
+        got, got_aux = ll.moe_apply(card, x.to(dev), cfg)
+        exp, exp_aux = ll.moe_apply(params, x, cfg)
+        r_card = ll.moe_route(x.to(dev), card["router"], cfg)
+        r_cpu = ll.moe_route(x, params["router"], cfg)
+    top = r_cpu[0].topk(cfg.top_k + 1, dim=-1).values
+    tied = ((top[..., -2] - top[..., -1]) < MOE_NEAR_TIE).any(-1)    # (B,)
+    rows = (~tied).nonzero()[:, 0]
+    assert len(rows) >= (b + 1) // 2, f"near-ties in {int(tied.sum())} rows"
+    # a token's pairs take distinct experts, so their order within the
+    # token moves no capacity position: compare in expert order
+    def in_expert_order(route):
+        idx = route[2].cpu()
+        order = idx.argsort(-1)
+        return [t.cpu().gather(-1, order)[rows] for t in route[2:5]]
+    for what, g, e in zip(("idx", "pos", "in_cap"), in_expert_order(r_card),
+                          in_expert_order(r_cpu)):
+        assert torch.equal(g, e), what
+    assert r_card[5] == r_cpu[5]
+    err = (got.float().cpu()[rows] - exp.float()[rows]).abs().max()
+    assert float(err) <= MOE_BF16_TOL * float(exp.float().abs().max()), err
+    assert abs(float(got_aux) - float(exp_aux)) <= 1e-5 * float(exp_aux)
+
+
+@pytest.mark.cuda
+def test_moe_engine_makes_no_sync_and_matches_sequential(dev):
+    """The reduced granite-moe-3b-a800m on the card through B1/B2: the
+    overlapped engine's steps make no synchronising call (the MoE
+    routing, scatter and gather included) and, at one staged row per
+    prefill call, its greedy streams equal the sequential engine's."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving import ServingEngine, synthetic_requests
+    cfg = configs.get_config("granite-moe-3b-a800m", reduced=True,
+                             use_kernel=True)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    streams = []
+    for overlap in (False, True):
+        eng = ServingEngine(params, cfg, max_slots=4, max_len=256,
+                            chunk_tokens=32, prefill_rows=1, overlap=overlap,
+                            device=dev)
+        reqs = synthetic_requests(6, cfg.vocab, seed=2,
+                                  prompt_range=(8, 80), gen_range=(8, 16))
+        uids = [eng.submit(r) for r in reqs]
+        n1, n2 = kd.launches, kp.launches
+        if overlap:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = {r.uid: r.tokens for r in eng.run()}
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        streams.append([got[u] for u in uids])
+        st = eng.stats
+        assert st["decode_path"] == st["prefill_path"] == "fused_kernel"
+        assert kd.launches - n1 == st["decode_steps"] * cfg.n_layers
+        assert kp.launches - n2 == st["prefill_calls"] * cfg.n_layers
+    assert streams[0] == streams[1]
+    assert [len(t) for t in streams[1]] == [r.max_new_tokens for r in reqs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-8b", "granite-moe-3b-a800m"])
+def test_init_params_draws_on_the_card(dev, arch):
+    """``init_params(draw_on=card)``: the CPU-drawn tree's leaves, shapes
+    and dtypes, on the card; the same numbers for the same seed and
+    other numbers for another; the embedding within its two standard
+    deviations; the identity ``m_mat`` and norms as drawn on the CPU."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.tree import flatten
+    cfg = configs.get_config(arch, reduced=True)
+    cpu = dict(flatten(lm.init_params(cfg, seed=0, device="cpu")))
+    tree = lm.init_params(cfg, seed=0, device=dev, draw_on=dev)
+    got = dict(flatten(tree))
+    again = dict(flatten(lm.init_params(cfg, seed=0, device=dev,
+                                        draw_on=dev)))
+    other = dict(flatten(lm.init_params(cfg, seed=1, device=dev,
+                                        draw_on=dev)))
+    assert got.keys() == cpu.keys()
+    for name, t in got.items():
+        assert t.device.type == "cuda", name
+        assert (t.shape, t.dtype) == (cpu[name].shape, cpu[name].dtype), name
+        assert torch.equal(t, again[name]), name
+        if "m_mat" in name or "norm" in name or "ln" in name:
+            assert torch.equal(t.cpu(), cpu[name]), name
+        else:
+            assert not torch.equal(t, other[name]), name
+            assert torch.isfinite(t.float()).all(), name
+    embed = tree["embed"].float()
+    assert float(embed.abs().max()) <= 2 * cfg.vocab ** -0.5 * 1.01
