@@ -10,8 +10,8 @@ Phases, each printed as a JSON line:
   2. kernels vs plain: each CUDA kernel held against its plain PyTorch
      version on the card, at the smollm-135m and darkformer-2b head
      geometries and at the main paths' shapes (prf_fused_decode and
-     prf_fused_prefill also at phase 7's five head layouts, bf16, 8
-     slots and the packer's four ragged grants; the training kernels and
+     prf_fused_prefill also at phase 7's five head layouts and phase
+     8's, bf16, 8 slots and the packer's four ragged grants; the training kernels and
      wkv6 with gradients), then timed (CUDA events, and device time
      from the profiler) at the main paths' shapes beside its plain
      version and its bound: the fused serving kernels at the smollm-135m
@@ -141,14 +141,33 @@ Phases, each printed as a JSON line:
      card's capacity positions and kept flags must equal the CPU's
      cumulative sum over them, and every token the CPU's own top-k
      routes elsewhere must lie within the router's card-CPU perturbation
-     at the swapped experts (``RouteTap``).
+     at the swapped experts (``RouteTap``);
+  8. recurrentgemma-2b at its full 26 layers and width (8 units of
+     ("rec", "rec", "local"), then 2 remainder RG-LRU layers; 10 query
+     heads on one KV head at d_head 256, m 256), random weights from
+     seed 0 drawn on the card, in the unit/rem layout: (a) 8 requests
+     (prompts of 64-256 tokens, 16-32 new ones) through the overlapped
+     scheduler under ``set_sync_debug_mode("error")``: full token
+     counts, fused_kernel paths, B1 = decode steps x 8 and B2 = prefill
+     calls x 8 (only the local layers launch); TTFT, TPOT, throughput,
+     init seconds and peak device memory; (b) 8 requests through both
+     schedulers at ``prefill_rows=1``: equal greedy streams; (c) phase
+     3e's traffic through cache-on and cache-less engines at
+     ``prefill_rows=1``: forks of the RG-LRU's (h, conv) and the local
+     layers' (S, z, c), prefilled plus forked tokens equal to the
+     prompts', equal greedy streams; (d) phase 4's card-against-CPU
+     check at 5 layers (one unit and both remainder layers): logits,
+     the local layer's S and z, each RG-LRU layer's h and conv within
+     ``REC_STATE_TOL``, with a planted fault (each RG-LRU layer fed the
+     next one's gate weight). Phase 2 holds B1/B2 at its head layout.
 Then the kernels line (all seven kernels: launches on their path, max
 error, time and device time, prf_fused_decode's and prf_decode_step's
 cold beside their warm ones, plain time,
 bound: bytes at 3.35 TB/s or operations at 67 TFLOP/s of f32, for
 linear_attention_causal, linear_attention_carry and prf_featmap, which
 run on the tensor cores, at 495 TFLOP/s of TF32; B1's and B2's launches
-in phase 3e's and each phase 7 model's serving run beside) and, last, the
+in phase 3e's, each phase 7 model's and phase 8's serving run beside)
+and, last, the
 ``{"ok": true, ...}`` line. Exits non-zero, without that line, when there is no CUDA device
 or any phase fails. Imports neither JAX nor the reference package.
 """
@@ -379,10 +398,11 @@ def phase_kernels(torch, dev, kd, kp):
                           eps=1e-8)
         err["prf_fused_prefill"] = max(err["prf_fused_prefill"], e)
         cases.append({"case": name, "max_abs_err": e})
-    # phase 7's head layouts (G, Hg, d_head, m), read from its configs, at
-    # its input type: B1 at 8 slots, B2 at each of the packer's grants
+    # phase 7's and phase 8's head layouts (G, Hg, d_head, m), read from
+    # their configs, at their input type: B1 at 8 slots, B2 at each of
+    # the packer's grants
     from repro_torch import configs
-    for arch, _, _ in HOMOGENEOUS:
+    for arch in [a for a, _, _ in HOMOGENEOUS] + [RECURRENT]:
         c = configs.get_config(arch)
         g, hg, d, m = (c.n_kv, c.n_heads // c.n_kv, c.head_dim,
                        c.attn.num_features)
@@ -645,13 +665,18 @@ def serve(torch, dev, cfg, params, counters, shapes=None,
     return fields, launches, [by_uid[r.uid].tokens for r in reqs], st
 
 
+def attn_layers(cfg) -> int:
+    """The layers with attention: every layer but the RG-LRU's."""
+    return sum(kind != "rec" for kind in cfg.layer_kinds())
+
+
 def fused_launches(counters, st, cfg) -> dict:
     """The launches a run through the fused serving kernels must count:
-    B2 once a layer a prefill call, B1 once a layer a decode step, no
-    other kernel."""
+    B2 once an attention layer a prefill call, B1 once an attention
+    layer a decode step, no other kernel."""
     want = {n: 0 for n in counters}
-    want["prf_fused_prefill"] = st["prefill_calls"] * cfg.n_layers
-    want["prf_fused_decode"] = st["decode_steps"] * cfg.n_layers
+    want["prf_fused_prefill"] = st["prefill_calls"] * attn_layers(cfg)
+    want["prf_fused_decode"] = st["decode_steps"] * attn_layers(cfg)
     return want
 
 
@@ -967,7 +992,8 @@ def drive(torch, lm, cfg, params, dev, toks, vl, feed=None, proj=None,
     through the fused kernels or (``fused=False``) the two stages. Each
     decode step is fed ``feed[i]``, or the argmax of the logits before
     it. Returns (logits of each step on the CPU, tokens fed, the final
-    state on the CPU)."""
+    state on the CPU, in either layout)."""
+    from repro_torch.serving import slots as slot_ops
     st = lm.init_serve_state(cfg, b=toks.shape[0], max_len=128,
                              per_slot=True, device=dev)
     logits, st = lm.prefill_chunk(
@@ -979,8 +1005,7 @@ def drive(torch, lm, cfg, params, dev, toks, vl, feed=None, proj=None,
         logits, st = lm.decode_step(params, cfg, fed[-1].to(dev), st,
                                     proj=proj, fused=fused)
         out.append(logits.float().cpu())
-    return out, fed, st["layers"]._replace(
-        **{k: t.cpu() for k, t in st["layers"]._asdict().items()})
+    return out, fed, slot_ops.tree_slot_map(lambda t, axis: t.cpu(), st)
 
 
 def gaps(torch, got, ref):
@@ -990,6 +1015,7 @@ def gaps(torch, got, ref):
     z e^c, since the stabilizer c cancels in the outputs and two devices
     may round it differently."""
     (lg, _, sg), (lr, _, sr) = got, ref
+    sg, sr = sg["layers"], sr["layers"]
     for t in (*lg, *lr, sg.s, sg.z, sr.s, sr.z):
         if not bool(torch.isfinite(t).all()):
             fail("cross-device: non-finite logits or state")
@@ -1211,6 +1237,7 @@ def exact_gaps(torch, got, ref):
     and kv_v over that layer's max, and whether the cache lengths are
     equal."""
     (lg, _, sg), (lr, _, sr) = got, ref
+    sg, sr = sg["layers"], sr["layers"]
     for t in (*lg, *lr, sg.kv_k, sg.kv_v, sr.kv_k, sr.kv_v):
         if not bool(torch.isfinite(t).all()):
             fail("exact cross-device: non-finite logits or cache")
@@ -1248,7 +1275,7 @@ def phase_exact_cross(torch, dev, cfg, params):
     fault_logit, fault_state, _ = exact_gaps(torch, planted, cpu)
     emit({"phase": "exact_cross_device", "rel_max_err": logit_err,
           "cache_rel_err": state_err, "lengths_equal": lengths_equal,
-          "lengths": card[2].length[0].tolist(),
+          "lengths": card[2]["layers"].length[0].tolist(),
           "tolerance": CROSS_DEVICE_TOL, "state_tolerance": STATE_TOL,
           "planted_fault": {"what": "each layer run with the next layer's "
                                     "key projection wk",
@@ -2240,6 +2267,214 @@ def phase_homogeneous(torch, dev, counters):
     return out
 
 
+# phase 8: recurrentgemma-2b at its full 26 layers (8 units of ("rec",
+# "rec", "local") and 2 remainder rec layers; 2.9 B params, about 5.8 GB
+# of bf16, so nothing is cut); (d) holds its first 5 layers (one unit and
+# the two remainder layers) card against CPU
+RECURRENT = "recurrentgemma-2b"
+RECURRENT_CROSS_LAYERS = 5
+# (d): each RG-LRU layer's h and conv tail, card (kernels, cuBLAS) against
+# CPU (plain path), bf16, 5 layers: the largest gap over that layer's max
+# |h|, max |conv|. Sound readings on an H100: h 8.2e-3, conv 1.83e-2 (the
+# conv tail holds bf16 products u @ wx of inputs that already differ);
+# the planted fault: h 0.39 and conv 0.48 at their least (the first
+# layer's conv, upstream of any gate, excepted). Limit at 2.7x
+REC_STATE_TOL = 0.05
+
+
+def _layer_states(st) -> list:
+    """A unit/rem state's blocks in layer order (unit by unit, the
+    pattern's keys in order, then the remainder)."""
+    units = st["units"]
+    n = next(iter(units.values()))[0].shape[0]
+    return ([type(units[k])(*(t[u] for t in units[k]))
+             for u in range(n) for k in sorted(units)] + list(st["rem"]))
+
+
+def recurrent_gaps(torch, got, ref):
+    """How far unit/rem run ``got`` is from run ``ref``: the largest
+    |logit| gap over max |logit| per step; over the attention layers the
+    largest gap of S and z (stabilizer factored out, as :func:`gaps`)
+    over their max; and each RG-LRU layer's largest h and conv gap over
+    that layer's max |h|, max |conv|."""
+    (lg, _, sg), (lr, _, sr) = got, ref
+    logit = [float((g - r).abs().max() / r.abs().max())
+             for g, r in zip(lg, lr)]
+    attn, rec_h, rec_conv = 0.0, [], []
+    for g, r in zip(_layer_states(sg), _layer_states(sr)):
+        for t in (*g, *r):
+            if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+                fail("recurrent cross-device: non-finite state")
+        if hasattr(g, "h"):
+            rec_h.append(float((g.h - r.h).abs().max() / r.h.abs().max()))
+            rec_conv.append(float((g.conv - r.conv).abs().max()
+                                  / r.conv.abs().max()))
+            continue
+        rescale = torch.exp(g.c - r.c)
+        for a, b in ((g.s * rescale, r.s), (g.z * rescale[..., 0], r.z)):
+            attn = max(attn, float((a - b).abs().max() / b.abs().max()))
+    return {"rel_max_err": logit, "state_rel_err": attn,
+            "rec_h_rel_err": rec_h, "rec_conv_rel_err": rec_conv}
+
+
+def rec_gate_fault(torch, params):
+    """``params`` with each RG-LRU layer's gate weight ``wa`` taken from
+    the next RG-LRU layer (cyclic), every other leaf shared."""
+    units = params["units"]
+    keys = [k for k in sorted(units) if "rec" in units[k]]
+    n = units[keys[0]]["rec"]["wa"].shape[0]
+    was = ([units[k]["rec"]["wa"][u] for u in range(n) for k in keys]
+           + [b["rec"]["wa"] for b in params["rem"]])
+    was = was[1:] + was[:1]
+    new_units = dict(units)
+    for j, k in enumerate(keys):
+        new_units[k] = {**units[k], "rec": {**units[k]["rec"], "wa": torch.stack(
+            [was[u * len(keys) + j] for u in range(n)])}}
+    rem = [{**b, "rec": {**b["rec"], "wa": was[n * len(keys) + i]}}
+           for i, b in enumerate(params["rem"])]
+    return {**params, "units": new_units, "rem": rem}
+
+
+def recurrent_cross_device(torch, dev, cfg, params):
+    """Phase 4's recipe on the unit/rem layout: one ragged prefill chunk
+    (2 rows of 64 and 40 tokens) and two decode steps, the card's kernel
+    path against the CPU's plain path on the same params; logits within
+    ``CROSS_DEVICE_TOL``, the local layers' S and z within ``STATE_TOL``,
+    each RG-LRU layer's h and conv within ``REC_STATE_TOL``. A planted
+    fault (each RG-LRU layer fed the next one's gate weight) must fail
+    the same check. Returns (the JSON fields, a function that runs the
+    checks)."""
+    from repro_torch.models import lm
+
+    cpu_cfg = dataclasses.replace(cfg, use_kernel=False)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab, (2, 64))
+    vl = np.array([64, 40], np.int32)
+    card = drive(torch, lm, cfg, params, dev, toks, vl)
+    cpu_params = lm.tree_map(lambda t: t.cpu(), params)
+    cpu = drive(torch, lm, cpu_cfg, cpu_params, "cpu", toks, vl,
+                feed=card[1])
+    del cpu_params
+    planted = drive(torch, lm, cfg, rec_gate_fault(torch, params), dev,
+                    toks, vl, feed=card[1])
+    got, fault = recurrent_gaps(torch, card, cpu), recurrent_gaps(
+        torch, planted, cpu)
+    fields = {**got, "tolerance": CROSS_DEVICE_TOL,
+              "state_tolerance": STATE_TOL,
+              "rec_state_tolerance": REC_STATE_TOL,
+              "argmax_agreement": [
+                  float((g.argmax(-1) == c.argmax(-1)).float().mean())
+                  for g, c in zip(card[0], cpu[0])],
+              "planted_fault": {"what": "each RG-LRU layer fed the next "
+                                        "RG-LRU layer's gate weight wa",
+                                **fault}}
+
+    def within(r):
+        return (max(r["rel_max_err"]) <= CROSS_DEVICE_TOL
+                and r["state_rel_err"] <= STATE_TOL
+                and max(r["rec_h_rel_err"] + r["rec_conv_rel_err"])
+                <= REC_STATE_TOL)
+
+    def check():
+        if not within(got):
+            fail(f"{RECURRENT} cross-device: card and CPU differ beyond "
+                 f"their limits ({got})")
+        if within(fault):
+            fail(f"{RECURRENT} cross-device check passes a planted fault")
+    return fields, check
+
+
+def phase_recurrent(torch, dev, counters):
+    """Phase 8: recurrentgemma-2b at full size (26 layers, 10 query heads
+    on one KV head at d_head 256, m 256), random weights from seed 0
+    drawn on the card, in the unit/rem layout. (a) 8 requests (prompts
+    of 64-256 tokens, 16-32 new ones) through the overlapped scheduler
+    under ``set_sync_debug_mode("error")``: full token counts,
+    fused_kernel paths, B1 = decode steps x 8 and B2 = prefill calls x 8
+    (only the local layers launch), no other kernel; TTFT, TPOT,
+    throughput, init seconds and peak device memory. (b) 8 requests
+    through both schedulers at ``prefill_rows=1``: equal greedy streams.
+    (c) phase 3e's system-prompt traffic through cache-on and cache-less
+    engines at ``prefill_rows=1``: forks of the RG-LRU's h and conv and
+    the local layers' (S, z, c), streams equal, launches as in (a).
+    (d) :func:`recurrent_cross_device` at the first 5 layers. Returns
+    B1's and B2's launches in (a)."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving import PrefixCacheConfig
+
+    t0 = time.perf_counter()
+    cfg = configs.get_config(RECURRENT, use_kernel=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, seed=0, device=dev, draw_on=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_gb = torch.cuda.memory_allocated() / 1e9
+    fields, launches, _, st = serve(
+        torch, dev, cfg, params, counters, overlap=True, requests=8,
+        prompt_range=(64, 256), gen_range=(16, 32))
+    t_eq = time.perf_counter()
+    equal, eq_fields = overlap_equality(torch, dev, cfg, params)
+    eq_fields["seconds"] = time.perf_counter() - t_eq
+    t_pc = time.perf_counter()
+    on, on_launches, s_on, _, d_on = prefix_serve(
+        torch, dev, cfg, params, counters, PrefixCacheConfig(), 1)
+    off, off_launches, s_off, _, d_off = prefix_serve(
+        torch, dev, cfg, params, counters, None, 1)
+    same = [a == b for x, y in zip(s_on, s_off) for a, b in zip(x, y)]
+    prefix = {"cache_on": on, "cache_off": off, "tokens": len(same),
+              "tokens_equal": sum(same) / len(same),
+              "seconds": time.perf_counter() - t_pc}
+    sub_cfg = dataclasses.replace(cfg, n_layers=RECURRENT_CROSS_LAYERS)
+    sub = {**params, "units": lm.tree_map(
+        lambda t: t[:sub_cfg.n_units], params["units"])}
+    t_cross = time.perf_counter()
+    cross, check = recurrent_cross_device(torch, dev, sub_cfg, sub)
+    emit({"phase": "recurrent", "arch": RECURRENT, **fields,
+          "layer_kinds": collections.Counter(cfg.layer_kinds()),
+          "n_units": cfg.n_units, "n_rem": cfg.n_rem,
+          "attn_layers": attn_layers(cfg), "window": cfg.window,
+          "param_init_s": init_s, "param_gb": param_gb,
+          "rows_1_equality": eq_fields, "prefix_cache_rows_1": prefix,
+          "cross_device": {"n_layers": RECURRENT_CROSS_LAYERS, **cross,
+                           "seconds": time.perf_counter() - t_cross},
+          "seconds": time.perf_counter() - t0})
+    for name, s_ in (("serving", st), ("prefix cache on", on),
+                     ("prefix cache off", off)):
+        if s_["prefill_path"] != "fused_kernel" or \
+                s_["decode_path"] != "fused_kernel":
+            fail(f"{RECURRENT} {name}: served {s_['prefill_path']}/"
+                 f"{s_['decode_path']}")
+    for name, got, stats in (("serving", launches, st),
+                             ("prefix cache on", on_launches, d_on),
+                             ("prefix cache off", off_launches, d_off)):
+        want = fused_launches(counters, stats, cfg)
+        if got != want:
+            fail(f"{RECURRENT} {name}: launches {got}, expected {want} "
+                 f"(prefill calls and decode steps x {attn_layers(cfg)} "
+                 "local layers)")
+    if not equal:
+        fail(f"{RECURRENT}: greedy streams differ between the schedulers "
+             f"with one staged row per prefill call ({eq_fields})")
+    if d_on["forked_requests"] < 1 or d_on["prefix_hits"] < 1:
+        fail(f"{RECURRENT}: no prefix-cache fork ({d_on})")
+    if d_on["prefill_tokens"] + d_on["forked_tokens"] != on["prompt_tokens"]:
+        fail(f"{RECURRENT}: {d_on['prefill_tokens']} prefilled + "
+             f"{d_on['forked_tokens']} forked tokens, expected the "
+             f"prompts' {on['prompt_tokens']}")
+    if s_on != s_off:
+        fail(f"{RECURRENT}: forked greedy streams differ from cold-start "
+             f"ones ({sum(same)} of {len(same)} tokens equal)")
+    check()
+    out = {n: launches[n] for n in ("prf_fused_decode", "prf_fused_prefill")}
+    del params, sub
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # every kernel of the port: (its module, its launch counter, its CUDA
 # source, the Pallas TPU kernel it replaces)
 KERNELS = {
@@ -2334,6 +2569,7 @@ def main() -> int:
     phase_exact_finetune(torch, dev, counters)
     phase_train_cross_device(torch, dev, kl)
     homogeneous = phase_homogeneous(torch, dev, counters)
+    recurrent = phase_recurrent(torch, dev, counters)
 
     emit({"kernels": [
         {"name": n, "route": "cuda",
@@ -2347,6 +2583,7 @@ def main() -> int:
          "launches_prefix_cache": prefix_launches[n],
          "launches_homogeneous": {a: h.get(n, 0)
                                   for a, h in homogeneous.items()},
+         "launches_recurrent": recurrent.get(n, 0),
          "bound_ms": timing[n]["bound_ms"],
          "bound_by": timing[n]["bound_by"], "library_ms": None}
         for n, (_, _, src, replaces) in KERNELS.items()],

@@ -4,8 +4,9 @@ port.
 The caller converts the reference param pytree to numpy (e.g.
 ``jax.tree_util.tree_map(np.asarray, params)``); this module never sees
 JAX. The tree layouts are the same, so the conversion is leaf for leaf:
-``units.b0`` leaves keep their leading (n_units,) axis, and for the
-one-block pattern the port serves unit u is layer u. The feature draws
+``units.b<i>`` leaves keep their leading (n_units,) axis (for a one-block
+pattern unit u is layer u), and the remainder layers stay the list
+``rem`` of blocks. The feature draws
 (``feat.w`` and ``feat.m_mat``) come across with everything else, and
 the AdamW state (``mu``, ``nu`` with its factored {"row", "col"} leaves,
 ``count``) maps the same way, so a train step can start in both packages
@@ -38,19 +39,16 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def tree_from_jax(tree_of_numpy: dict, device="cuda") -> dict:
-    """Any nested-dict tree of numpy leaves (e.g. the reference's AdamW
+    """Any nested dict-and-list tree of numpy leaves (e.g. the reference's AdamW
     state ``{"mu", "nu", "count"}``), leaf for leaf, as tensors."""
     return tree_map(lambda a: _to_torch(a, device), tree_of_numpy)
 
 
 def params_from_jax(tree_of_numpy: dict, cfg: lm.ModelConfig,
                     device="cuda") -> dict:
-    """The port's params from the reference's param tree (as numpy).
-    Refuses layouts the port does not serve yet (remainder layers)."""
-    if "rem" in tree_of_numpy:
-        raise NotImplementedError(
-            "remainder (unscanned) layers are not ported yet "
-            "(ROADMAP.md Queue A, item A12b)")
+    """The port's params from the reference's param tree (as numpy), the
+    unit/rem layout's ``rem`` list included. Refuses block kinds the
+    port does not serve yet."""
     lm._check_servable(cfg)
     return tree_from_jax(tree_of_numpy, device)
 

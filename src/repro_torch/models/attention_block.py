@@ -62,30 +62,35 @@ def _merge_heads(out, params):
 
 def attn_apply(params: dict, x: torch.Tensor, cfg: fm.FeatureConfig, *,
                n_heads: int, n_kv: int, d_head: int, causal: bool = True,
+               window: Optional[int] = None,
                qk_norm: bool = False, rope_theta: float = 10000.0,
                positions: Optional[torch.Tensor] = None,
                use_kernel: bool = False,
                baseline_draw: Optional[torch.Tensor] = None
                ) -> torch.Tensor:
     """Training-time attention over whole sequences x: (B, L, d_model),
-    at ``positions`` (default 0..L-1). ``baseline_draw`` is the random
-    baseline's (L, L) draw. Returns (B, L, d_model)."""
+    at ``positions`` (default 0..L-1). ``window`` (a "local" block's)
+    applies to the exact kind only, as in the reference.
+    ``baseline_draw`` is the random baseline's (L, L) draw. Returns (B,
+    L, d_model)."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = _project(params, x, n_heads, n_kv, d_head, qk_norm,
                        positions, rope_theta)
     out = rfa.rf_attention(q, k, v, params.get("feat"), cfg, causal=causal,
-                           use_kernel=use_kernel,
+                           window=window, use_kernel=use_kernel,
                            baseline_draw=baseline_draw)
     return _merge_heads(out, params)
 
 
 def attn_prefill(params, x, cfg, *, n_heads, n_kv, d_head, state=None,
-                 position=None, qk_norm=False, rope_theta=10000.0,
-                 use_kernel=False, valid_len=None, proj=None, pages=None):
+                 position=None, window=None, qk_norm=False,
+                 rope_theta=10000.0, use_kernel=False, valid_len=None,
+                 proj=None, pages=None):
     """Prefill a whole prompt (``state`` and ``position`` None: positions
     0..L-1, a new state) or one prompt chunk that resumes from ``state``
     at chunk start ``position`` (() int, or (B,) per-row starts).
+    ``window`` as in :func:`attn_apply`;
     ``valid_len`` marks ragged rows; ``proj`` selects the fused kernel
     under ``use_kernel``; ``pages`` are the layer's (k, v) page pools of
     a paged exact ``state``. Returns (mix (B, L, d_model), the new state or
@@ -101,17 +106,17 @@ def attn_prefill(params, x, cfg, *, n_heads, n_kv, d_head, state=None,
     q, k, v = _project(params, x, n_heads, n_kv, d_head, qk_norm,
                        positions, rope_theta)
     out, state = rfa.rf_attention_prefill(
-        q, k, v, params.get("feat"), cfg, state=state,
+        q, k, v, params.get("feat"), cfg, state=state, window=window,
         use_kernel=use_kernel, valid_len=valid_len, proj=proj, pages=pages)
     return _merge_heads(out, params), state
 
 
 def attn_decode(params, x, state, cfg, *, n_heads, n_kv, d_head, position,
-                qk_norm=False, rope_theta=10000.0, use_kernel=False,
-                proj=None, pages=None):
+                window=None, qk_norm=False, rope_theta=10000.0,
+                use_kernel=False, proj=None, pages=None):
     """x: (B, 1, d_model); position: () int current index, or (B,) per slot;
-    ``pages`` as in :func:`attn_prefill`. Returns (mix (B, 1, d_model),
-    state advanced in place)."""
+    ``window`` and ``pages`` as in :func:`attn_prefill`. Returns (mix (B,
+    1, d_model), state advanced in place)."""
     if position.ndim == 0:
         positions = position[None]
     else:
@@ -119,8 +124,9 @@ def attn_decode(params, x, state, cfg, *, n_heads, n_kv, d_head, position,
     q, k, v = _project(params, x, n_heads, n_kv, d_head, qk_norm,
                        positions, rope_theta)
     out, state = rfa.rf_attention_decode(q, k, v, state, params.get("feat"),
-                                         cfg, use_kernel=use_kernel,
-                                         proj=proj, pages=pages)
+                                         cfg, window=window,
+                                         use_kernel=use_kernel, proj=proj,
+                                         pages=pages)
     return _merge_heads(out, params), state
 
 

@@ -2,23 +2,31 @@
 calibration taps and whitening calibration, resumable prefill and
 decode.
 
-The counterpart of ``repro.models.lm`` for homogeneous attention stacks
-in the layer-stacked layout: params and serve state carry a leading
-(n_layers,) axis (the state under ``state["layers"]``) and the layers run
-as a Python loop over it, in training as in serving. The feed-forward
-is a dense MLP or, with ``cfg.moe``, the capacity-routed mixture of
-experts, whose load-balancing loss the training forward sums over the
-layers (serving drops it, as the reference does). The unit/rem layout,
-the recurrent blocks, the non-text modalities and remat are not ported
-yet (ROADMAP Queue A, items A12b, A12c, A12e and A13).
+The counterpart of ``repro.models.lm`` in both of its layouts. A
+homogeneous stack (every layer one block kind) is layer-stacked: params
+and serve state carry a leading (n_layers,) axis (the state under
+``state["layers"]``) and the layers run as a Python loop over it, in
+training as in serving. A heterogeneous pattern (recurrentgemma-2b's
+("rec", "rec", "local")) keeps the reference's unit/rem layout: params
+``{"units": {"b<i>": leaves (n_units, ...)}, "rem": [block, ...]}`` and
+serve state ``{"units": {"b<i>": leaves (n_units, B, ...)}, "rem":
+[state (B, ...), ...], "pos"}``, run unit by unit with the pattern
+unrolled, then the remainder layers. Blocks are attention (``attn``, and
+``local``, whose ``window`` only the exact kind applies, as in the
+reference) or the RG-LRU (``rec``). The feed-forward is a dense MLP or,
+with ``cfg.moe``, the capacity-routed mixture of experts, whose
+load-balancing loss the training forward sums over the layers (serving
+drops it, as the reference does). The RWKV blocks, the non-text
+modalities and remat are not ported yet (ROADMAP Queue A, items A12c,
+A12e and A13); nor are the calibration taps over unit/rem (A12b2).
 
 ``prefill_chunk`` and ``decode_step`` advance ``state`` IN PLACE: the
-kernels write each layer's (S, z, c) where it lies in the stacked pool,
-the plain path copies its result there, and the exact kind writes each
-layer's keys and values into its KV cache and advances its ``length``.
-The paged exact layout (``init_paged_serve_state``) writes them into the
-shared page pools (``init_kv_pages``) passed beside the state as
-``pages=``.
+kernels write each layer's (S, z, c) where it lies in the pool, the
+plain path copies its result there, the exact kind writes each layer's
+keys and values into its KV cache and advances its ``length``, and the
+RG-LRU writes its h and conv tail there. The paged exact layout
+(``init_paged_serve_state``, stacked only) writes them into the shared
+page pools (``init_kv_pages``) passed beside the state as ``pages=``.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from repro_torch.core import feature_maps as fm
 from repro_torch.core import linear_attention as la
 from repro_torch.models import attention_block as ab
 from repro_torch.models import layers as ll
+from repro_torch.models import recurrent as rec
 from repro_torch.tree import tree_map
 
 
@@ -45,14 +54,16 @@ class ModelConfig:
     d_ff: int
     vocab: int
     d_head: int = 0                       # 0 -> d_model // n_heads
-    block_pattern: tuple = ("attn",)      # cycled
+    block_pattern: tuple = ("attn",)      # cycled: attn|local|rec
     attn: fm.FeatureConfig = fm.FeatureConfig(kind="darkformer")
+    window: Optional[int] = None          # for "local" blocks (exact)
     rope_theta: float = 10000.0           # <=0 disables RoPE
     qk_norm: bool = False
     mlp_kind: str = "swiglu"              # swiglu|geglu|gelu
     moe: Optional[ll.MoEConfig] = None
     tie_embeddings: bool = True
     norm_kind: str = "rmsnorm"
+    d_rnn: int = 0                        # rec blocks; 0 -> d_model
     embed_scale: bool = False             # gemma-style sqrt(d) embed scale
     logit_softcap: float = 0.0
     dtype: str = "float32"                # param/activation dtype
@@ -65,8 +76,16 @@ class ModelConfig:
         return self.d_head or self.d_model // self.n_heads
 
     @property
+    def rnn_width(self) -> int:
+        return self.d_rnn or self.d_model
+
+    @property
     def param_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    def layer_kinds(self) -> list[str]:
+        p = self.block_pattern
+        return [p[i % len(p)] for i in range(self.n_layers)]
 
     @property
     def n_units(self) -> int:
@@ -79,35 +98,66 @@ class ModelConfig:
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue A, items A12b/A12c)")
+        f"{what} is not ported yet (ROADMAP.md Queue A, items A12c/A12e)")
+
+
+SERVED_KINDS = ("attn", "local", "rec")
 
 
 def _check_servable(cfg: ModelConfig) -> None:
-    if tuple(cfg.block_pattern) != ("attn",):
+    if not set(cfg.block_pattern) <= set(SERVED_KINDS):
         raise _not_ported(f"block pattern {cfg.block_pattern}")
 
 
-def _block_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def _rem_kinds(cfg: ModelConfig) -> list[str]:
+    """The block kinds of the remainder layers, in order."""
+    return cfg.layer_kinds()[cfg.n_units * len(cfg.block_pattern):]
+
+
+def _block_init(gen: torch.Generator, cfg: ModelConfig,
+                kind: str = "attn") -> dict:
+    """One block's params, drawn as the reference keys them: the mixer
+    (attention, or the RG-LRU for ``rec``), then the feed-forward."""
     dt = cfg.param_dtype
-    attn = ab.attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv,
-                        cfg.head_dim, cfg.attn, cfg.qk_norm, dt)
+    if kind == "rec":
+        mixer = {"rec": rec.rglru_init(gen, cfg.d_model, cfg.rnn_width, dt)}
+    else:
+        mixer = {"attn": ab.attn_init(gen, cfg.d_model, cfg.n_heads,
+                                      cfg.n_kv, cfg.head_dim, cfg.attn,
+                                      cfg.qk_norm, dt)}
     ffn = (ll.moe_init(gen, cfg.d_model, cfg.moe, dt) if cfg.moe else
            ll.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dt))
     return {"ln1": ll.norm_init(cfg.norm_kind, cfg.d_model, dt),
             "ln2": ll.norm_init(cfg.norm_kind, cfg.d_model, dt),
-            "attn": attn, "ffn": ffn}
+            **mixer, "ffn": ffn}
+
+
+def _draw_stacked(n: int, draw, device) -> dict:
+    """``n`` trees drawn one after another by ``draw()``, each written
+    into its slice of tensors with a leading (n,) axis, allocated once on
+    ``device`` at the first draw."""
+    out = None
+    for i in range(n):
+        tree = draw()
+        if out is None:
+            out = tree_map(lambda t: torch.empty(
+                (n, *t.shape), dtype=t.dtype, device=device), tree)
+        tree_map(lambda dst, src: dst[i].copy_(src), out, tree)
+    return out
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
                 device="cuda", draw_on="cpu") -> dict:
     """Random params from ``seed``, in the reference's tree layout:
-    {"embed", "final_norm", "units": {"b0": leaves (n_layers, ...)},
+    {"embed", "final_norm", "units": {"b<i>": leaves (n_units, ...)},
+    "rem": [block, ...] when the pattern leaves remainder layers,
     "lm_head" when untied}. Drawn with a ``torch.Generator`` on
-    ``draw_on``, layer after layer, each layer written into its slice of
-    stacked tensors allocated once on ``device``, so the host holds one
-    layer's draws at a time (granite-8b's 8.2 B parameters never sit on
-    the host). Drawn on the CPU (the default), a seed gives the same
-    params on every device; drawn on a card (``draw_on=device``), other
+    ``draw_on``, layer after layer (unit by unit, the pattern in order,
+    then the remainder), each layer written into its slice of stacked
+    tensors allocated once on ``device``, so the host holds one layer's
+    draws at a time (granite-8b's 8.2 B parameters never sit on the
+    host). Drawn on the CPU (the default), a seed gives the same params
+    on every device; drawn on a card (``draw_on=device``), other
     numbers, the same on every card, in seconds where the CPU takes
     minutes at full width."""
     _check_servable(cfg)
@@ -119,15 +169,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
         "final_norm": tree_map(lambda t: t.to(device), ll.norm_init(
             cfg.norm_kind, cfg.d_model, dt)),
     }
-    layers = None
-    for li in range(cfg.n_layers):
-        block = _block_init(gen, cfg)
-        if layers is None:
-            layers = tree_map(lambda t: torch.empty(
-                (cfg.n_layers, *t.shape), dtype=t.dtype, device=device),
-                block)
-        tree_map(lambda dst, src: dst[li].copy_(src), layers, block)
-    params["units"] = {"b0": layers}
+    if cfg.n_units:
+        params["units"] = _draw_stacked(cfg.n_units, lambda: {
+            f"b{i}": _block_init(gen, cfg, kind)
+            for i, kind in enumerate(cfg.block_pattern)}, device)
+    if cfg.n_rem:
+        params["rem"] = [tree_map(lambda t: t.to(device),
+                                  _block_init(gen, cfg, kind))
+                         for kind in _rem_kinds(cfg)]
     if not cfg.tie_embeddings:
         params["lm_head"] = ll.trunc_normal(gen, (cfg.d_model, cfg.vocab),
                                             1.0, dt).to(device)
@@ -142,10 +191,18 @@ def can_stack_layers(cfg: ModelConfig) -> bool:
 
 
 def stack_layer_params(params: dict, cfg: ModelConfig) -> dict:
-    """One block tree with leaves (n_layers, ...). For the one-block
-    pattern the port serves, unit u is layer u: no copy."""
-    _check_servable(cfg)
-    return params["units"]["b0"]
+    """One block tree with leaves (n_layers, ...): layer u*k + i is
+    pattern position i of unit u. For the one-block patterns, unit u is
+    layer u: no copy."""
+    if not can_stack_layers(cfg):
+        raise ValueError(f"{cfg.name}: only a homogeneous pattern stacks "
+                         f"(got {cfg.block_pattern}, n_rem={cfg.n_rem})")
+    units = params["units"]
+    k = len(cfg.block_pattern)
+    if k == 1:
+        return units["b0"]
+    return tree_map(lambda *ts: torch.stack(ts, 1).flatten(0, 1),
+                    *(units[f"b{i}"] for i in range(k)))
 
 
 def _layers(params: dict, cfg: ModelConfig) -> dict:
@@ -154,40 +211,85 @@ def _layers(params: dict, cfg: ModelConfig) -> dict:
 
 
 def build_decode_proj(params: dict, cfg: ModelConfig,
-                      stacked: bool = True) -> Optional[dict]:
-    """Precompose every layer's serve projection A = (W M)^T once, at
-    engine build, for the fused prefill and decode kernels. Returns
-    {"layers": {"a": (L, G, d, m), "m_mat": (L, G, r, d) | None}}, or
-    None when the config has no fused path."""
+                      stacked: Optional[bool] = None) -> Optional[dict]:
+    """Precompose every attention layer's serve projection A = (W M)^T
+    once, at engine build, for the fused prefill and decode kernels.
+    Returns a tree mirroring the serve state's layout (``stacked``, by
+    default :func:`can_stack_layers`): {"layers": {"a": (L, G, d, m),
+    "m_mat": (L, G, r, d) | None}}, or {"units": {"b<i>": ... with
+    leaves (n_units, ...) | None}, "rem": [... | None]}, None at the
+    blocks without attention; None when the config has no fused path."""
     if not (cfg.use_kernel and cfg.attn.kind in fm.PRF_KINDS):
         return None
-    if not stacked:
-        raise _not_ported("the unit/rem serving layout")
-    return {"layers": fm.precompose_projection(
-        _layers(params, cfg)["attn"]["feat"], cfg.attn.kind)}
+    if stacked is None:
+        stacked = can_stack_layers(cfg)
+    if stacked:
+        return {"layers": fm.precompose_projection(
+            _layers(params, cfg)["attn"]["feat"], cfg.attn.kind)}
+
+    def proj(block, kind):
+        return (None if kind == "rec" else fm.precompose_projection(
+            block["attn"]["feat"], cfg.attn.kind))
+    out: dict[str, Any] = {"units": {
+        f"b{i}": proj(params["units"][f"b{i}"], kind)
+        for i, kind in enumerate(cfg.block_pattern)}}
+    if cfg.n_rem:
+        out["rem"] = [proj(bp, kind)
+                      for bp, kind in zip(params["rem"], _rem_kinds(cfg))]
+    return out
+
+
+def _init_block_state(cfg: ModelConfig, kind: str, b: int, max_len: int,
+                      per_slot: bool, device):
+    if kind == "rec":
+        return rec.init_rglru_state(b, cfg.rnn_width, device)
+    return ab.init_attn_serve_state(cfg.attn, b, cfg.n_heads, cfg.n_kv,
+                                    cfg.head_dim, max_len,
+                                    per_slot=per_slot, device=device)
+
+
+def _stack_state(st, n: int):
+    return type(st)(*(t.expand(n, *t.shape).clone() for t in st))
 
 
 def init_serve_state(cfg: ModelConfig, b: int, max_len: int,
-                     per_slot: bool = False, stacked: bool = True,
+                     per_slot: bool = False,
+                     stacked: Optional[bool] = None,
                      device="cuda") -> dict:
-    """Initial serving state for b sequences: {"layers": the block's
-    state (``AttnServeState``, or ``KVCacheState`` for exact) with leaves
-    (n_layers, b, ...), "pos": (b,) int32 if ``per_slot``
-    else () int32}. The PRF state is fixed-size, so there ``max_len``
-    only bounds the engine's context budget; the exact kind gets a KV
-    cache of ``max_len`` positions a layer and a ``length`` of
-    (n_layers, b) or, without ``per_slot``, (n_layers,)."""
+    """Initial serving state for b sequences. Stacked (``stacked``, by
+    default :func:`can_stack_layers`; a heterogeneous pattern raises
+    ``ValueError``): {"layers": the block's state with leaves (n_layers,
+    b, ...), "pos"}. Otherwise the unit/rem layout: {"units": {"b<i>":
+    leaves (n_units, b, ...)}, "rem": [leaves (b, ...), ...], "pos"}.
+    A block's state is ``AttnServeState`` (the PRF kinds),
+    ``KVCacheState`` (exact) or ``rec.RGLRUState``; "pos" is (b,) int32
+    if ``per_slot`` else () int32. The PRF and RG-LRU states are
+    fixed-size, so there ``max_len`` only bounds the engine's context
+    budget; the exact kind gets a KV cache of ``max_len`` positions a
+    layer, with a (b,) ``length`` under ``per_slot``, else ()."""
     _check_servable(cfg)
-    if not stacked or not can_stack_layers(cfg):
-        raise _not_ported("the unit/rem serving layout")
-    st = ab.init_attn_serve_state(cfg.attn, b, cfg.n_heads, cfg.n_kv,
-                                  cfg.head_dim, max_len, per_slot=per_slot,
-                                  device=device)
-    layers = type(st)(*(t.expand(cfg.n_layers, *t.shape).clone()
-                        for t in st))
-    return {"layers": layers,
-            "pos": torch.zeros((b,) if per_slot else (), dtype=torch.int32,
-                               device=device)}
+    if stacked is None:
+        stacked = can_stack_layers(cfg)
+    pos = torch.zeros((b,) if per_slot else (), dtype=torch.int32,
+                      device=device)
+
+    def block(kind):
+        return _init_block_state(cfg, kind, b, max_len, per_slot, device)
+    if stacked:
+        if not can_stack_layers(cfg):
+            raise ValueError(
+                f"{cfg.name}: stacked serve states need a homogeneous "
+                f"block pattern (got {cfg.block_pattern}, "
+                f"n_rem={cfg.n_rem})")
+        return {"layers": _stack_state(block(cfg.block_pattern[0]),
+                                       cfg.n_layers), "pos": pos}
+    state: dict[str, Any] = {"units": {
+        f"b{i}": _stack_state(block(kind), cfg.n_units)
+        for i, kind in enumerate(cfg.block_pattern)}}
+    if cfg.n_rem:
+        state["rem"] = [block(kind) for kind in _rem_kinds(cfg)]
+    state["pos"] = pos
+    return state
 
 
 def init_paged_serve_state(cfg: ModelConfig, b: int, max_len: int,
@@ -223,42 +325,74 @@ def init_kv_pages(cfg: ModelConfig, n_pages: int, page_size: int,
             "v": torch.zeros(shape, dtype=torch.float32, device=device)}
 
 
-def _layer_slices(params, cfg, state, proj, pages=None):
-    """(params, serve state, projections, page pools) of each layer, the
-    state's leaves and the pools as views into the stacked tensors, so
-    that in-place writes land there."""
+def _state_at(st, i):
+    return type(st)(*(t[i] for t in st))
+
+
+def _blocks(params, cfg: ModelConfig, state=None, proj=None, pages=None):
+    """(kind, params, serve state, projection, page pools) of each layer
+    in order, in either layout: leaves sliced from the stacked or unit
+    tensors as views, so that in-place writes land in the pool. ``state``
+    None (training) gives None states; ``proj`` and ``pages`` None give
+    None there."""
+    if not can_stack_layers(cfg):
+        for u in range(cfg.n_units):
+            for i, kind in enumerate(cfg.block_pattern):
+                key = f"b{i}"
+                up = (None if proj is None or proj["units"][key] is None
+                      else tree_map(lambda t: t[u], proj["units"][key]))
+                yield (kind, tree_map(lambda t: t[u], params["units"][key]),
+                       None if state is None
+                       else _state_at(state["units"][key], u), up, None)
+        for i, kind in enumerate(_rem_kinds(cfg)):
+            yield (kind, params["rem"][i],
+                   None if state is None else state["rem"][i],
+                   None if proj is None else proj["rem"][i], None)
+        return
     sp = _layers(params, cfg)
-    st = state["layers"]
+    kind = cfg.block_pattern[0]
     for li in range(cfg.n_layers):
-        lp = tree_map(lambda t: t[li], sp)
-        ls = type(st)(*(t[li] for t in st))
-        lproj = None if proj is None else tree_map(lambda t: t[li],
-                                                   proj["layers"])
-        lpages = None if pages is None else (pages["k"][li],
-                                             pages["v"][li])
-        yield lp, ls, lproj, lpages
+        yield (kind, tree_map(lambda t: t[li], sp),
+               None if state is None else _state_at(state["layers"], li),
+               None if proj is None else tree_map(lambda t: t[li],
+                                                  proj["layers"]),
+               None if pages is None else (pages["k"][li], pages["v"][li]))
 
 
-def _apply_block(params, x, cfg: ModelConfig, *, mode, state=None,
-                 position=None, valid_len=None, proj=None, draw=None,
-                 pages=None):
-    """One block: attention, then the dense or MoE feed-forward. Returns
-    (x, the block's aux loss: 0-d f32 with MoE, else None)."""
+def _apply_block(params, x, cfg: ModelConfig, kind: str = "attn", *, mode,
+                 state=None, position=None, valid_len=None, proj=None,
+                 draw=None, pages=None):
+    """One block: the mixer (attention, ``window`` for a "local" block;
+    or the RG-LRU, whose serve state it writes in place), then the dense
+    or MoE feed-forward. Returns (x, the block's aux loss: 0-d f32 with
+    MoE, else None)."""
     h = ll.apply_norm(cfg.norm_kind, params["ln1"], x)
-    common = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.head_dim,
-                  qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
-                  use_kernel=cfg.use_kernel)
-    if mode == "train":
-        mix = ab.attn_apply(params["attn"], h, cfg.attn, causal=cfg.causal,
-                            baseline_draw=draw, **common)
-    elif mode == "prefill":
-        mix, _ = ab.attn_prefill(params["attn"], h, cfg.attn, state=state,
-                                 position=position, valid_len=valid_len,
-                                 proj=proj, pages=pages, **common)
+    if kind == "rec":
+        if mode == "train":
+            mix, _ = rec.rglru_apply(params["rec"], h)
+        else:
+            mix, new = rec.rglru_apply(params["rec"], h, state,
+                                       valid_len=valid_len)
+            state.h.copy_(new.h)
+            state.conv.copy_(new.conv)
     else:
-        mix, _ = ab.attn_decode(params["attn"], h, state, cfg.attn,
-                                position=position, proj=proj, pages=pages,
+        common = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+                      d_head=cfg.head_dim, qk_norm=cfg.qk_norm,
+                      rope_theta=cfg.rope_theta, use_kernel=cfg.use_kernel,
+                      window=cfg.window if kind == "local" else None)
+        if mode == "train":
+            mix = ab.attn_apply(params["attn"], h, cfg.attn,
+                                causal=cfg.causal, baseline_draw=draw,
                                 **common)
+        elif mode == "prefill":
+            mix, _ = ab.attn_prefill(params["attn"], h, cfg.attn,
+                                     state=state, position=position,
+                                     valid_len=valid_len, proj=proj,
+                                     pages=pages, **common)
+        else:
+            mix, _ = ab.attn_decode(params["attn"], h, state, cfg.attn,
+                                    position=position, proj=proj,
+                                    pages=pages, **common)
     x = x + mix
     h2 = ll.apply_norm(cfg.norm_kind, params["ln2"], x)
     if cfg.moe:
@@ -300,21 +434,20 @@ def baseline_draws(cfg: ModelConfig, l: int,
 
 def forward_train(params, cfg: ModelConfig, batch: dict,
                   gen: Optional[torch.Generator] = None):
-    """Full forward over batch["tokens"] (B, L). Returns (logits (B, L, V)
-    f32, aux loss 0-d f32: the MoE load-balancing losses summed over the
-    layers, zero without MoE). With ``cfg.use_kernel`` every layer's causal
-    PRF attention runs the ``linear_attention_causal`` kernel. The random
-    baseline reads layer i's (L, L) logits from :func:`baseline_draws`
-    of ``gen``; the other kinds read none."""
+    """Full forward over batch["tokens"] (B, L), layer by layer in either
+    layout. Returns (logits (B, L, V) f32, aux loss 0-d f32: the MoE
+    load-balancing losses summed over the layers, zero without MoE).
+    With ``cfg.use_kernel`` every layer's causal PRF attention runs the
+    ``linear_attention_causal`` kernel. The random baseline reads layer
+    i's (L, L) logits from :func:`baseline_draws` of ``gen``; the other
+    kinds read none."""
     _check_servable(cfg)
     x = _embed_inputs(params, cfg, batch)
     draws = (baseline_draws(cfg, x.shape[1], gen, x.device)
              if cfg.attn.kind == "random" else None)
-    sp = _layers(params, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for li in range(cfg.n_layers):
-        x, aux_l = _apply_block(tree_map(lambda t: t[li], sp), x, cfg,
-                                mode="train",
+    for li, (kind, bp, _, _, _) in enumerate(_blocks(params, cfg)):
+        x, aux_l = _apply_block(bp, x, cfg, kind, mode="train",
                                 draw=None if draws is None else draws[li])
         if aux_l is not None:
             aux = aux + aux_l
@@ -353,8 +486,13 @@ def collect_qk(params, cfg: ModelConfig, batch: dict, *,
     without gradient (with ``cfg.use_kernel`` a PRF layer launches
     ``linear_attention_causal`` once). The random baseline reads layer
     li's (L, L) logits from ``draws`` ((n_layers, L, L)), else from
-    :func:`baseline_draws` of a generator seeded 0."""
+    :func:`baseline_draws` of a generator seeded 0. Homogeneous stacks
+    only: the taps over the unit/rem layout are ROADMAP A12b2."""
     _check_servable(cfg)
+    if not can_stack_layers(cfg):
+        raise NotImplementedError(
+            "collect_qk and whitening_calibrate over the unit/rem layout "
+            "are not ported yet (ROADMAP.md Queue A, item A12b2)")
     taps: dict = {}
     with torch.no_grad():
         x = _embed_inputs(params, cfg, batch)
@@ -412,12 +550,14 @@ def whitening_calibrate(params, cfg: ModelConfig, batch: dict,
 
 
 def _serve_proj(params, cfg: ModelConfig, proj: Optional[dict],
-                fused: bool) -> Optional[dict]:
+                fused: bool, state: dict) -> Optional[dict]:
     """The projections the fused kernels run against: ``proj``, or built
-    here when None; none at all when ``fused`` is False."""
+    here in ``state``'s layout when None; none at all when ``fused`` is
+    False."""
     if not fused:
         return None
-    return proj if proj is not None else build_decode_proj(params, cfg)
+    return (proj if proj is not None else
+            build_decode_proj(params, cfg, stacked="layers" in state))
 
 
 def prefill_chunk(params, cfg: ModelConfig, batch: dict, state: dict,
@@ -430,21 +570,20 @@ def prefill_chunk(params, cfg: ModelConfig, batch: dict, state: dict,
     int32) makes the chunk ragged: row b consumes its first
     ``valid_len[b]`` tokens and the rest leave no trace; logits are
     gathered at each row's last valid position. With ``cfg.use_kernel``
-    every layer runs the fused ``prf_fused_prefill`` kernel against
-    ``proj`` (built here when None); ``fused=False`` drops ``proj`` and
-    runs the two stages instead, the plain feature map and the
-    ``linear_attention_prefill_chunk`` kernel (the oracle the fused
+    every attention layer runs the fused ``prf_fused_prefill`` kernel
+    against ``proj`` (built here when None); ``fused=False`` drops
+    ``proj`` and runs the two stages instead, the plain feature map and
+    the ``linear_attention_prefill_chunk`` kernel (the oracle the fused
     kernel is tested against). A paged exact ``state``
     (:func:`init_paged_serve_state`) writes into the page pools ``pages``
     (:func:`init_kv_pages`) in place. Returns (logits (B, V) f32, state).
     """
-    if "layers" not in state:
-        raise _not_ported("the unit/rem serving layout")
     x = _embed_inputs(params, cfg, batch)
     pos = state["pos"]
-    proj = _serve_proj(params, cfg, proj, fused)
-    for lp, ls, lproj, lpg in _layer_slices(params, cfg, state, proj, pages):
-        x, _ = _apply_block(lp, x, cfg, state=ls, mode="prefill",
+    proj = _serve_proj(params, cfg, proj, fused, state)
+    for kind, lp, ls, lproj, lpg in _blocks(params, cfg, state, proj,
+                                            pages):
+        x, _ = _apply_block(lp, x, cfg, kind, state=ls, mode="prefill",
                             position=pos, valid_len=valid_len, proj=lproj,
                             pages=lpg)
     state["pos"] = pos + (x.shape[1] if valid_len is None else valid_len)
@@ -471,22 +610,21 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, state: dict,
                 proj: Optional[dict] = None, fused: bool = True,
                 pages: Optional[dict] = None):
     """One serving step, advancing ``state`` in place. token: (B,) ->
-    (logits (B, V) f32, state). With ``cfg.use_kernel`` every layer runs
-    the fused ``prf_fused_decode`` kernel against ``proj`` (built here
-    when None); ``fused=False`` drops ``proj`` and runs the two stages
-    instead, the plain feature map and the
+    (logits (B, V) f32, state). With ``cfg.use_kernel`` every attention
+    layer runs the fused ``prf_fused_decode`` kernel against ``proj``
+    (built here when None); ``fused=False`` drops ``proj`` and runs the
+    two stages instead, the plain feature map and the
     ``linear_attention_decode_step`` kernel. ``pages`` as in
     :func:`prefill_chunk`."""
-    if "layers" not in state:
-        raise _not_ported("the unit/rem serving layout")
     pos = state["pos"]
     x = params["embed"][token][:, None]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     x = x.to(cfg.param_dtype)
-    proj = _serve_proj(params, cfg, proj, fused)
-    for lp, ls, lproj, lpg in _layer_slices(params, cfg, state, proj, pages):
-        x, _ = _apply_block(lp, x, cfg, state=ls, mode="decode",
+    proj = _serve_proj(params, cfg, proj, fused, state)
+    for kind, lp, ls, lproj, lpg in _blocks(params, cfg, state, proj,
+                                            pages):
+        x, _ = _apply_block(lp, x, cfg, kind, state=ls, mode="decode",
                             position=pos, proj=lproj, pages=lpg)
     state["pos"] = pos + 1
     return _logits(params, cfg, x[:, 0]), state

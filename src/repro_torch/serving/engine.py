@@ -24,6 +24,9 @@ no kernel, in the reference as here; ``submit`` refuses a prompt that
 does not fit it and admission clips the decode budget to it. Every path
 updates the state in place, so a decode with free slots advances only
 the active rows (``slots.freeze_inactive``): free rows stay bit-frozen.
+Each decode runs ``max_slots`` rows all the same (the active rows
+padded with repeats), so a row's logits do not depend on how many slots
+are busy.
 
 Every small host array of a step (indices, ``valid_len``, tokens,
 sampling parameters, uniforms) reaches the device through ``to_device``:
@@ -76,8 +79,10 @@ staging row (``slots.fork_slots``) and its cursor starts at the cached
 length, so only the rest of the prompt is prefilled, through the same
 ``prefill_chunk`` calls (B2 under the kernels) from the seeded state.
 For the PRF kinds the fork costs the fixed-size (S, z, c) whatever the
-prefix's length. The exact kind switches both pools to block-granular
-PAGED KV (path ``exact_paged``): rows hold page tables over shared page
+prefix's length, and for the RG-LRU the fixed-size (h, conv). The exact
+kind of a layer-stacked config (as in the reference, not the unit/rem
+layout, which forks its contiguous caches) switches both pools to
+block-granular PAGED KV (path ``exact_paged``): rows hold page tables over shared page
 pools (``lm.init_kv_pages``), a fork shares the prefix's full pages
 (refcounted, ``PageAllocator``) and copies only its partial tail page,
 and an admission that finds no free page waits in the queue. The pages
@@ -269,10 +274,14 @@ class ServingEngine:
                 f" must divide chunk_tokens={chunk_tokens}: capture "
                 "points fire only when a prefill cursor lands on a "
                 "block boundary")
-        # with a prefix cache the exact kind serves from paged KV: rows
-        # hold page tables over shared page pools, so a cached prefix's
-        # pages can be shared by its forks
-        self._paged = self._pc_cfg is not None and cfg.attn.kind == "exact"
+        # homogeneous configs stack every layer's state along one leading
+        # axis; heterogeneous patterns keep the unit/rem layout. With a
+        # prefix cache the exact kind of a stacked config serves from
+        # paged KV: rows hold page tables over shared page pools, so a
+        # cached prefix's pages can be shared by its forks
+        self._stacked = lm.can_stack_layers(cfg)
+        self._paged = (self._pc_cfg is not None and self._stacked
+                       and cfg.attn.kind == "exact")
         if self._paged:
             ps = self._pc_cfg.page_size
             self._page_size = ps
@@ -295,7 +304,8 @@ class ServingEngine:
 
             def pool(b):
                 return lm.init_serve_state(cfg, b=b, max_len=max_len,
-                                           per_slot=True, stacked=True,
+                                           per_slot=True,
+                                           stacked=self._stacked,
                                            device=self.device)
         # the physical page ids each slot owns (refcounts in _alloc);
         # freed slots wait in _pending_clear until _flush_freed resets
@@ -310,8 +320,10 @@ class ServingEngine:
         # the layer-stacked params and the precomposed projections
         # A = (W M)^T, built once here for both kernels
         self._step_params = dict(params)
-        self._step_params["layers"] = lm.stack_layer_params(params, cfg)
-        self._proj = lm.build_decode_proj(self._step_params, cfg)
+        if self._stacked:
+            self._step_params["layers"] = lm.stack_layer_params(params, cfg)
+        self._proj = lm.build_decode_proj(self._step_params, cfg,
+                                          stacked=self._stacked)
         # what the dispatch runs: softmax over the KV cache (no kernel),
         # or the PRF kernels, which only take CUDA tensors (on the CPU
         # the same wrappers run their plain versions), or plain torch
@@ -747,16 +759,27 @@ class ServingEngine:
     def _decode(self, feed: torch.Tensor) -> tuple:
         """Dispatch one batched decode over the active slots, fed their
         tokens from ``feed`` ((max_slots,) ids on the device), and their
-        draws. Returns (the rows, their index on the device or None when
-        every slot is active, their sampled ids on the device)."""
+        draws. Every call runs ``max_slots`` rows, as the reference's
+        lock-step decode does: with free slots the active rows are padded
+        with repeats of the first, so no product sees another row count
+        (cuBLAS picks an f32 GEMM's algorithm by it, and the RG-LRU's
+        gates are f32 products) and a row's result does not depend on
+        how many slots are busy. Returns (the rows, their index on the
+        device or None when every slot is active, their sampled ids on
+        the device)."""
         rows = [int(i) for i in np.nonzero(self._active)[0]]
         counts = [self._slots[i].emitted for i in rows]
-        idx = None if self._active.all() else self._idx(rows)
-        toks = feed if idx is None else feed.index_select(0, idx)
+        idx = gather = None
+        if not self._active.all():
+            gather = self._idx(rows + rows[:1] * (self.max_slots
+                                                  - len(rows)))
+            idx = gather[:len(rows)]
+        toks = feed if gather is None else feed.index_select(0, gather)
         logits = slot_ops.freeze_inactive(
-            self.pool, idx,
+            self.pool, gather,
             lambda st: lm.decode_step(self._step_params, self.cfg, toks, st,
-                                      proj=self._proj, pages=self._pages))
+                                      proj=self._proj, pages=self._pages),
+            n=len(rows))
         self._dispatch_seq += 1
         return rows, idx, self._sample(logits, rows, counts)
 

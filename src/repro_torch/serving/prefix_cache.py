@@ -139,7 +139,7 @@ def prefix_key(tokens: Sequence[int]) -> str:
 def _leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, tuple):
+    if isinstance(tree, (tuple, list)):
         return [x for v in tree for x in _leaves(v)]
     return [] if tree is None else [tree]
 

@@ -2,10 +2,12 @@
 
 A pool is ``lm.init_serve_state(cfg, b=max_slots, per_slot=True)``, or
 ``lm.init_paged_serve_state`` for the exact kind over paged KV: slot i
-is batch row i of every leaf. ``state["layers"]`` leaves carry a
-leading layer axis, so their slot axis is 1 (the exact cache's
-``length`` and the paged state's ``table`` and ``length`` too);
-``state["pos"]`` has it at 0. The paged layout's page pools carry no
+is batch row i of every leaf. In the stacked layout ``state["layers"]``
+leaves carry a leading layer axis, so their slot axis is 1 (the exact
+cache's ``length`` and the paged state's ``table`` and ``length`` too);
+in the unit/rem layout ``state["units"]`` leaves carry a leading unit
+axis, so theirs is 1 too, while each ``state["rem"]`` block's leaves
+have it at 0, as ``state["pos"]`` has. The paged layout's page pools carry no
 slot axis and are not part of the tree, so every primitive here moves
 page IDS, never pages. Every engine mutation reduces to the primitives
 here. The scatters
@@ -23,15 +25,28 @@ from typing import Callable, Optional
 import torch
 
 
+def _block_map(fn, axis: int, st, *others):
+    return type(st)(*(fn(p, *o, axis=axis) for p, *o in zip(st, *others)))
+
+
 def tree_slot_map(fn, pool: dict, *others: dict) -> dict:
     """Map ``fn(pool_leaf, *other_leaves, axis=slot_axis)`` over serve
-    states of the stacked layout, of any kind (``AttnServeState``,
-    ``KVCacheState``, ``PagedKVState``)."""
-    layers = type(pool["layers"])(*(
-        fn(p, *o, axis=1)
-        for p, *o in zip(pool["layers"], *[t["layers"] for t in others])))
-    return {"layers": layers,
-            "pos": fn(pool["pos"], *[t["pos"] for t in others], axis=0)}
+    states of either layout whose blocks are of any kind
+    (``AttnServeState``, ``KVCacheState``, ``PagedKVState``,
+    ``RGLRUState``)."""
+    out = {}
+    if "layers" in pool:
+        out["layers"] = _block_map(fn, 1, pool["layers"],
+                                   *[t["layers"] for t in others])
+    if "units" in pool:
+        out["units"] = {k: _block_map(fn, 1, st,
+                                      *[t["units"][k] for t in others])
+                        for k, st in pool["units"].items()}
+    if "rem" in pool:
+        out["rem"] = [_block_map(fn, 0, st, *[t["rem"][i] for t in others])
+                      for i, st in enumerate(pool["rem"])]
+    out["pos"] = fn(pool["pos"], *[t["pos"] for t in others], axis=0)
+    return out
 
 
 def read_slots(pool: dict, idx: torch.Tensor) -> dict:
@@ -140,16 +155,20 @@ class PackBuffer:
 
 
 def freeze_inactive(pool: dict, idx: Optional[torch.Tensor],
-                    advance: Callable[[dict], tuple]):
-    """Advance only the slots ``idx`` ((n,) int64 on the pool's device,
+                    advance: Callable[[dict], tuple],
+                    n: Optional[int] = None):
+    """Advance only the slots ``idx`` ((P,) int64 on the pool's device,
     ascending; None = every slot) of ``pool``; the other rows stay
     bit-frozen, ``pos`` included.
 
     ``advance(state)`` steps a per-slot state in place and returns
     (out, state) with ``out`` batched along dim 0. When every slot is
-    active the pool itself is advanced; otherwise the active rows are
+    active the pool itself is advanced; otherwise the rows ``idx`` are
     gathered, advanced and scattered back (the in-place kernels leave no
-    old copy to select inactive rows from afterwards). Returns ``out``:
+    old copy to select inactive rows from afterwards). With ``n``, only
+    the first ``n`` rows of ``idx`` are slots to advance; the rest pad
+    the call (repeats of a row, advanced on their copies and dropped),
+    so that every call can run the same number of rows. Returns ``out``:
     one row per advanced slot, in slot order.
     """
     if idx is None:
@@ -157,5 +176,8 @@ def freeze_inactive(pool: dict, idx: Optional[torch.Tensor],
         return out
     sub = read_slots(pool, idx)
     out, sub = advance(sub)
+    if n is not None and n < idx.shape[0]:
+        keep = torch.arange(n, device=idx.device)
+        sub, out, idx = read_slots(sub, keep), out[:n], idx[:n]
     write_slots(pool, sub, idx)
     return out

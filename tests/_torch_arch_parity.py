@@ -4,7 +4,7 @@ one reduced arch of the port held against the reference's on the CPU.
 Both packages get the same params (the reference's, brought across by
 ``repro_torch.bridge``) and the same inputs (numpy seeds). Reduced
 configs are f32. Tolerances: the LM's logits and every serve-state leaf
-within ``ATOL`` (f32 in other reduction orders across 2 layers, as
+within ``ATOL`` (f32 in other reduction orders across 2-4 layers, as
 tests/test_torch_model.py), the loss within ``OUT_TOL`` and every
 gradient within ``GRAD_TOL`` (as tests/test_torch_training.py).
 """
@@ -41,7 +41,7 @@ OUT_TOL = dict(atol=1e-5, rtol=1e-4)
 GRAD_TOL = dict(atol=2e-6, rtol=2e-4)
 # reference fields the port's ModelConfig leaves out: remat and the
 # sharding rules wait with ROADMAP A13; the others must hold the
-# reference's defaults (no window, text, no RNN width, no patches)
+# reference's defaults (text, stacked layers, no patches)
 LEFT_OUT = ("remat", "sharding_overrides")
 # (L, valid_len) of each resumed chunk; no row is empty, as in serving
 CHUNKS = [(6, (6, 2, 3)), (5, None), (7, (3, 7, 1))]
@@ -110,10 +110,11 @@ def assert_init_tree_matches(arch):
     assert got == exp
 
 
-def check_loss_and_grads(arch, use_kernel=False):
+def check_loss_and_grads(arch, use_kernel=False, **kw):
     """The loss (with ce, z_loss, aux and accuracy) and every gradient
-    leaf against ``jax.grad``. Returns the port's metrics."""
-    jcfg, tcfg, jparams, tparams = setup(arch, use_kernel=use_kernel)
+    leaf against ``jax.grad``; ``kw`` overrides config fields in both.
+    Returns the port's metrics."""
+    jcfg, tcfg, jparams, tparams = setup(arch, use_kernel=use_kernel, **kw)
     data = SyntheticLM(jcfg.vocab, 16, 2, seed=1).batch(0)
     jb = {k: jnp.asarray(v) for k, v in data.items()}
     (_, jm), jgrads = jax.jit(jax.value_and_grad(
@@ -136,28 +137,59 @@ def check_loss_and_grads(arch, use_kernel=False):
     return tm
 
 
-def check_prefill_and_decode(arch, use_kernel, fused=True):
-    """Three resumed ragged packed chunks, then two decode steps, in both
-    packages: logits and every serve-state leaf (S, z, c, pos) after
-    each."""
-    jcfg, tcfg, jparams, tparams = setup(arch, use_kernel=use_kernel)
+def port_state_np(state) -> dict:
+    """Every leaf of a port serve state, in either layout, as a numpy copy
+    under the reference's ``keystr`` path (a block state's field as
+    ``.s``)."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}[{k!r}]")
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{path}[{i}]")
+        elif isinstance(node, tuple):
+            for name, v in node._asdict().items():
+                walk(v, f"{path}.{name}")
+        else:
+            t = node.detach().cpu()
+            out[path] = (t.float() if t.is_floating_point() else
+                         t).numpy().copy()
+    walk(state, "")
+    return out
+
+
+def assert_states_close(tstate, jstate, msg, atol=ATOL):
+    """The same leaves in both packages' serve states (the reference's
+    None leaves dropped), each within ``atol``; ``pos`` equal."""
+    exp, got = flat_np(jstate), port_state_np(tstate)
+    assert got.keys() == exp.keys(), msg
+    for path, e in exp.items():
+        if path == "['pos']":
+            np.testing.assert_array_equal(got[path], e, err_msg=msg)
+        else:
+            np.testing.assert_allclose(got[path], e.astype(np.float32),
+                                       atol=atol, rtol=0,
+                                       err_msg=f"{path} {msg}")
+
+
+def check_prefill_and_decode(arch, use_kernel, fused=True, chunks=CHUNKS,
+                             **kw):
+    """Resumed ragged packed chunks (three by default), then two decode
+    steps, in both packages, in the serve-state layout the config takes
+    (stacked, or unit/rem): logits and every serve-state leaf (S, z, c;
+    h, conv; kv_k, kv_v, length; pos) after each. ``kw`` overrides
+    config fields in both."""
+    jcfg, tcfg, jparams, tparams = setup(arch, use_kernel=use_kernel, **kw)
     b = 3
     jstate = jlm.init_serve_state(jcfg, b=b, max_len=64, per_slot=True,
-                                  stacked=True)
+                                  stacked=tlm.can_stack_layers(tcfg))
     tstate = tlm.init_serve_state(tcfg, b=b, max_len=64, per_slot=True,
                                   device="cpu")
-
-    def states_close(msg):
-        jl, tl = jstate["layers"], tstate["layers"]
-        for name in ("s", "z", "c"):
-            np.testing.assert_allclose(
-                getattr(tl, name).numpy(), np.asarray(getattr(jl, name)),
-                atol=ATOL, rtol=0, err_msg=f"{name} {msg}")
-        np.testing.assert_array_equal(tstate["pos"].numpy(),
-                                      np.asarray(jstate["pos"]))
-
     rng = np.random.default_rng(3)
-    for step, (l, vl) in enumerate(CHUNKS):
+    for step, (l, vl) in enumerate(chunks):
         toks = rng.integers(0, jcfg.vocab, (b, l)).astype(np.int32)
         vl_np = None if vl is None else np.asarray(vl, np.int32)
         jlog, jstate = jlm.prefill_chunk(
@@ -171,7 +203,7 @@ def check_prefill_and_decode(arch, use_kernel, fused=True):
         np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
                                    atol=ATOL, rtol=0,
                                    err_msg=f"prefill logits, chunk {step}")
-        states_close(f"after chunk {step}")
+        assert_states_close(tstate, jstate, f"after chunk {step}")
     for step in range(2):
         tok = rng.integers(0, jcfg.vocab, (b,)).astype(np.int32)
         jlog, jstate = jlm.decode_step(jparams, jcfg, jnp.asarray(tok),
@@ -182,14 +214,15 @@ def check_prefill_and_decode(arch, use_kernel, fused=True):
         np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
                                    atol=ATOL, rtol=0,
                                    err_msg=f"decode logits, step {step}")
-        states_close(f"after decode {step}")
+        assert_states_close(tstate, jstate, f"after decode {step}")
+    return tstate
 
 
-def check_engine_streams(arch, overlap, use_kernel=True):
+def check_engine_streams(arch, overlap, use_kernel=True, **kw):
     """The same bridged params, requests and chunk schedule through both
     packages' engines under one scheduler: greedy streams equal token for
-    token."""
-    jcfg, tcfg, jparams, tparams = setup(arch, use_kernel=use_kernel)
+    token. ``kw`` overrides config fields in both."""
+    jcfg, tcfg, jparams, tparams = setup(arch, use_kernel=use_kernel, **kw)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, jcfg.vocab, n).tolist() for n in LENGTHS]
     streams = []
@@ -206,8 +239,9 @@ def check_engine_streams(arch, overlap, use_kernel=True):
         assert eng.stats["finished"] == len(prompts)
     assert streams[0] == streams[1]
     assert [len(s) for s in streams[1]] == list(GENS)
-    assert eng.stats["decode_path"] == ("fused_plain" if use_kernel
-                                        else "torch")
+    assert eng.stats["decode_path"] == (
+        "exact" if tcfg.attn.kind == "exact" else
+        "fused_plain" if use_kernel else "torch")
 
 
 def check_checkpoints_cross(arch, tmp_path, dtype):

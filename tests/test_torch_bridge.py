@@ -84,7 +84,8 @@ def test_port_imports_neither_jax_nor_reference():
     for mod in ("core/attention", "core/feature_maps",
                 "core/linear_attention", "kernels/linear_attn_scan",
                 "kernels/prf_featmap", "kernels/prf_decode_step",
-                "kernels/wkv6_scan", "kernels/check", "models/lm", "optim/adamw",
+                "kernels/wkv6_scan", "kernels/check", "models/lm",
+                "models/recurrent", "optim/adamw",
                 "optim/schedules", "data/synthetic", "data/c4_mock",
                 "checkpoint/store", "checkpoint/msgpack_subset",
                 "launch/steps", "launch/train", "tree"):

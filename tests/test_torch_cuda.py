@@ -50,6 +50,12 @@ def dev():
     (8, 8, 8, 128, 256, 128, True, True, torch.bfloat16),
     (8, 4, 16, 128, 256, 128, True, True, torch.bfloat16),
     (1, 4, 16, 128, 256, 128, True, True, torch.float32),
+    # recurrentgemma-2b's local layers: 10 query heads on one KV head,
+    # d_head = m = dv = 256
+    (8, 1, 10, 256, 256, 256, True, True, torch.bfloat16),
+    (8, 1, 10, 256, 256, 256, True, False, torch.float32),
+    (1, 1, 10, 256, 256, 256, True, True, torch.float32),
+    (3, 1, 10, 256, 256, 256, False, True, torch.bfloat16),
 ])
 def test_decode_kernel_matches_plain(dev, b, g, hg, d, m, dv, dark, stab,
                                      dtype):
@@ -190,6 +196,22 @@ def test_prefill_kernel_at_d128_heads(dev, g, hg, b, l, valid_len):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,valid_len", D128_GRANTS)
+def test_prefill_kernel_at_recurrentgemma_heads(dev, b, l, valid_len,
+                                                dtype):
+    """B2 at recurrentgemma-2b's local layers (G 1, Hg 10, d_head = m =
+    dv = 256: r at the kernel's widest, 164 352 bytes of logits block),
+    each grant of the packer, f32 and bf16 q/k/v."""
+    args = check.make_inputs(dev, b, 1, 10, 256, 256, 256, l, True,
+                             seed=b + l + 10, dtype=dtype)
+    vl = torch.tensor(valid_len, dtype=torch.int32, device=dev)
+    check.check_case("prefill recurrentgemma", lambda: kp.launches,
+                     kp.fused_prf_prefill, kp.prf_fused_prefill_plain, args,
+                     (5, 6, 7), vl, eps=1e-8)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,l", [(8, 32), (4, 64), (2, 128), (1, 256)])
 def test_prefill_kernel_updates_in_place_without_pool_copies(dev, b, l):
     """s, z and c stay where they lie, and the call allocates less than the
@@ -231,6 +253,10 @@ def test_prefill_kernel_updates_in_place_without_pool_copies(dev, b, l):
     (1, 8, 7, 1, 300, 256, 128, torch.float32),
     (1, 8, 8, 1, 256, 256, 128, torch.bfloat16),
     (1, 4, 16, 1, 512, 256, 128, torch.bfloat16),
+    # recurrentgemma-2b's local layers: 10 query heads on one KV head,
+    # m = dv = 256
+    (2, 1, 10, 1, 512, 256, 256, torch.bfloat16),
+    (1, 1, 10, 1, 300, 256, 256, torch.float32),
 ])
 def test_linear_attention_kernel_matches_plain(dev, b, g, hg, hk, l, m, dv,
                                                dtype):
@@ -294,6 +320,10 @@ def test_featmap_kernel_matches_plain(dev, n, d, r, m, dark, dtype):
     (8, 8, 8, 1, 256, 128, torch.bfloat16),
     (8, 4, 16, 1, 256, 128, torch.bfloat16),
     (2, 4, 16, 16, 256, 128, torch.float32),
+    # recurrentgemma-2b's local layers (G 1, Hg 10, dv 256)
+    (8, 1, 10, 1, 256, 256, torch.bfloat16),
+    (8, 1, 10, 1, 256, 256, torch.float32),
+    (1, 1, 10, 1, 256, 256, torch.bfloat16),
 ])
 def test_decode_step_kernel_matches_plain(dev, b, g, hg, hk, m, dv, dtype):
     """B3 against its plain version, S and z advanced where they lie."""
@@ -345,6 +375,12 @@ F32, BF16 = torch.float32, torch.bfloat16
     (2, 8, 8, 1, 128, 256, 128, BF16, True),
     (1, 4, 16, 1, 256, 256, 128, BF16, True),
     (8, 4, 16, 1, 32, 256, 128, F32, False),
+    # the four grants at recurrentgemma-2b's local layers (G 1, Hg 10,
+    # dv 256)
+    (8, 1, 10, 1, 32, 256, 256, BF16, True),
+    (4, 1, 10, 1, 64, 256, 256, F32, True),
+    (2, 1, 10, 1, 128, 256, 256, BF16, True),
+    (1, 1, 10, 1, 256, 256, 256, F32, True),
 ])
 def test_carry_kernel_matches_plain(dev, b, g, hg, hk, l, m, dv, dtype,
                                     rho):
@@ -1057,3 +1093,96 @@ def test_init_params_draws_on_the_card(dev, arch):
             assert torch.isfinite(t.float()).all(), name
     embed = tree["embed"].float()
     assert float(embed.abs().max()) <= 2 * cfg.vocab ** -0.5 * 1.01
+
+
+# the RG-LRU card against CPU: f32 through cuBLAS and CUDA's exp in
+# another order (no TF32), bf16 after one bf16 rounding of the products
+# u @ wx, u @ wg and of the output; the largest gap over the largest
+# value of each tensor
+RGLRU_F32_TOL = 1e-4
+RGLRU_BF16_TOL = 0.02
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_rglru_apply_matches_cpu(dev, dtype, ragged):
+    """``rglru_apply`` at recurrentgemma-2b's width (d_model = d_rnn =
+    2560) from a carried state, a packer's 4 x 64 chunk, ragged or full,
+    then one decode step: outputs, h and the conv tail on the card within
+    their tolerance of the CPU's. It runs no kernel (the reference's
+    block is plain ``jnp``); under ``set_sync_debug_mode("error")`` it
+    makes no synchronising call."""
+    from repro_torch.models import recurrent as rec
+    gen = torch.Generator().manual_seed(11)
+    params = rec.rglru_init(gen, 2560, 2560, dtype)
+    u = torch.randn((4, 64, 2560), generator=gen).to(dtype)
+    st = rec.RGLRUState(h=torch.randn((4, 2560), generator=gen),
+                        conv=torch.randn((4, 3, 2560), generator=gen).to(
+                            dtype).float())
+    vl = (torch.tensor([64, 17, 1, 40], dtype=torch.int32) if ragged
+          else None)
+    tol = RGLRU_F32_TOL if dtype == torch.float32 else RGLRU_BF16_TOL
+    card = {n: t.to(dev) for n, t in params.items()}
+
+    def run(p, x, s, v, x1):
+        out, s = rec.rglru_apply(p, x, s, v)
+        out1, s1 = rec.rglru_decode(p, x1, s)
+        return out, s, out1, s1
+    args = (u.to(dev), rec.RGLRUState(*(t.to(dev) for t in st)),
+            None if vl is None else vl.to(dev), u[:, :1].to(dev))
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        exp = run(params, u, st, vl, u[:, :1])
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = run(card, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    mask = (torch.ones(4, 64, dtype=torch.bool) if vl is None else
+            torch.arange(64)[None] < vl[:, None])
+    pairs = [(got[0].cpu()[mask], exp[0][mask]), (got[2].cpu(), exp[2]),
+             *((g.cpu(), e) for g, e in zip(got[1], exp[1])),
+             *((g.cpu(), e) for g, e in zip(got[3], exp[3]))]
+    for g, e in pairs:
+        assert g.dtype == e.dtype
+        err = float((g.float() - e.float()).abs().max())
+        assert err <= tol * float(e.float().abs().max()), err
+
+
+@pytest.mark.cuda
+def test_recurrentgemma_engine_makes_no_sync_and_matches_sequential(dev):
+    """The reduced recurrentgemma-2b (unit/rem layout, RG-LRU and a local
+    layer) on the card through B1/B2: the overlapped engine's steps make
+    no synchronising call and, at one staged row per prefill call, its
+    greedy streams equal the sequential engine's; B1/B2 launch once an
+    attention layer a step and a call."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving import ServingEngine, synthetic_requests
+    cfg = configs.get_config("recurrentgemma-2b", reduced=True,
+                             use_kernel=True)
+    n_attn = sum(k != "rec" for k in cfg.layer_kinds())
+    params = lm.init_params(cfg, seed=0, device=dev)
+    streams = []
+    for overlap in (False, True):
+        eng = ServingEngine(params, cfg, max_slots=4, max_len=256,
+                            chunk_tokens=32, prefill_rows=1, overlap=overlap,
+                            device=dev)
+        reqs = synthetic_requests(6, cfg.vocab, seed=2,
+                                  prompt_range=(8, 80), gen_range=(8, 16))
+        uids = [eng.submit(r) for r in reqs]
+        n1, n2 = kd.launches, kp.launches
+        if overlap:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = {r.uid: r.tokens for r in eng.run()}
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        streams.append([got[u] for u in uids])
+        st = eng.stats
+        assert st["decode_path"] == st["prefill_path"] == "fused_kernel"
+        assert kd.launches - n1 == st["decode_steps"] * n_attn
+        assert kp.launches - n2 == st["prefill_calls"] * n_attn
+    assert streams[0] == streams[1]
+    assert [len(t) for t in streams[1]] == [r.max_new_tokens for r in reqs]
