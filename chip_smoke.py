@@ -159,14 +159,49 @@ Phases, each printed as a JSON line:
      check at 5 layers (one unit and both remainder layers): logits,
      the local layer's S and z, each RG-LRU layer's h and conv within
      ``REC_STATE_TOL``, with a planted fault (each RG-LRU layer fed the
-     next one's gate weight). Phase 2 holds B1/B2 at its head layout.
+     next one's gate weight). Phase 2 holds B1/B2 at its head layout;
+  9. recurrentgemma-2b trained, checkpointed and calibrated over unit/rem:
+     (a) the train launcher at its full 26 layers and width (params from
+     seed 0 drawn on the host, as the launcher draws them), kernel on,
+     ``REC_TRAIN_STEPS`` steps of ``REC_TRAIN_BATCH`` x 512 tokens (the
+     largest batch of 512-token rows that fits the card:
+     scripts/torch_train_memory.py): losses finite, B5 = steps x 8 (the
+     local layers) and no other launch, a {"params", "opt"} checkpoint
+     with its ``rem`` list written; step times, the checkpoint's bytes,
+     peak device memory; (b) phase 5b's ``serve --load`` of that
+     checkpoint (4 requests through B1/B2, streams equal to an engine
+     on the params the run returned); (c) phase 6's card-against-CPU
+     loss and every gradient at 5 layers (one unit and the two
+     remainder layers), bf16, 2 x 256, with a planted fault (each
+     RG-LRU layer fed the next one's gate weight); (d)
+     ``lm.whitening_calibrate`` on the card at those 5 layers: B5 once,
+     the whitening gap within phase 5c's limit, card-against-CPU Sigma
+     = M^T M within phase 5c's 0.02, with a planted fault (the taps
+     scaled by the d^-1/4 temperature twice);
+  10. rwkv6-7b at its full 32 layers and width (64 heads of 64, d_ff
+     14 336, untied head; 7.5 B params drawn on the card from seed 0),
+     layer-stacked, no attention layer: its RWKV-6 blocks run the
+     reference's sequential scan in plain PyTorch, so no kernel of the
+     port runs. (a) phase 7's traffic through the overlapped scheduler
+     under ``set_sync_debug_mode("error")``: full token counts, paths
+     ``none``, none of the seven kernels launched; TTFT, TPOT,
+     throughput, init seconds and peak device memory; (b) 8 requests
+     through both schedulers at ``prefill_rows=1``: equal greedy
+     streams; (c) phase 3e's traffic through cache-on and cache-less
+     engines at ``prefill_rows=1``: forks of the (S, shift, cshift)
+     state, prefilled plus forked tokens equal to the prompts', equal
+     greedy streams; (d) phase 4's card-against-CPU check at 2 layers:
+     logits within phase 4's limit, each layer's S, shift and cshift
+     within ``REC_STATE_TOL``, with a planted fault (each layer's time
+     mix fed the next layer's key weight).
 Then the kernels line (all seven kernels: launches on their path, max
 error, time and device time, prf_fused_decode's and prf_decode_step's
 cold beside their warm ones, plain time,
 bound: bytes at 3.35 TB/s or operations at 67 TFLOP/s of f32, for
 linear_attention_causal, linear_attention_carry and prf_featmap, which
 run on the tensor cores, at 495 TFLOP/s of TF32; B1's and B2's launches
-in phase 3e's, each phase 7 model's and phase 8's serving run beside)
+in phase 3e's, each phase 7 model's and phase 8's serving run beside,
+and every kernel's in phase 9's training and serving and in phase 10)
 and, last, the
 ``{"ok": true, ...}`` line. Exits non-zero, without that line, when there is no CUDA device
 or any phase fails. Imports neither JAX nor the reference package.
@@ -1752,16 +1787,18 @@ def phase_train(torch, dev, counters):
     return launches
 
 
-def phase_serve_load(torch, dev, counters, ck, restored, cfg):
-    """Phase 5b: the serve CLI serves 4 requests at full width from phase
-    5's checkpoint (``--load``, overlapped scheduler): full token
-    counts, fused_kernel paths, B1/B2 launches per decode step and
-    prefill call, and the streams of an engine built on ``restored``,
-    the params restored from that checkpoint."""
+def phase_serve_load(torch, dev, counters, ck, restored, cfg,
+                     phase="serve_load"):
+    """Phase 5b (and 9 (b)): the serve CLI serves 4 requests at full
+    width from a trainer's checkpoint (``--load``, overlapped scheduler,
+    the arch ``cfg.name``): full token counts, fused_kernel paths, B1/B2
+    launches per decode step and prefill call (x the attention layers),
+    and the streams of an engine built on ``restored``, the params
+    restored from that checkpoint. Returns the launches."""
     from repro_torch.launch import serve as serve_cli
     from repro_torch.serving import ServingEngine, synthetic_requests
 
-    args = ["--arch", "smollm-135m", "--device", str(dev), "--requests",
+    args = ["--arch", cfg.name, "--device", str(dev), "--requests",
             "4", "--slots", "4", "--max-len", "512", "--prompt-len",
             "64-256", "--gen", "16-32", "--chunk-tokens", "256"]
     for mod, attr in counters.values():
@@ -1779,7 +1816,8 @@ def phase_serve_load(torch, dev, counters, ck, restored, cfg):
     uids = [eng.submit(r) for r in reqs]
     by_uid = {r.uid: r.tokens for r in eng.run()}
     want = fused_launches(counters, st, cfg)
-    emit({"phase": "serve_load", "from": str(ck.relative_to(ROOT)),
+    emit({"phase": phase, "arch": cfg.name,
+          "from": str(ck.relative_to(ROOT)),
           "wall_s": wall, "tokens": [len(t) for t in got],
           "max_new_tokens": [r.max_new_tokens for r in reqs],
           "prefill_path": st["prefill_path"],
@@ -1798,6 +1836,7 @@ def phase_serve_load(torch, dev, counters, ck, restored, cfg):
     if got != [by_uid[u] for u in uids]:
         fail("serve --load: streams differ from an engine on the params "
              "restored from the checkpoint")
+    return launches
 
 
 def sigma(torch, m_mat):
@@ -1819,16 +1858,32 @@ def shrunk_cov64(torch, q, k, scale, shrink=0.05):
     return (1 - shrink) * cov + shrink * torch.trace(cov) / d * eye
 
 
-def whitening_gaps(torch, m_mat, taps, cfg):
-    """max |M Lambda M^T - I| of each layer over its groups, Lambda in
-    f64 from the taps the calibration read."""
+def attn_m(cfg, params):
+    """{tap name: (G, r, d) M} of every attention layer, in layer order
+    (``lm.collect_qk``'s names), in either layout."""
+    plen = len(cfg.block_pattern)
+    out = {}
+    for li, kind in enumerate(cfg.layer_kinds()):
+        if kind in ("attn", "local"):
+            u, i = divmod(li, plen)
+            blk = (params["units"][f"b{i}"] if u < cfg.n_units else
+                   params["rem"][li - cfg.n_units * plen])
+            m = blk["attn"]["feat"]["m_mat"]
+            out[f"unit{u}/b{i}"] = m[u] if u < cfg.n_units else m
+    return out
+
+
+def whitening_gaps(torch, ms, taps, cfg):
+    """max |M Lambda M^T - I| of each attention layer over its groups
+    (``ms``: {tap name: (G, r, d) M}), Lambda in f64 from the taps the
+    calibration read."""
     scale = cfg.head_dim ** -0.25
     out = []
-    for li in range(cfg.n_layers):
-        q, k = taps[f"unit{li}/b0"]
+    for name, m_l in ms.items():
+        q, k = taps[name]
         gap = 0.0
         for gi in range(cfg.n_kv):
-            m = m_mat[li, gi].double()
+            m = m_l[gi].double().to(q.device)
             w = m @ shrunk_cov64(torch, q[:, gi], k[:, gi], scale) @ m.T
             eye = torch.eye(w.shape[0], dtype=torch.float64,
                             device=w.device)
@@ -1985,7 +2040,7 @@ def phase_exact_finetune(torch, dev, counters):
     calib_s = time.perf_counter() - t0_cal
     calib_launches = launches()
     m_cal = params["units"]["b0"]["attn"]["feat"]["m_mat"].clone()
-    white = whitening_gaps(torch, m_cal, seen, cfg_d)
+    white = whitening_gaps(torch, attn_m(cfg_d, params), seen, cfg_d)
     seen.clear()
     cross = calibrate_cross_device(torch, dev, cfg_d)
     held_out = batch_at(20_000)
@@ -2100,6 +2155,29 @@ def train_gaps(torch, got, ref):
     return loss, worst, where
 
 
+def loss_and_grads(torch, cfg, params, data, device):
+    """The loss and every gradient leaf (``None`` as zeros) of
+    ``lm.loss_fn`` on ``data`` (numpy {"tokens", "labels"}) moved to
+    ``device``, all on the CPU, detached; ``params`` are left as they
+    were."""
+    from repro_torch.models import lm
+    from repro_torch.tree import flatten
+
+    leaves = dict(flatten(params))
+    for t in leaves.values():
+        t.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).to(device).long()
+             for k, v in data.items()}
+    loss, _ = lm.loss_fn(params, cfg, batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    out = {k: (torch.zeros_like(t) if g is None else g).detach().cpu()
+           for (k, t), g in zip(leaves.items(), grads)}
+    for t in leaves.values():
+        t.requires_grad_(False)
+    return loss.detach().cpu(), out
+
+
 def phase_train_cross_device(torch, dev, kl, seed: int = 0):
     """Phase 6: one loss and all its gradients, smollm-135m at full width
     and 4 layers, bf16, batch 2 x 256: the card through the kernel vs the
@@ -2110,32 +2188,16 @@ def phase_train_cross_device(torch, dev, kl, seed: int = 0):
     from repro_torch import configs
     from repro_torch.data import SyntheticLM
     from repro_torch.models import lm
-    from repro_torch.tree import flatten
 
     cfg = configs.get_config("smollm-135m", n_layers=4, use_kernel=True)
     params = lm.init_params(cfg, seed=seed, device=dev)
     data = SyntheticLM(cfg.vocab, 256, 2, seed=seed).batch(0)
 
-    def loss_and_grads(cfg, params, device):
-        leaves = dict(flatten(params))
-        for t in leaves.values():
-            t.requires_grad_(True)
-        batch = {k: torch.from_numpy(v).to(device).long()
-                 for k, v in data.items()}
-        loss, _ = lm.loss_fn(params, cfg, batch)
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True)
-        out = {k: (torch.zeros_like(t) if g is None else g).detach().cpu()
-               for (k, t), g in zip(leaves.items(), grads)}
-        for t in leaves.values():
-            t.requires_grad_(False)
-        return loss.detach().cpu(), out
-
     kl.launches = 0
-    card = loss_and_grads(cfg, params, dev)
+    card = loss_and_grads(torch, cfg, params, data, dev)
     card_launches = kl.launches
-    cpu = loss_and_grads(dataclasses.replace(cfg, use_kernel=False),
-                         lm.tree_map(lambda t: t.cpu(), params), "cpu")
+    cpu = loss_and_grads(torch, dataclasses.replace(cfg, use_kernel=False),
+                         lm.tree_map(lambda t: t.cpu(), params), data, "cpu")
     sound = kops.linear_attention_causal
     kfs = []
 
@@ -2154,7 +2216,7 @@ def phase_train_cross_device(torch, dev, kl, seed: int = 0):
             lm.loss_fn(params, cfg, {k: torch.from_numpy(v).to(dev).long()
                                      for k, v in data.items()})
         kops.linear_attention_causal = planted
-        fault = loss_and_grads(cfg, params, dev)
+        fault = loss_and_grads(torch, cfg, params, data, dev)
     finally:
         kops.linear_attention_causal = sound
     loss_gap, grad_gap, where = train_gaps(torch, card, cpu)
@@ -2475,6 +2537,406 @@ def phase_recurrent(torch, dev, counters):
     return out
 
 
+# phase 9: recurrentgemma-2b trained at its full 26 layers and width by
+# the train launcher (kernel on: B5 in the 8 local layers), 512-token
+# rows. The port keeps every activation (no remat yet, ROADMAP A13), the
+# log-step scan keeps ceil(log2 512) = 9 levels an RG-LRU layer, and
+# AdamW's f32 moments (23.2 GB) and its functional update hold old and new
+# moments at once. scripts/torch_train_memory.py on an H100 80GB HBM3,
+# 700 W: 8 x 512 runs out of memory; 6 x 512 peaks at 77.7 GB but ran out
+# in the launcher (6.2 GiB of the card reserved and fragmented); 5 x 512
+# and 4 x 512 both peak at 74.3 GB (79.2 GiB = 85.0 GB on the card), the
+# optimizer update's peak, above the backward's
+REC_TRAIN_BATCH = 5
+REC_TRAIN_STEPS = 4
+# (c), (d): one unit and the two remainder layers, full width, bf16
+REC_GRAD_LAYERS = 5
+
+
+def rec_train_cross_device(torch, dev, kl, cfg, params):
+    """Phase 9 (c): phase 6's check on recurrentgemma-2b's first 5 layers
+    (``params``, full width, bf16), batch 2 x 256: one loss and every
+    gradient, the card through B5 (the local layer) against the CPU's
+    plain path; a planted fault (each RG-LRU layer fed the next one's
+    gate weight, :func:`rec_gate_fault`) must fail the same check.
+    Returns (the JSON fields, a function that runs the checks)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import lm
+
+    data = SyntheticLM(cfg.vocab, 256, 2, seed=0).batch(0)
+    kl.launches = 0
+    card = loss_and_grads(torch, cfg, params, data, dev)
+    card_launches = kl.launches
+    cpu = loss_and_grads(torch, dataclasses.replace(cfg, use_kernel=False),
+                         lm.tree_map(lambda t: t.cpu(), params), data, "cpu")
+    fault = loss_and_grads(torch, cfg, rec_gate_fault(torch, params), data,
+                           dev)
+    loss_gap, grad_gap, where = train_gaps(torch, card, cpu)
+    f_loss, f_grad, f_where = train_gaps(torch, fault, cpu)
+    fields = {"n_layers": cfg.n_layers, "batch": 2, "seq": 256,
+              "loss_card": float(card[0]), "loss_cpu": float(cpu[0]),
+              "loss_rel_err": loss_gap, "grad_rel_err": grad_gap,
+              "grad_worst_leaf": where, "loss_tolerance": TRAIN_LOSS_TOL,
+              "grad_tolerance": TRAIN_GRAD_TOL, "launches": card_launches,
+              "planted_fault": {"what": "each RG-LRU layer fed the next "
+                                        "RG-LRU layer's gate weight wa",
+                                "loss_rel_err": f_loss,
+                                "grad_rel_err": f_grad,
+                                "grad_worst_leaf": f_where}}
+
+    def check():
+        if card_launches != attn_layers(cfg):
+            fail(f"{RECURRENT} cross-device training: {card_launches} B5 "
+                 f"launches for {attn_layers(cfg)} local layers")
+        if loss_gap > TRAIN_LOSS_TOL or grad_gap > TRAIN_GRAD_TOL:
+            fail(f"{RECURRENT} cross-device training: loss gap "
+                 f"{loss_gap:.3e}, gradient gap {grad_gap:.3e} ({where})")
+        if f_loss <= TRAIN_LOSS_TOL and f_grad <= TRAIN_GRAD_TOL:
+            fail(f"{RECURRENT} cross-device training check passes a "
+                 "planted fault")
+    return fields, check
+
+
+def rec_calibrate_cross_device(torch, dev, kl, cfg, params):
+    """Phase 9 (d): ``lm.whitening_calibrate`` of recurrentgemma-2b's
+    first 5 layers (``params``, bf16, darkformer m 256) on a 2 x 256
+    batch, on the card and on the CPU from the same params: B5 once (the
+    local layer's tap) and no other launch; the whitening gap max |M
+    Lambda M^T - I| (Lambda in f64 from the card's taps) within
+    ``WHITEN_TOL``; each (attention layer, group)'s Sigma = M^T M gap
+    over its max |Sigma| within ``CAL_SIGMA_TOL``. A planted fault (the
+    taps scaled by the d^-1/4 temperature a second time) must fail the
+    Sigma check. Returns (the JSON fields, a function that runs the
+    checks)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import lm
+
+    data = SyntheticLM(cfg.vocab, 256, 2, seed=0).batch(0)
+    batch = {k: torch.from_numpy(v).long() for k, v in data.items()}
+    card_batch = {k: t.to(dev) for k, t in batch.items()}
+    cpu_cfg = dataclasses.replace(cfg, use_kernel=False)
+    sound, seen = lm.collect_qk, {}
+
+    def keep(*a, **kw):
+        seen.update(sound(*a, **kw))
+        return seen
+
+    def twice(*a, **kw):
+        t = cfg.head_dim ** -0.25
+        return {n: (q * t, k * t) for n, (q, k) in sound(*a, **kw).items()}
+
+    def calibrated(tap, p, c, b):
+        try:
+            lm.collect_qk = tap
+            return attn_m(c, lm.whitening_calibrate(p, c, b))
+        finally:
+            lm.collect_qk = sound
+    kl.launches = 0
+    t0 = time.perf_counter()
+    m_card = calibrated(keep, params, cfg, card_batch)
+    cal_s = time.perf_counter() - t0
+    launches = kl.launches
+    white = whitening_gaps(torch, m_card, seen, cfg)
+    seen.clear()
+    m_cpu = calibrated(sound, lm.tree_map(lambda t: t.cpu(), params),
+                       cpu_cfg, batch)
+    m_card, m_fault = (lm.tree_map(lambda m: m.cpu(), x) for x in (
+        m_card, calibrated(twice, params, cfg, card_batch)))
+
+    def sigma_gaps(got):
+        out = []
+        for name, m in got.items():
+            card_s, cpu_s = (sigma(torch, x[None])[0]
+                             for x in (m, m_cpu[name]))
+            out.append([float((card_s[gi] - cpu_s[gi]).abs().max()
+                              / cpu_s[gi].abs().max())
+                        for gi in range(cfg.n_kv)])
+        return out
+    got, fault = sigma_gaps(m_card), sigma_gaps(m_fault)
+    fields = {"n_layers": cfg.n_layers, "batch": 2, "seq": 256,
+              "attention_layers": list(m_card), "seconds": cal_s,
+              "launches": launches, "whitening_gap": max(white),
+              "whitening_tolerance": WHITEN_TOL, "sigma_rel_err": got,
+              "sigma_tolerance": CAL_SIGMA_TOL,
+              "planted_fault": {"what": "the taps scaled by the d^-1/4 "
+                                        "temperature a second time",
+                                "sigma_rel_err": fault}}
+
+    def check():
+        if launches != attn_layers(cfg):
+            fail(f"{RECURRENT} calibration: {launches} B5 launches for "
+                 f"{attn_layers(cfg)} local layers")
+        if not max(white) <= WHITEN_TOL:
+            fail(f"{RECURRENT} calibration: whitening gap {max(white):.3e}")
+        if not max(max(r) for r in got) <= CAL_SIGMA_TOL:
+            fail(f"{RECURRENT} calibration card vs CPU: Sigma gap {got}")
+        if not min(min(r) for r in fault) > CAL_SIGMA_TOL:
+            fail(f"{RECURRENT} calibration card vs CPU passes a planted "
+                 f"fault ({fault})")
+    return fields, check
+
+
+def phase_recurrent_train(torch, dev, counters):
+    """Phase 9: recurrentgemma-2b trained at full size by the port's
+    launcher (kernel on; params drawn on the host from seed 0, as the
+    launcher draws them) for ``REC_TRAIN_STEPS`` steps of
+    ``REC_TRAIN_BATCH`` x 512 tokens, checkpointed ({"params", "opt"},
+    the ``rem`` list among them). (a) Losses finite, B5 = steps x 8 (the
+    local layers) and no other launch, the checkpoint written, step
+    times, its seconds and bytes, peak device memory. (b) Phase 5b's
+    ``serve --load`` of that checkpoint through B1/B2 (4 requests), its
+    streams those of an engine on the params the run returned.
+    (c) :func:`rec_train_cross_device` and (d)
+    :func:`rec_calibrate_cross_device` at 5 layers, full width, params
+    from seed 0 drawn on the card. Returns the kernels' launches in (a)
+    and (b)."""
+    import gc
+    import shutil
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    ck = ROOT / "build" / "chip_smoke_rec_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    steps_n = REC_TRAIN_STEPS
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_train = time.perf_counter()
+    out = train.main(["--arch", RECURRENT, "--batch", str(REC_TRAIN_BATCH),
+                      "--seq", str(L_TRAIN), "--lr", "3e-4", "--warmup", "2",
+                      "--log-every", "1", "--device", str(dev), "--steps",
+                      str(steps_n), "--seed", "0", "--ckpt-dir", str(ck),
+                      "--ckpt-every", str(steps_n)])
+    wall = time.perf_counter() - t_train
+    launches = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cfg = out["config"]
+    m = out["metrics"]
+    losses = [x["loss"] for x in m]
+    ms = [x["ms"] for x in m]
+    saved = ckpt.all_steps(str(ck))
+    ck_bytes = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file())
+    # the params the run returned, which it saved: (b)'s engine serves
+    # them beside the CLI's restore
+    trained = out["params"]
+    del out, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_fields = {
+        "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "layer_kinds": collections.Counter(cfg.layer_kinds()),
+        "n_rem": cfg.n_rem, "batch": REC_TRAIN_BATCH, "seq": L_TRAIN,
+        "steps": steps_n, "loss": losses, "step_ms": ms,
+        "step_ms_p50_after_first": float(np.percentile(ms[1:], 50)),
+        "tokens_per_s": REC_TRAIN_BATCH * L_TRAIN
+        / (float(np.percentile(ms[1:], 50)) / 1e3),
+        "wall_s": wall, "launches": launches, "peak_mem_gb": peak,
+        "checkpoint_steps": saved, "checkpoint_bytes": ck_bytes}
+    want = {n: 0 for n in counters}
+    want["linear_attention_causal"] = steps_n * attn_layers(cfg)
+    if len(losses) != steps_n or not all(np.isfinite(losses)):
+        fail(f"{RECURRENT} train: losses {losses}")
+    if launches != want:
+        fail(f"{RECURRENT} train: launches {launches}, expected {want}")
+    if saved != [steps_n - 1]:
+        fail(f"{RECURRENT} train: checkpoints {saved}")
+
+    t_load = time.perf_counter()
+    serve_launches = phase_serve_load(torch, dev, counters, ck, trained,
+                                      cfg, phase="recurrent_serve_load")
+    del trained
+    shutil.rmtree(ck, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    load_s = time.perf_counter() - t_load
+
+    sub_cfg = dataclasses.replace(cfg, n_layers=REC_GRAD_LAYERS)
+    sub = lm.init_params(sub_cfg, seed=0, device=dev, draw_on=dev)
+    t_cross = time.perf_counter()
+    kl = counters["linear_attention_causal"][0]
+    grads, check_grads = rec_train_cross_device(torch, dev, kl, sub_cfg,
+                                                sub)
+    grads["seconds"] = time.perf_counter() - t_cross
+    t_cal = time.perf_counter()
+    cal, check_cal = rec_calibrate_cross_device(torch, dev, kl, sub_cfg,
+                                                sub)
+    cal["phase_seconds"] = time.perf_counter() - t_cal
+    del sub
+    emit({"phase": "recurrent_train", "arch": RECURRENT,
+          "train": train_fields, "serve_load_seconds": load_s,
+          "cross_device_training": grads, "calibration": cal,
+          "seconds": time.perf_counter() - t0})
+    check_grads()
+    check_cal()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n: launches[n] + serve_launches[n] for n in counters}
+
+
+# phase 10: rwkv6-7b at its full 32 layers and width (7.5 B params, 15 GB
+# of bf16, drawn on the card), layer-stacked, no attention layer: the
+# engine's path is "none" and no kernel of the port runs (its block runs
+# the reference's sequential scan in plain PyTorch, not B7). (d) holds
+# its first 2 layers card against CPU
+RWKV = "rwkv6-7b"
+RWKV_CROSS_LAYERS = 2
+
+
+def rwkv_gaps(torch, got, ref):
+    """How far run ``got`` is from run ``ref`` (:func:`drive` on a
+    stacked rwkv state): the largest |logit| gap over max |logit| per
+    step, and each layer's largest gap of S, the time mix's shift and the
+    channel mix's over that layer's max of each."""
+    (lg, _, sg), (lr, _, sr) = got, ref
+    sg, sr = sg["layers"], sr["layers"]
+    for t in (*lg, *lr, *sg, *sr):
+        if not bool(torch.isfinite(t).all()):
+            fail("rwkv cross-device: non-finite logits or state")
+    logit = [float((g - r).abs().max() / r.abs().max())
+             for g, r in zip(lg, lr)]
+    state = {name: [float((a[li] - b[li]).abs().max() / b[li].abs().max())
+                    for li in range(a.shape[0])]
+             for name, a, b in zip(sg._fields, sg, sr)}
+    return {"rel_max_err": logit, "state_rel_err": state}
+
+
+def rwkv_cross_device(torch, dev, cfg, params):
+    """Phase 4's recipe on the rwkv stack: one ragged prefill chunk (2
+    rows of 64 and 40 tokens) and two decode steps, card against CPU on
+    the same params; logits within ``CROSS_DEVICE_TOL``, each layer's S,
+    shift and cshift within ``REC_STATE_TOL`` (phase 8's limits). A
+    planted fault (each layer's time mix fed the next layer's key weight
+    wk) must fail the same check. Returns (the JSON fields, a function
+    that runs the checks)."""
+    from repro_torch.models import lm
+
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab, (2, 64))
+    vl = np.array([64, 40], np.int32)
+    card = drive(torch, lm, cfg, params, dev, toks, vl)
+    cpu = drive(torch, lm, dataclasses.replace(cfg, use_kernel=False),
+                lm.tree_map(lambda t: t.cpu(), params), "cpu", toks, vl,
+                feed=card[1])
+    layers = params["units"]["b0"]
+    shifted = {**params, "units": {"b0": {**layers, "tmix": {
+        **layers["tmix"], "wk": torch.roll(layers["tmix"]["wk"], 1, 0)}}}}
+    planted = drive(torch, lm, cfg, shifted, dev, toks, vl, feed=card[1])
+    got, fault = rwkv_gaps(torch, card, cpu), rwkv_gaps(torch, planted, cpu)
+    fields = {**got, "tolerance": CROSS_DEVICE_TOL,
+              "state_tolerance": REC_STATE_TOL,
+              "argmax_agreement": [
+                  float((g.argmax(-1) == c.argmax(-1)).float().mean())
+                  for g, c in zip(card[0], cpu[0])],
+              "planted_fault": {"what": "each layer's time mix fed the "
+                                        "next layer's key weight wk",
+                                **fault}}
+
+    def within(r):
+        return (max(r["rel_max_err"]) <= CROSS_DEVICE_TOL and
+                max(max(v) for v in r["state_rel_err"].values())
+                <= REC_STATE_TOL)
+
+    def check():
+        if not within(got):
+            fail(f"{RWKV} cross-device: card and CPU differ beyond their "
+                 f"limits ({got})")
+        if within(fault):
+            fail(f"{RWKV} cross-device check passes a planted fault")
+    return fields, check
+
+
+def phase_rwkv(torch, dev, counters):
+    """Phase 10: rwkv6-7b at full size (32 layers, d_model 4096, 64 heads
+    of 64), random weights from seed 0 drawn on the card, layer-stacked.
+    (a) Phase 7's traffic (8 requests, prompts of 64-256 tokens, 16-32
+    new ones) through the overlapped scheduler under
+    ``set_sync_debug_mode("error")``: full token counts, paths ``none``;
+    TTFT, TPOT, throughput, init seconds and peak device memory. (b) 8
+    requests through both schedulers at ``prefill_rows=1``: equal greedy
+    streams. (c) phase 3e's system-prompt traffic through cache-on and
+    cache-less engines at ``prefill_rows=1``: forks of the (S, shift,
+    cshift) state, prefilled plus forked tokens equal to the prompts',
+    equal greedy streams. None of the seven kernels launches anywhere in
+    the phase. (d) :func:`rwkv_cross_device` at the first 2 layers."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving import PrefixCacheConfig
+
+    t0 = time.perf_counter()
+    cfg = configs.get_config(RWKV, use_kernel=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, seed=0, device=dev, draw_on=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_gb = torch.cuda.memory_allocated() / 1e9
+    fields, launches, _, st = serve(
+        torch, dev, cfg, params, counters, overlap=True, requests=8,
+        prompt_range=(64, 256), gen_range=(16, 32))
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t_eq = time.perf_counter()
+    equal, eq_fields = overlap_equality(torch, dev, cfg, params)
+    eq_fields["seconds"] = time.perf_counter() - t_eq
+    eq_launches = {n: getattr(mod, attr)
+                   for n, (mod, attr) in counters.items()}
+    t_pc = time.perf_counter()
+    on, on_launches, s_on, _, d_on = prefix_serve(
+        torch, dev, cfg, params, counters, PrefixCacheConfig(), 1)
+    off, off_launches, s_off, _, d_off = prefix_serve(
+        torch, dev, cfg, params, counters, None, 1)
+    same = [a == b for x, y in zip(s_on, s_off) for a, b in zip(x, y)]
+    prefix = {"cache_on": on, "cache_off": off, "tokens": len(same),
+              "tokens_equal": sum(same) / len(same),
+              "seconds": time.perf_counter() - t_pc}
+    sub_cfg = dataclasses.replace(cfg, n_layers=RWKV_CROSS_LAYERS)
+    sub = {**params, "units": lm.tree_map(
+        lambda t: t[:RWKV_CROSS_LAYERS], params["units"])}
+    t_cross = time.perf_counter()
+    cross, check = rwkv_cross_device(torch, dev, sub_cfg, sub)
+    emit({"phase": "rwkv", "arch": RWKV, **fields,
+          "param_init_s": init_s, "param_gb": param_gb,
+          "rows_1_equality": eq_fields, "rows_1_launches": eq_launches,
+          "prefix_cache_rows_1": prefix,
+          "cross_device": {"n_layers": RWKV_CROSS_LAYERS, **cross,
+                           "seconds": time.perf_counter() - t_cross},
+          "seconds": time.perf_counter() - t0})
+    for name, s_ in (("serving", st), ("prefix cache on", on),
+                     ("prefix cache off", off)):
+        if s_["prefill_path"] != "none" or s_["decode_path"] != "none":
+            fail(f"{RWKV} {name}: served {s_['prefill_path']}/"
+                 f"{s_['decode_path']}, expected none")
+    for name, got in (("serving", launches), ("rows_1 equality",
+                                              eq_launches),
+                      ("prefix cache on", on_launches),
+                      ("prefix cache off", off_launches)):
+        if any(got.values()):
+            fail(f"{RWKV} {name}: kernels launched ({got})")
+    if not equal:
+        fail(f"{RWKV}: greedy streams differ between the schedulers with "
+             f"one staged row per prefill call ({eq_fields})")
+    if d_on["forked_requests"] < 1 or d_on["prefix_hits"] < 1:
+        fail(f"{RWKV}: no prefix-cache fork ({d_on})")
+    if d_on["prefill_tokens"] + d_on["forked_tokens"] != on["prompt_tokens"]:
+        fail(f"{RWKV}: {d_on['prefill_tokens']} prefilled + "
+             f"{d_on['forked_tokens']} forked tokens, expected the "
+             f"prompts' {on['prompt_tokens']}")
+    if s_on != s_off:
+        fail(f"{RWKV}: forked greedy streams differ from cold-start ones "
+             f"({sum(same)} of {len(same)} tokens equal)")
+    check()
+    del params, sub
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n: launches[n] + eq_launches[n] + on_launches[n]
+            + off_launches[n] for n in counters}
+
+
 # every kernel of the port: (its module, its launch counter, its CUDA
 # source, the Pallas TPU kernel it replaces)
 KERNELS = {
@@ -2570,6 +3032,8 @@ def main() -> int:
     phase_train_cross_device(torch, dev, kl)
     homogeneous = phase_homogeneous(torch, dev, counters)
     recurrent = phase_recurrent(torch, dev, counters)
+    recurrent_train = phase_recurrent_train(torch, dev, counters)
+    rwkv = phase_rwkv(torch, dev, counters)
 
     emit({"kernels": [
         {"name": n, "route": "cuda",
@@ -2584,6 +3048,8 @@ def main() -> int:
          "launches_homogeneous": {a: h.get(n, 0)
                                   for a, h in homogeneous.items()},
          "launches_recurrent": recurrent.get(n, 0),
+         "launches_recurrent_train": recurrent_train[n],
+         "launches_rwkv": rwkv[n],
          "bound_ms": timing[n]["bound_ms"],
          "bound_by": timing[n]["bound_by"], "library_ms": None}
         for n, (_, _, src, replaces) in KERNELS.items()],

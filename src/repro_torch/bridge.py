@@ -47,8 +47,9 @@ def tree_from_jax(tree_of_numpy: dict, device="cuda") -> dict:
 def params_from_jax(tree_of_numpy: dict, cfg: lm.ModelConfig,
                     device="cuda") -> dict:
     """The port's params from the reference's param tree (as numpy), the
-    unit/rem layout's ``rem`` list included. Refuses block kinds the
-    port does not serve yet."""
+    unit/rem layout's ``rem`` list and every block kind (attention,
+    RG-LRU, RWKV-6) included. Refuses a block kind the reference does
+    not know either."""
     lm._check_servable(cfg)
     return tree_from_jax(tree_of_numpy, device)
 

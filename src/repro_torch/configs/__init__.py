@@ -9,12 +9,11 @@ from repro_torch.models.lm import ModelConfig
 
 # in the reference's order
 ARCHS = ["recurrentgemma-2b", "smollm-135m", "granite-8b", "qwen3-32b",
-         "yi-34b", "granite-moe-3b-a800m", "qwen3-moe-235b-a22b",
+         "yi-34b", "rwkv6-7b", "granite-moe-3b-a800m", "qwen3-moe-235b-a22b",
          "darkformer-2b"]
 
 # the reference's other archs and the ROADMAP item that ports each
-NOT_PORTED = {"rwkv6-7b": "A12c", "internvl2-76b": "A12e",
-              "hubert-xlarge": "A12e"}
+NOT_PORTED = {"internvl2-76b": "A12e", "hubert-xlarge": "A12e"}
 
 __all__ = ["ARCHS", "DEFAULT_ATTN", "ModelConfig", "darkify",
            "get_config"]
@@ -24,7 +23,7 @@ def get_config(name: str, reduced: bool = False, **overrides) -> ModelConfig:
     if name not in ARCHS:
         raise NotImplementedError(
             f"arch {name!r} is not ported yet (ported: {', '.join(ARCHS)}; "
-            f"ROADMAP item {NOT_PORTED.get(name, 'A12c or A12e')})")
+            f"ROADMAP item {NOT_PORTED.get(name, 'A12e')})")
     mod = importlib.import_module(
         "repro_torch.configs." + name.replace("-", "_"))
     cfg = mod.reduced() if reduced else mod.config()

@@ -147,7 +147,10 @@ def main(argv=None) -> dict:
         cfg = cfgs.darkify(cfg, args.kernel, cfg.attn.num_features)
     cfg = dataclasses.replace(cfg, use_kernel=args.use_kernel)
 
-    params = lm.init_params(cfg, seed=args.seed, device=args.device)
+    # with --load every leaf is overwritten: draw the template on the
+    # device (seconds at full width, where the host takes minutes)
+    params = lm.init_params(cfg, seed=args.seed, device=args.device,
+                            draw_on=args.device if args.load else "cpu")
     if args.load:
         # trainer checkpoints hold {"params", "opt"}: restore the params
         wrapped, step = ckpt_lib.restore_checkpoint(args.load,

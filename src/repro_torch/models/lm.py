@@ -13,18 +13,21 @@ serve state ``{"units": {"b<i>": leaves (n_units, B, ...)}, "rem":
 [state (B, ...), ...], "pos"}``, run unit by unit with the pattern
 unrolled, then the remainder layers. Blocks are attention (``attn``, and
 ``local``, whose ``window`` only the exact kind applies, as in the
-reference) or the RG-LRU (``rec``). The feed-forward is a dense MLP or,
-with ``cfg.moe``, the capacity-routed mixture of experts, whose
+reference), the RG-LRU (``rec``) or RWKV-6 (``rwkv``: its time mix,
+then its channel mix as the feed-forward; rwkv6-7b's homogeneous stack
+has no attention layer). The other blocks' feed-forward is a dense MLP
+or, with ``cfg.moe``, the capacity-routed mixture of experts, whose
 load-balancing loss the training forward sums over the layers (serving
-drops it, as the reference does). The RWKV blocks, the non-text
-modalities and remat are not ported yet (ROADMAP Queue A, items A12c,
-A12e and A13); nor are the calibration taps over unit/rem (A12b2).
+drops it, as the reference does). The calibration taps run over either
+layout. The non-text modalities and remat are not ported yet (ROADMAP
+Queue A, items A12e and A13).
 
 ``prefill_chunk`` and ``decode_step`` advance ``state`` IN PLACE: the
 kernels write each layer's (S, z, c) where it lies in the pool, the
 plain path copies its result there, the exact kind writes each layer's
 keys and values into its KV cache and advances its ``length``, and the
-RG-LRU writes its h and conv tail there. The paged exact layout
+RG-LRU writes its h and conv tail there, RWKV its S and token shifts.
+The paged exact layout
 (``init_paged_serve_state``, stacked only) writes them into the shared
 page pools (``init_kv_pages``) passed beside the state as ``pages=``.
 """
@@ -54,7 +57,7 @@ class ModelConfig:
     d_ff: int
     vocab: int
     d_head: int = 0                       # 0 -> d_model // n_heads
-    block_pattern: tuple = ("attn",)      # cycled: attn|local|rec
+    block_pattern: tuple = ("attn",)      # cycled: attn|local|rec|rwkv
     attn: fm.FeatureConfig = fm.FeatureConfig(kind="darkformer")
     window: Optional[int] = None          # for "local" blocks (exact)
     rope_theta: float = 10000.0           # <=0 disables RoPE
@@ -96,17 +99,17 @@ class ModelConfig:
         return self.n_layers % len(self.block_pattern)
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue A, items A12c/A12e)")
-
-
-SERVED_KINDS = ("attn", "local", "rec")
+SERVED_KINDS = ("attn", "local", "rec", "rwkv")
+ATTN_KINDS = ("attn", "local")
 
 
 def _check_servable(cfg: ModelConfig) -> None:
-    if not set(cfg.block_pattern) <= set(SERVED_KINDS):
-        raise _not_ported(f"block pattern {cfg.block_pattern}")
+    """Refuse a block kind the reference does not know either (its
+    ``_block_init`` raises ``ValueError`` there)."""
+    unknown = set(cfg.block_pattern) - set(SERVED_KINDS)
+    if unknown:
+        raise ValueError(f"unknown block kind(s) {sorted(unknown)} in "
+                         f"{cfg.block_pattern}")
 
 
 def _rem_kinds(cfg: ModelConfig) -> list[str]:
@@ -114,11 +117,23 @@ def _rem_kinds(cfg: ModelConfig) -> list[str]:
     return cfg.layer_kinds()[cfg.n_units * len(cfg.block_pattern):]
 
 
+def has_attention(cfg: ModelConfig) -> bool:
+    """True when some layer is an attention block (rwkv6-7b has none)."""
+    return any(k in ATTN_KINDS for k in cfg.layer_kinds())
+
+
 def _block_init(gen: torch.Generator, cfg: ModelConfig,
                 kind: str = "attn") -> dict:
     """One block's params, drawn as the reference keys them: the mixer
-    (attention, or the RG-LRU for ``rec``), then the feed-forward."""
+    (attention, or the RG-LRU for ``rec``), then the feed-forward; for
+    ``rwkv`` the time mix, then the channel mix."""
     dt = cfg.param_dtype
+    norms = {"ln1": ll.norm_init(cfg.norm_kind, cfg.d_model, dt),
+             "ln2": ll.norm_init(cfg.norm_kind, cfg.d_model, dt)}
+    if kind == "rwkv":
+        tmix = rec.rwkv6_init(gen, cfg.d_model, cfg.n_heads, dtype=dt)
+        return {**norms, "tmix": tmix, "cmix": rec.rwkv6_channel_mix_init(
+            gen, cfg.d_model, cfg.d_ff, dt)}
     if kind == "rec":
         mixer = {"rec": rec.rglru_init(gen, cfg.d_model, cfg.rnn_width, dt)}
     else:
@@ -127,9 +142,7 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig,
                                       cfg.qk_norm, dt)}
     ffn = (ll.moe_init(gen, cfg.d_model, cfg.moe, dt) if cfg.moe else
            ll.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dt))
-    return {"ln1": ll.norm_init(cfg.norm_kind, cfg.d_model, dt),
-            "ln2": ll.norm_init(cfg.norm_kind, cfg.d_model, dt),
-            **mixer, "ffn": ffn}
+    return {**norms, **mixer, "ffn": ffn}
 
 
 def _draw_stacked(n: int, draw, device) -> dict:
@@ -218,8 +231,10 @@ def build_decode_proj(params: dict, cfg: ModelConfig,
     default :func:`can_stack_layers`): {"layers": {"a": (L, G, d, m),
     "m_mat": (L, G, r, d) | None}}, or {"units": {"b<i>": ... with
     leaves (n_units, ...) | None}, "rem": [... | None]}, None at the
-    blocks without attention; None when the config has no fused path."""
-    if not (cfg.use_kernel and cfg.attn.kind in fm.PRF_KINDS):
+    blocks without attention; None when the config has no fused path or
+    no attention layer."""
+    if not (cfg.use_kernel and cfg.attn.kind in fm.PRF_KINDS
+            and has_attention(cfg)):
         return None
     if stacked is None:
         stacked = can_stack_layers(cfg)
@@ -228,8 +243,9 @@ def build_decode_proj(params: dict, cfg: ModelConfig,
             _layers(params, cfg)["attn"]["feat"], cfg.attn.kind)}
 
     def proj(block, kind):
-        return (None if kind == "rec" else fm.precompose_projection(
-            block["attn"]["feat"], cfg.attn.kind))
+        return (fm.precompose_projection(block["attn"]["feat"],
+                                         cfg.attn.kind)
+                if kind in ATTN_KINDS else None)
     out: dict[str, Any] = {"units": {
         f"b{i}": proj(params["units"][f"b{i}"], kind)
         for i, kind in enumerate(cfg.block_pattern)}}
@@ -243,6 +259,11 @@ def _init_block_state(cfg: ModelConfig, kind: str, b: int, max_len: int,
                       per_slot: bool, device):
     if kind == "rec":
         return rec.init_rglru_state(b, cfg.rnn_width, device)
+    if kind == "rwkv":
+        return rec.RWKVBlockState(
+            *rec.init_rwkv_state(b, cfg.d_model, cfg.n_heads, device),
+            cshift=torch.zeros((b, cfg.d_model), dtype=torch.float32,
+                               device=device))
     return ab.init_attn_serve_state(cfg.attn, b, cfg.n_heads, cfg.n_kv,
                                     cfg.head_dim, max_len,
                                     per_slot=per_slot, device=device)
@@ -262,7 +283,8 @@ def init_serve_state(cfg: ModelConfig, b: int, max_len: int,
     b, ...), "pos"}. Otherwise the unit/rem layout: {"units": {"b<i>":
     leaves (n_units, b, ...)}, "rem": [leaves (b, ...), ...], "pos"}.
     A block's state is ``AttnServeState`` (the PRF kinds),
-    ``KVCacheState`` (exact) or ``rec.RGLRUState``; "pos" is (b,) int32
+    ``KVCacheState`` (exact), ``rec.RGLRUState`` or
+    ``rec.RWKVBlockState``; "pos" is (b,) int32
     if ``per_slot`` else () int32. The PRF and RG-LRU states are
     fixed-size, so there ``max_len`` only bounds the engine's context
     budget; the exact kind gets a KV cache of ``max_len`` positions a
@@ -364,9 +386,25 @@ def _apply_block(params, x, cfg: ModelConfig, kind: str = "attn", *, mode,
                  draw=None, pages=None):
     """One block: the mixer (attention, ``window`` for a "local" block;
     or the RG-LRU, whose serve state it writes in place), then the dense
-    or MoE feed-forward. Returns (x, the block's aux loss: 0-d f32 with
-    MoE, else None)."""
+    or MoE feed-forward; or RWKV-6's time and channel mixes, whose S and
+    token shifts it writes in place. Returns (x, the block's aux loss:
+    0-d f32 with MoE, else None)."""
     h = ll.apply_norm(cfg.norm_kind, params["ln1"], x)
+    if kind == "rwkv":
+        mix, tst = rec.rwkv6_apply(
+            params["tmix"], h, cfg.n_heads,
+            None if state is None else rec.RWKVState(state.s, state.shift),
+            valid_len=valid_len)
+        x = x + mix
+        h2 = ll.apply_norm(cfg.norm_kind, params["ln2"], x)
+        f, cshift = rec.rwkv6_channel_mix(
+            params["cmix"], h2, None if state is None else state.cshift,
+            valid_len=valid_len)
+        if state is not None:
+            state.s.copy_(tst.s)
+            state.shift.copy_(tst.shift)
+            state.cshift.copy_(cshift)
+        return x + f, None
     if kind == "rec":
         if mode == "train":
             mix, _ = rec.rglru_apply(params["rec"], h)
@@ -476,23 +514,29 @@ def loss_fn(params, cfg: ModelConfig, batch: dict,
     return loss, {k: t.detach() for k, t in metrics.items()}
 
 
+def _tap_name(cfg: ModelConfig, li: int) -> str:
+    """The reference's key of layer ``li``'s taps: ``unit<u>/b<i>`` with
+    (u, i) = divmod(li, len(pattern)); a remainder layer's u is
+    n_units."""
+    u, i = divmod(li, len(cfg.block_pattern))
+    return f"unit{u}/b{i}"
+
+
 def collect_qk(params, cfg: ModelConfig, batch: dict, *,
                draws: Optional[torch.Tensor] = None) -> dict:
     """Run the stack and capture post-RoPE q/k of every attention block.
 
     Calibration tap for the whitening init (App. C): returns
-    {"unit<li>/b0": (q, k)} with q: (B, G, Hg, L, dh), k: (B, G, 1, L, dh),
-    in the model's dtype. Every block runs as in :func:`forward_train`,
-    without gradient (with ``cfg.use_kernel`` a PRF layer launches
-    ``linear_attention_causal`` once). The random baseline reads layer
-    li's (L, L) logits from ``draws`` ((n_layers, L, L)), else from
-    :func:`baseline_draws` of a generator seeded 0. Homogeneous stacks
-    only: the taps over the unit/rem layout are ROADMAP A12b2."""
+    {"unit<u>/b<i>": (q, k)} (:func:`_tap_name`, in layer order) with q:
+    (B, G, Hg, L, dh), k: (B, G, 1, L, dh), in the model's dtype, for
+    every ``attn`` and ``local`` block of either layout. Every block
+    runs as in :func:`forward_train`, without gradient (with
+    ``cfg.use_kernel`` a PRF layer launches ``linear_attention_causal``
+    once; the RG-LRU and RWKV blocks advance x and yield no tap). The
+    random baseline reads layer li's (L, L) logits from ``draws``
+    ((n_layers, L, L)), else from :func:`baseline_draws` of a generator
+    seeded 0."""
     _check_servable(cfg)
-    if not can_stack_layers(cfg):
-        raise NotImplementedError(
-            "collect_qk and whitening_calibrate over the unit/rem layout "
-            "are not ported yet (ROADMAP.md Queue A, item A12b2)")
     taps: dict = {}
     with torch.no_grad():
         x = _embed_inputs(params, cfg, batch)
@@ -500,15 +544,14 @@ def collect_qk(params, cfg: ModelConfig, batch: dict, *,
         if cfg.attn.kind == "random" and draws is None:
             draws = baseline_draws(cfg, l, device=x.device)
         positions = torch.arange(l, device=x.device)
-        sp = _layers(params, cfg)
-        for li in range(cfg.n_layers):
-            bp = tree_map(lambda t: t[li], sp)
-            h = ll.apply_norm(cfg.norm_kind, bp["ln1"], x)
-            q, k, _ = ab._project(bp["attn"], h, cfg.n_heads, cfg.n_kv,
-                                  cfg.head_dim, cfg.qk_norm, positions,
-                                  cfg.rope_theta)
-            taps[f"unit{li}/b0"] = (q, k)
-            x, _ = _apply_block(bp, x, cfg, mode="train",
+        for li, (kind, bp, _, _, _) in enumerate(_blocks(params, cfg)):
+            if kind in ATTN_KINDS:
+                h = ll.apply_norm(cfg.norm_kind, bp["ln1"], x)
+                q, k, _ = ab._project(bp["attn"], h, cfg.n_heads, cfg.n_kv,
+                                      cfg.head_dim, cfg.qk_norm, positions,
+                                      cfg.rope_theta)
+                taps[_tap_name(cfg, li)] = (q, k)
+            x, _ = _apply_block(bp, x, cfg, kind, mode="train",
                                 draw=None if draws is None else draws[li])
     return taps
 
@@ -519,16 +562,18 @@ def whitening_calibrate(params, cfg: ModelConfig, batch: dict,
     (scaled q/k statistics; the d^{-1/4} temperature is absorbed so the
     covariance matches what the feature map actually sees).
 
-    Returns a new tree with a new ``m_mat`` (n_layers, G, r, d) and every
-    other leaf shared; ``params`` is left as it was, and returned itself
-    for any other kind. The taps are cast to f32 before the scale; each
-    covariance accumulates in f64 and rounds to f32, and the shrinkage
-    and one batched ``eigh`` over every (layer, group) run in f32 on the
-    params' device, whatever the model's dtype (the reference's ``eigh``
-    raises on bf16). Each row's sign is what ``eigh`` returns, so
-    Sigma = M^T M, not M, is what two devices agree on. ``eigh``
-    synchronises: calibrate offline, not inside a serving step."""
-    if cfg.attn.kind != "darkformer":
+    Returns a new tree with a new ``m_mat`` at every attention block (a
+    unit's (n_units, G, r, d) leaf, or a remainder block's (G, r, d))
+    and every other leaf shared; ``params`` is left as it was, and
+    returned itself for any other kind. The taps are cast to f32 before
+    the scale; each covariance accumulates in f64 and rounds to f32, and
+    the shrinkage and one batched ``eigh`` over every (attention layer,
+    group) run in f32 on the params' device, whatever the model's dtype
+    (the reference's ``eigh`` raises on bf16). Each row's sign is what
+    ``eigh`` returns, so Sigma = M^T M, not M, is what two devices agree
+    on. ``eigh`` synchronises: calibrate offline, not inside a serving
+    step."""
+    if cfg.attn.kind != "darkformer" or not has_attention(cfg):
         return params
     taps = collect_qk(params, cfg, batch)
     scale = cfg.head_dim ** -0.25
@@ -538,14 +583,26 @@ def whitening_calibrate(params, cfg: ModelConfig, batch: dict,
         return cal.shrinkage_covariance(torch.cat(
             [(t_q.float() * scale).reshape(-1, d),
              (t_k.float() * scale).reshape(-1, d)]), shrink)
+    layers = [li for li, kind in enumerate(cfg.layer_kinds())
+              if kind in ATTN_KINDS]
     lams = torch.stack([
         torch.stack([lam(q[:, gi], k[:, gi]) for gi in range(q.shape[1])])
-        for q, k in (taps[f"unit{li}/b0"] for li in range(cfg.n_layers))])
+        for q, k in (taps[_tap_name(cfg, li)] for li in layers)])
     del taps
+    ms = fm.whitening_init(lams, cfg.attn.rank(d))
     new = tree_map(lambda t: t, params)
-    fp = _layers(new, cfg)["attn"]["feat"]
-    fp["m_mat"] = fm.whitening_init(lams, fp["m_mat"].shape[-2]).to(
-        fp["m_mat"].dtype)
+    plen = len(cfg.block_pattern)
+    by_unit: dict = {}
+    for li, m in zip(layers, ms):
+        u, i = divmod(li, plen)
+        if u < cfg.n_units:
+            by_unit.setdefault(f"b{i}", []).append(m)
+        else:
+            fp = new["rem"][li - cfg.n_units * plen]["attn"]["feat"]
+            fp["m_mat"] = m.to(fp["m_mat"].dtype)
+    for key, mats in by_unit.items():
+        fp = new["units"][key]["attn"]["feat"]
+        fp["m_mat"] = torch.stack(mats).to(fp["m_mat"].dtype)
     return new
 
 

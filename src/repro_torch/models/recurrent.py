@@ -1,7 +1,9 @@
-"""RG-LRU, the recurrent mixer of Griffin / RecurrentGemma
-(arXiv:2402.19427), for the ``rec`` slots of a block pattern.
+"""Recurrent mixers: the RG-LRU of Griffin / RecurrentGemma
+(arXiv:2402.19427), for the ``rec`` slots of a block pattern, and the
+RWKV-6 "Finch" time and channel mixes (arXiv:2404.05892), for the
+``rwkv`` slots.
 
-The counterpart of the RG-LRU half of ``repro.models.recurrent``:
+The counterpart of ``repro.models.recurrent``. The RG-LRU:
 
     x, g = W_x u, W_g u                  (both d_rnn)
     x <- causal depthwise conv1d(x, k=4)
@@ -18,6 +20,21 @@ elementwise launches rather than L. Position t's value depends only on
 positions <= t, in an order fixed by t: padding a row, or cutting a
 prompt into other chunks at the same boundaries, leaves its valid
 outputs bitwise as they were.
+
+RWKV-6: token-shift lerps, a data-dependent decay
+w_t = exp(-exp(lam_w + tanh(x_t A) B)) and a per-head state S (dh x dh):
+
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T
+    o_t = r_t (S_{t-1} + diag(u) k_t v_t^T)
+
+then a LayerNorm over the whole d_model, a silu(g) gate and W_o. The
+reference's block runs its own sequential ``jnp`` scan, not its Pallas
+``wkv6`` kernel (that one starts from a zero state, returns no final
+state and shares one bonus u across heads, where the block's is per
+head), so the port's block runs the same token loop in f32 in plain
+PyTorch: an L-token chunk costs L steps of a few launches each. The
+channel mix, sigmoid(W_r x_r) * W_v relu(W_k x_k)^2, carries its own
+token shift.
 """
 from __future__ import annotations
 
@@ -165,3 +182,157 @@ def init_rglru_state(b: int, d_rnn: int, device="cuda") -> RGLRUState:
         h=torch.zeros((b, d_rnn), dtype=torch.float32, device=device),
         conv=torch.zeros((b, CONV_K - 1, d_rnn), dtype=torch.float32,
                          device=device))
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 (the time mix; the channel mix is the block's feed-forward)
+# ---------------------------------------------------------------------------
+
+class RWKVState(NamedTuple):
+    """The time mix's carry."""
+    s: torch.Tensor          # (B, H, dh, dh) f32 wkv state
+    shift: torch.Tensor      # (B, d_model) f32: the last token's input
+
+
+class RWKVBlockState(NamedTuple):
+    """An ``rwkv`` block's serve state: the time mix's carry and the
+    channel mix's token shift. The reference's is the nested tuple
+    ``(RWKVState(s, shift), cshift)``; these are its leaves, in its
+    flattening order."""
+    s: torch.Tensor          # (B, H, dh, dh) f32
+    shift: torch.Tensor      # (B, d_model) f32, the time mix's
+    cshift: torch.Tensor     # (B, d_model) f32, the channel mix's
+
+
+def rwkv6_init(gen: torch.Generator, d_model: int, n_heads: int,
+               decay_rank: int = 64, dtype=torch.float32) -> dict:
+    """Draws in the order of the reference's keys: wr, wk, wv, wg,
+    decay_a, decay_b (both f32), wo; mu, lam_w, the per-head bonus u and
+    ln_x (f32, over the whole d_model) are constants."""
+    dh = d_model // n_heads
+    dev = gen.device
+    wr, wk, wv, wg = (ll.trunc_normal(gen, (d_model, d_model), 1.0, dtype)
+                      for _ in range(4))
+    decay_a = ll.trunc_normal(gen, (d_model, decay_rank), 1.0)
+    decay_b = ll.trunc_normal(gen, (decay_rank, d_model), 1.0)
+    return {
+        "mu": torch.full((5, d_model), 0.5, device=dev),  # r, k, v, w, g
+        "wr": wr, "wk": wk, "wv": wv, "wg": wg,
+        "decay_a": decay_a, "decay_b": decay_b,
+        "lam_w": torch.zeros((d_model,), device=dev),
+        "u": torch.zeros((n_heads, dh), device=dev),
+        "ln_x": {"scale": torch.ones((d_model,), device=dev),
+                 "bias": torch.zeros((d_model,), device=dev)},
+        "wo": ll.trunc_normal(gen, (d_model, d_model), 1.0, dtype)}
+
+
+def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """x_{t-1} with x_{-1} = last. x: (B, L, d); last: (B, d)."""
+    return torch.cat([last[:, None], x[:, :-1]], dim=1)
+
+
+def _last_valid(x: torch.Tensor, valid_len: Optional[torch.Tensor]):
+    """x (B, L, d) at each row's last valid token (L - 1 when
+    ``valid_len`` is None; token 0 for an empty row), gathered on the
+    device."""
+    if valid_len is None:
+        return x[:, -1]
+    last = (valid_len.long() - 1).clamp(min=0)[:, None, None]
+    return x.gather(1, last.expand(-1, 1, x.shape[-1]))[:, 0]
+
+
+def _wkv_scan(r, k, v, w, u, s0):
+    """The reference's token loop, in f32. r, k, v, w: (B, H, L, dh); u:
+    (H, dh); s0: (B, H, dh, dh). Returns (o (B, H, L, dh), S_L)."""
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    s = s0.float()
+    bonus = u.float()[None, :, :, None]
+    outs = []
+    for t in range(r.shape[2]):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+        outs.append(torch.einsum("bhd,bhde->bhe", r[:, :, t],
+                                 s + bonus * kv))
+        s = w[:, :, t, :, None] * s + kv
+    return torch.stack(outs, dim=2), s
+
+
+def rwkv6_apply(params: dict, x: torch.Tensor, n_heads: int,
+                state: Optional[RWKVState] = None,
+                valid_len: Optional[torch.Tensor] = None):
+    """x: (B, L, d_model) -> (out (B, L, d_model) in x.dtype, the new
+    ``RWKVState``: S and the shift in f32).
+
+    The mixes run in x's type (``mu`` cast to it, as the reference
+    does), the decay's low-rank product in f32. ``valid_len`` ((B,)
+    int32) marks ragged rows of a padded chunk: past a row's valid end
+    w = 1 and k = 0, so S carries through, and the shift is gathered at
+    the row's last valid token. Nothing here waits for the device."""
+    b, l, d = x.shape
+    dh = d // n_heads
+    last = (torch.zeros((b, d), dtype=x.dtype, device=x.device)
+            if state is None else state.shift.to(x.dtype))
+    xprev = _token_shift(x, last)
+    mu = params["mu"]
+    xr, xk, xv, xw, xg = (x + (xprev - x) * mu[i].to(x.dtype)
+                          for i in range(5))
+    r = (xr @ params["wr"]).reshape(b, l, n_heads, dh)
+    k = (xk @ params["wk"]).reshape(b, l, n_heads, dh)
+    v = (xv @ params["wv"]).reshape(b, l, n_heads, dh)
+    g = xg @ params["wg"]
+    dd = torch.tanh(xw.float() @ params["decay_a"]) @ params["decay_b"]
+    w = torch.exp(-torch.exp(params["lam_w"] + dd)).reshape(b, l, n_heads,
+                                                            dh)
+    if valid_len is not None:
+        vmask = (torch.arange(l, device=x.device)[None]
+                 < valid_len[:, None])[:, :, None, None]
+        w = torch.where(vmask, w, 1.0)
+        k = torch.where(vmask, k, 0.0)
+    s0 = (torch.zeros((b, n_heads, dh, dh), dtype=torch.float32,
+                      device=x.device) if state is None else state.s)
+    o, s_last = _wkv_scan(*(t.transpose(1, 2) for t in (r, k, v, w)),
+                          params["u"], s0)
+    o = ll.layernorm(params["ln_x"], o.transpose(1, 2).reshape(b, l, d))
+    o = o * F.silu(g.float()).to(o.dtype)
+    out = o.to(x.dtype) @ params["wo"]
+    return out, RWKVState(s=s_last,
+                          shift=_last_valid(x, valid_len).float())
+
+
+def init_rwkv_state(b: int, d_model: int, n_heads: int,
+                    device="cuda") -> RWKVState:
+    """A zero time-mix carry: S (b, H, dh, dh) and the shift (b, d_model),
+    both f32."""
+    dh = d_model // n_heads
+    return RWKVState(
+        s=torch.zeros((b, n_heads, dh, dh), dtype=torch.float32,
+                      device=device),
+        shift=torch.zeros((b, d_model), dtype=torch.float32, device=device))
+
+
+def rwkv6_channel_mix_init(gen: torch.Generator, d_model: int, d_ff: int,
+                           dtype=torch.float32) -> dict:
+    """Draws in the order of the reference's keys: wk, wv, wr."""
+    wk = ll.trunc_normal(gen, (d_model, d_ff), 1.0, dtype)
+    wv = ll.trunc_normal(gen, (d_ff, d_model), 1.0, dtype)
+    return {"mu": torch.full((2, d_model), 0.5, device=gen.device),
+            "wk": wk, "wv": wv,
+            "wr": ll.trunc_normal(gen, (d_model, d_model), 1.0, dtype)}
+
+
+def rwkv6_channel_mix(params: dict, x: torch.Tensor,
+                      last: Optional[torch.Tensor] = None,
+                      valid_len: Optional[torch.Tensor] = None):
+    """out = sigmoid(W_r x_r) * (W_v relu(W_k x_k)^2), x: (B, L, d_model).
+    Returns (out in x.dtype, the carried shift (B, d_model) f32, gathered
+    at each row's last valid token under ``valid_len``)."""
+    b, _, d = x.shape
+    last = (torch.zeros((b, d), dtype=x.dtype, device=x.device)
+            if last is None else last.to(x.dtype))
+    xprev = _token_shift(x, last)
+    mu = params["mu"]
+    xk = x + (xprev - x) * mu[0].to(x.dtype)
+    xr = x + (xprev - x) * mu[1].to(x.dtype)
+    k = torch.square(F.relu(xk @ params["wk"]))
+    out = (torch.sigmoid((xr @ params["wr"]).float()).to(x.dtype)
+           * (k @ params["wv"]))
+    return out, _last_valid(x, valid_len).float()

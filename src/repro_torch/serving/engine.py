@@ -21,7 +21,10 @@ kernels (``prf_fused_prefill``, ``prf_fused_decode``, one launch per
 layer per call) against projections precomposed once here. The exact
 kind keeps a per-slot KV cache of ``max_len`` positions a layer and runs
 no kernel, in the reference as here; ``submit`` refuses a prompt that
-does not fit it and admission clips the decode budget to it. Every path
+does not fit it and admission clips the decode budget to it. A stack
+with no attention layer (rwkv6-7b) serves on the path ``none``: its
+RWKV blocks run plain PyTorch, as the reference's run plain ``jnp``, and
+launch no kernel whatever ``use_kernel`` says. Every path
 updates the state in place, so a decode with free slots advances only
 the active rows (``slots.freeze_inactive``): free rows stay bit-frozen.
 Each decode runs ``max_slots`` rows all the same (the active rows
@@ -281,7 +284,8 @@ class ServingEngine:
         # cached prefix's pages can be shared by its forks
         self._stacked = lm.can_stack_layers(cfg)
         self._paged = (self._pc_cfg is not None and self._stacked
-                       and cfg.attn.kind == "exact")
+                       and cfg.attn.kind == "exact"
+                       and lm.has_attention(cfg))
         if self._paged:
             ps = self._pc_cfg.page_size
             self._page_size = ps
@@ -324,10 +328,12 @@ class ServingEngine:
             self._step_params["layers"] = lm.stack_layer_params(params, cfg)
         self._proj = lm.build_decode_proj(self._step_params, cfg,
                                           stacked=self._stacked)
-        # what the dispatch runs: softmax over the KV cache (no kernel),
-        # or the PRF kernels, which only take CUDA tensors (on the CPU
-        # the same wrappers run their plain versions), or plain torch
-        path = ("exact_paged" if self._paged else
+        # what the dispatch runs: no attention at all (rwkv6-7b's stack,
+        # no kernel), softmax over the KV cache (no kernel), or the PRF
+        # kernels, which only take CUDA tensors (on the CPU the same
+        # wrappers run their plain versions), or plain torch
+        path = ("none" if not lm.has_attention(cfg) else
+                "exact_paged" if self._paged else
                 "exact" if cfg.attn.kind == "exact" else
                 "torch" if self._proj is None else
                 "fused_kernel" if self.device.type == "cuda" else

@@ -33,7 +33,7 @@ def tree_slot_map(fn, pool: dict, *others: dict) -> dict:
     """Map ``fn(pool_leaf, *other_leaves, axis=slot_axis)`` over serve
     states of either layout whose blocks are of any kind
     (``AttnServeState``, ``KVCacheState``, ``PagedKVState``,
-    ``RGLRUState``)."""
+    ``RGLRUState``, ``RWKVBlockState``: flat named tuples of tensors)."""
     out = {}
     if "layers" in pool:
         out["layers"] = _block_map(fn, 1, pool["layers"],

@@ -9,6 +9,7 @@ tests/test_torch_model.py), the loss within ``OUT_TOL`` and every
 gradient within ``GRAD_TOL`` (as tests/test_torch_training.py).
 """
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -161,10 +162,19 @@ def port_state_np(state) -> dict:
     return out
 
 
+def ref_state_path(path: str) -> str:
+    """A reference serve-state path in the port's naming: an rwkv block's
+    state is the reference's nested ``(RWKVState(s, shift), cshift)``
+    and the port's flat ``RWKVBlockState(s, shift, cshift)``."""
+    path = re.sub(r"\[0\]\.(s|shift)$", r".\1", path)
+    return re.sub(r"\[1\]$", ".cshift", path)
+
+
 def assert_states_close(tstate, jstate, msg, atol=ATOL):
     """The same leaves in both packages' serve states (the reference's
     None leaves dropped), each within ``atol``; ``pos`` equal."""
-    exp, got = flat_np(jstate), port_state_np(tstate)
+    exp = {ref_state_path(p): v for p, v in flat_np(jstate).items()}
+    got = port_state_np(tstate)
     assert got.keys() == exp.keys(), msg
     for path, e in exp.items():
         if path == "['pos']":
@@ -240,25 +250,27 @@ def check_engine_streams(arch, overlap, use_kernel=True, **kw):
     assert streams[0] == streams[1]
     assert [len(s) for s in streams[1]] == list(GENS)
     assert eng.stats["decode_path"] == (
+        "none" if not tlm.has_attention(tcfg) else
         "exact" if tcfg.attn.kind == "exact" else
         "fused_plain" if use_kernel else "torch")
 
 
-def check_checkpoints_cross(arch, tmp_path, dtype):
+def check_checkpoints_cross(arch, tmp_path, dtype, **opt_kw):
     """{"params", "opt"} of the arch, port -> reference and reference ->
     port, every leaf bitwise (the untied lm_head and the expert leaves
-    among them)."""
+    among them); ``opt_kw`` configures AdamW in both (e.g. its factored
+    second moment). Returns the paths."""
     tcfg = tcfgs.get_config(arch, reduced=True, dtype=dtype)
     jcfg = dataclasses.replace(jcfgs.get_config(arch, reduced=True),
                                dtype=dtype)
 
     def port_state(seed):
         p = tlm.init_params(tcfg, seed=seed, device="cpu")
-        return {"params": p, "opt": adamw_init(p, AdamWConfig())}
+        return {"params": p, "opt": adamw_init(p, AdamWConfig(**opt_kw))}
 
     def jax_state(seed):
         p = jlm.init_params(jax.random.PRNGKey(seed), jcfg)
-        return {"params": p, "opt": jadamw_init(p, JAdamWConfig())}
+        return {"params": p, "opt": jadamw_init(p, JAdamWConfig(**opt_kw))}
 
     port = port_state(3)
     port["opt"]["count"] += 7

@@ -36,13 +36,15 @@ def test_archs_lists_the_ported_configs_in_the_reference_order():
     assert tcfgs.ARCHS == [a for a in jcfgs.ARCHS if a in tcfgs.ARCHS]
     assert set(tcfgs.ARCHS) == {
         "recurrentgemma-2b", "smollm-135m", "granite-8b", "qwen3-32b",
-        "yi-34b", "granite-moe-3b-a800m", "qwen3-moe-235b-a22b",
+        "yi-34b", "rwkv6-7b", "granite-moe-3b-a800m", "qwen3-moe-235b-a22b",
         "darkformer-2b"}
-    for name, item in (("rwkv6-7b", "A12c"), ("internvl2-76b", "A12e"),
-                       ("hubert-xlarge", "A12e")):
-        assert name in jcfgs.ARCHS
-        with pytest.raises(NotImplementedError, match=item):
+    for name in ("internvl2-76b", "hubert-xlarge"):
+        assert name in jcfgs.ARCHS and tcfgs.NOT_PORTED[name] == "A12e"
+        with pytest.raises(NotImplementedError, match="A12e"):
             tcfgs.get_config(name)
+    # A12c is done: rwkv6-7b loads, reduced and at full size
+    assert tcfgs.get_config("rwkv6-7b").block_pattern == ("rwkv",)
+    assert tcfgs.get_config("rwkv6-7b", reduced=True).n_layers == 2
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -123,15 +125,28 @@ def test_clis_run_each_arch_in_process(arch, capsys):
 
 
 def test_bridge_refuses_the_unit_rem_layout():
-    """The unit/rem layout itself is served since A12b (its "rem" list
-    crosses the bridge: tests/test_torch_recurrent.py); a unit/rem
-    pattern with a block kind still to port, RWKV, is refused by the
-    bridge and by ``init_params``, naming A12c."""
+    """Every block kind of the reference is served since A12c, so the
+    bridge refuses only a kind the reference does not know either: an
+    ("attn", "rwkv") pattern of 3 layers (a unit, then an attention block
+    in ``rem``) crosses it leaf for leaf, the rwkv block's
+    ``tmix``/``cmix`` among them, and the port's own init draws the same
+    tree."""
     jcfg, tcfg, jparams, _ = par.setup("granite-8b")
-    tree = dict(par.jax.tree_util.tree_map(par.np.asarray, jparams))
-    tree["rem"] = [tree["units"]["b0"]]
-    rwkv = dataclasses.replace(tcfg, block_pattern=("attn", "rwkv"))
-    with pytest.raises(NotImplementedError, match="A12c"):
-        par.bridge.params_from_jax(tree, rwkv, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12c"):
-        tlm.init_params(rwkv, device="cpu")
+    kw = dict(block_pattern=("attn", "rwkv"), n_layers=3)
+    jcfg, tcfg = (dataclasses.replace(c, **kw) for c in (jcfg, tcfg))
+    jparams = par.jlm.init_params(par.jax.random.PRNGKey(1), jcfg)
+    tree = par.jax.tree_util.tree_map(par.np.asarray, jparams)
+    got = par.bridge.params_from_jax(tree, tcfg, device="cpu")
+    exp = par.flat_np(jparams)
+    flat = dict(flatten(got))
+    assert flat.keys() == exp.keys()
+    assert "['units']['b1']['tmix']['decay_a']" in flat
+    assert "['rem'][0]['attn']['wq']" in flat
+    for k, t in flat.items():
+        assert par.bits(t.numpy()) == par.bits(exp[k]), k
+    own = {k: (tuple(t.shape), t.dtype) for k, t in flatten(
+        tlm.init_params(tcfg, device="cpu"))}
+    assert own == {k: (tuple(t.shape), t.dtype) for k, t in flat.items()}
+    unknown = dataclasses.replace(tcfg, block_pattern=("attn", "mamba"))
+    with pytest.raises(ValueError, match="unknown block kind"):
+        par.bridge.params_from_jax(tree, unknown, device="cpu")

@@ -1186,3 +1186,111 @@ def test_recurrentgemma_engine_makes_no_sync_and_matches_sequential(dev):
         assert kp.launches - n2 == st["prefill_calls"] * n_attn
     assert streams[0] == streams[1]
     assert [len(t) for t in streams[1]] == [r.max_new_tokens for r in reqs]
+
+
+# rwkv6_apply and rwkv6_channel_mix card vs CPU at rwkv6-7b's width: the
+# largest gap over the largest value of each tensor. The scan runs in f32
+# (einsum through cuBLAS on the card), so f32 inputs agree to f32
+# rounding carried through the LayerNorm; bf16 inputs also round the
+# projections (u @ wr, ...) in other orders, an ulp here and there
+RWKV_F32_TOL = 1e-4
+RWKV_BF16_TOL = 0.02
+
+
+def _launch_counts():
+    return (kd.launches, kp.launches, kds.launches, kl.launches,
+            kl.carry_launches, kf.launches, kw.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_rwkv6_apply_matches_cpu(dev, dtype, ragged):
+    """RWKV-6's time and channel mixes at rwkv6-7b's width (d_model 4096,
+    64 heads of 64, d_ff 14 336) from a carried state, a 4 x 32 chunk,
+    ragged or full, then one decode step: outputs, S and both shifts on
+    the card within their tolerance of the CPU's. No kernel launches
+    (the reference's block runs its own scan, not wkv6), and under
+    ``set_sync_debug_mode("error")`` nothing synchronises."""
+    from repro_torch.models import recurrent as rec
+    gen = torch.Generator().manual_seed(12)
+    d, h, f = 4096, 64, 14_336
+    tmix = rec.rwkv6_init(gen, d, h, dtype=dtype)
+    tmix["u"] = 0.5 * torch.randn((h, d // h), generator=gen)
+    tmix["lam_w"] = torch.rand((d,), generator=gen) - 0.5
+    cmix = rec.rwkv6_channel_mix_init(gen, d, f, dtype)
+    x = torch.randn((4, 32, d), generator=gen).to(dtype)
+    st = rec.RWKVState(s=0.5 * torch.randn((4, h, d // h, d // h),
+                                           generator=gen),
+                       shift=torch.randn((4, d), generator=gen).to(
+                           dtype).float())
+    csh = torch.randn((4, d), generator=gen).to(dtype).float()
+    vl = (torch.tensor([32, 9, 1, 20], dtype=torch.int32) if ragged
+          else None)
+    tol = RWKV_F32_TOL if dtype == torch.float32 else RWKV_BF16_TOL
+
+    def run(tp, cp, x, s, c, v):
+        out, s = rec.rwkv6_apply(tp, x, h, s, v)
+        cout, c = rec.rwkv6_channel_mix(cp, x, c, v)
+        out1, s1 = rec.rwkv6_apply(tp, x[:, :1], h, s)
+        cout1, c1 = rec.rwkv6_channel_mix(cp, x[:, :1], c)
+        return out, cout, out1, cout1, *s, c, *s1, c1
+    card = [{n: (t.to(dev) if torch.is_tensor(t) else
+                 {k: u.to(dev) for k, u in t.items()})
+             for n, t in p.items()} for p in (tmix, cmix)]
+    args = (x.to(dev), rec.RWKVState(*(t.to(dev) for t in st)),
+            csh.to(dev), None if vl is None else vl.to(dev))
+    torch.cuda.synchronize()
+    before = _launch_counts()
+    with torch.no_grad():
+        exp = run(tmix, cmix, x, st, csh, vl)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = run(*card, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert _launch_counts() == before
+    mask = (torch.ones(4, 32, dtype=torch.bool) if vl is None else
+            torch.arange(32)[None] < vl[:, None])
+    for i, (g, e) in enumerate(zip(got, exp)):
+        g = g.cpu()
+        assert g.dtype == e.dtype, i
+        if i in (0, 1):
+            g, e = g[mask], e[mask]
+        err = float((g.float() - e.float()).abs().max())
+        assert err <= tol * float(e.float().abs().max()), (i, err)
+
+
+@pytest.mark.cuda
+def test_rwkv_engine_makes_no_sync_and_matches_sequential(dev):
+    """The reduced rwkv6-7b (layer-stacked, no attention layer) on the
+    card: the overlapped engine's steps make no synchronising call, its
+    paths read ``none`` and none of the seven kernels launches whatever
+    ``use_kernel`` says; at one staged row per prefill call its greedy
+    streams equal the sequential engine's."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving import ServingEngine, synthetic_requests
+    cfg = configs.get_config("rwkv6-7b", reduced=True, use_kernel=True)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    streams = []
+    for overlap in (False, True):
+        eng = ServingEngine(params, cfg, max_slots=4, max_len=256,
+                            chunk_tokens=32, prefill_rows=1, overlap=overlap,
+                            device=dev)
+        reqs = synthetic_requests(6, cfg.vocab, seed=2,
+                                  prompt_range=(8, 80), gen_range=(8, 16))
+        uids = [eng.submit(r) for r in reqs]
+        before = _launch_counts()
+        if overlap:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = {r.uid: r.tokens for r in eng.run()}
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        streams.append([got[u] for u in uids])
+        st = eng.stats
+        assert st["decode_path"] == st["prefill_path"] == "none"
+        assert _launch_counts() == before
+    assert streams[0] == streams[1]
+    assert [len(t) for t in streams[1]] == [r.max_new_tokens for r in reqs]

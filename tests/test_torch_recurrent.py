@@ -320,18 +320,29 @@ def test_full_valid_len_matches_unpadded():
 
 
 def test_stacked_layout_refused():
-    cfg = tcfgs.get_config(ARCH, reduced=True)
+    """The stacked layout is refused; the calibration taps run over
+    unit/rem (A12b2) and match the reference's, the local layer's
+    ``unit0/b2`` the only one (tests/test_torch_recurrent_train.py holds
+    them further)."""
+    jcfg, cfg, jparams, params = par.setup(ARCH)
     assert not tlm.can_stack_layers(cfg)
     with pytest.raises(ValueError, match="homogeneous"):
         tlm.init_serve_state(cfg, b=1, max_len=16, stacked=True,
                              device="cpu")
-    params = tlm.init_params(cfg, seed=0, device="cpu")
     with pytest.raises(ValueError, match="homogeneous"):
         tlm.stack_layer_params(params, cfg)
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
-    for fn in (tlm.collect_qk, tlm.whitening_calibrate):
-        with pytest.raises(NotImplementedError, match="A12b2"):
-            fn(params, cfg, batch)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (1, 6))
+    exp = jlm.collect_qk(jparams, jcfg, {"tokens": jnp.asarray(toks)})
+    got = tlm.collect_qk(params, cfg, {"tokens": torch.tensor(toks)})
+    assert list(got) == list(exp) == ["unit0/b2"]
+    for t, e in zip(got["unit0/b2"], exp["unit0/b2"]):
+        np.testing.assert_allclose(t.numpy(), np.asarray(e), atol=par.ATOL,
+                                   rtol=0)
+    new = tlm.whitening_calibrate(params, cfg, {"tokens": torch.tensor(toks)})
+    assert all(a is b for (_, a), (_, b) in zip(flatten(new["rem"]),
+                                                flatten(params["rem"])))
+    assert not torch.equal(new["units"]["b2"]["attn"]["feat"]["m_mat"],
+                           params["units"]["b2"]["attn"]["feat"]["m_mat"])
     proj = tlm.build_decode_proj(params, dataclasses.replace(
         cfg, use_kernel=True))
     assert proj["units"]["b0"] is None and proj["units"]["b1"] is None
