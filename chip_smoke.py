@@ -193,7 +193,34 @@ Phases, each printed as a JSON line:
      greedy streams; (d) phase 4's card-against-CPU check at 2 layers:
      logits within phase 4's limit, each layer's S, shift and cshift
      within ``REC_STATE_TOL``, with a planted fault (each layer's time
-     mix fed the next layer's key weight).
+     mix fed the next layer's key weight);
+  11. the non-text modalities: (a) hubert-xlarge (the audio encoder:
+     48 layers, d_model 1280, 16 heads of 80, noncausal) at full size
+     trained by the train launcher on masked audio frames
+     (SyntheticAudio, ``HUBERT_TRAIN_BATCH`` x 512, params drawn on the
+     host): losses finite, none of the seven kernels launched (the
+     reference's noncausal PRF attention is the plain two-matmul form);
+     step times, tokens/s, peak device memory, init seconds; (b) its
+     first 2 layers card vs CPU, 2 x 256, in bf16 and in f32: every
+     gradient within phase 6's limit in both (the embed, with no path to
+     the loss, zero), the f32 loss within phase 6's limit and the bf16
+     loss gap reported beside each side's distance to the f32 loss, a
+     planted fault (the mask ignored on the card); then the whitening
+     calibration on the same batch within phase 5c's limits, with its
+     planted fault. internvl2-76b at full width with
+     the depth cut (152 GB of bf16 at its 80 layers), params drawn on
+     the card: (c) 4 layers, 4 rows of 256 patches and 64 or 256 prompt
+     tokens through one ``lm.prefill`` each (B2 over two T-chunks), then
+     32 greedy ``lm.decode_step`` calls (B1) under
+     ``set_sync_debug_mode("error")``: B2 = prefill calls x layers, B1 =
+     decode steps x layers, ``pos`` 256 + prompt (+ steps); prefill ms
+     and TPOT; (e) its first 2 layers card vs CPU, one row of 256
+     patches and 32 tokens, prefill then 8 decode steps, with a planted
+     fault (the patches dropped on the card); (d) 1 layer trained
+     through ``launch.steps.make_train_step`` with AdamW's factored
+     second moment (4 rows of 256 patches and 256 tokens, 3 steps): B5 =
+     steps x layers and no other launch, losses finite, step ms, peak
+     memory.
 Then the kernels line (all seven kernels: launches on their path, max
 error, time and device time, prf_fused_decode's and prf_decode_step's
 cold beside their warm ones, plain time,
@@ -201,7 +228,8 @@ bound: bytes at 3.35 TB/s or operations at 67 TFLOP/s of f32, for
 linear_attention_causal, linear_attention_carry and prf_featmap, which
 run on the tensor cores, at 495 TFLOP/s of TF32; B1's and B2's launches
 in phase 3e's, each phase 7 model's and phase 8's serving run beside,
-and every kernel's in phase 9's training and serving and in phase 10)
+and every kernel's in phase 9's training and serving, in phase 10 and
+in phase 11 by arch)
 and, last, the
 ``{"ok": true, ...}`` line. Exits non-zero, without that line, when there is no CUDA device
 or any phase fails. Imports neither JAX nor the reference package.
@@ -433,11 +461,12 @@ def phase_kernels(torch, dev, kd, kp):
                           eps=1e-8)
         err["prf_fused_prefill"] = max(err["prf_fused_prefill"], e)
         cases.append({"case": name, "max_abs_err": e})
-    # phase 7's and phase 8's head layouts (G, Hg, d_head, m), read from
+    # phase 7's, 8's and 11's head layouts (G, Hg, d_head, m), read from
     # their configs, at their input type: B1 at 8 slots, B2 at each of
-    # the packer's grants
+    # the packer's grants (hubert-xlarge's d_head 80 on no path: its
+    # encoder runs no kernel)
     from repro_torch import configs
-    for arch in [a for a, _, _ in HOMOGENEOUS] + [RECURRENT]:
+    for arch in [a for a, _, _ in HOMOGENEOUS] + [RECURRENT, VLM, HUBERT]:
         c = configs.get_config(arch)
         g, hg, d, m = (c.n_kv, c.n_heads // c.n_kv, c.head_dim,
                        c.attn.num_features)
@@ -461,6 +490,18 @@ def phase_kernels(torch, dev, kd, kp):
                               eps=1e-8)
             err["prf_fused_prefill"] = max(err["prf_fused_prefill"], e)
             cases.append({"case": name, "max_abs_err": e})
+    # phase 11 (c)'s calls: internvl2-76b's whole VLM prompts in one B2
+    # call, 256 patches and each prompt: two 256-token T-chunks
+    c = configs.get_config(VLM)
+    for l in (c.num_patches + n for n in VLM_PROMPTS):
+        name = f"prefill {VLM} bf16 B={VLM_ROWS} L={l}"
+        args = kc.make_inputs(dev, VLM_ROWS, c.n_kv, c.n_heads // c.n_kv,
+                              c.head_dim, c.attn.num_features, c.head_dim,
+                              l, True, seed=300 + l, dtype=torch.bfloat16)
+        e = kc.check_case(name, lambda: kp.launches, kp.fused_prf_prefill,
+                          kp.prf_fused_prefill_plain, args, state, eps=1e-8)
+        err["prf_fused_prefill"] = max(err["prf_fused_prefill"], e)
+        cases.append({"case": name, "max_abs_err": e})
     emit({"phase": "kernels_vs_plain", "tolerance_f32": kc.F32_TOL,
           "tolerance_bf16_out": kc.BF16_OUT_TOL, "cases": cases})
     return err
@@ -2157,17 +2198,18 @@ def train_gaps(torch, got, ref):
 
 def loss_and_grads(torch, cfg, params, data, device):
     """The loss and every gradient leaf (``None`` as zeros) of
-    ``lm.loss_fn`` on ``data`` (numpy {"tokens", "labels"}) moved to
-    ``device``, all on the CPU, detached; ``params`` are left as they
-    were."""
+    ``lm.loss_fn`` on ``data`` (a numpy batch: {"tokens", "labels"}, with
+    the modality's frames and mask or patches) moved to ``device``
+    (``launch.train.to_device``), all on the CPU, detached; ``params``
+    are left as they were."""
+    from repro_torch.launch.train import to_device
     from repro_torch.models import lm
     from repro_torch.tree import flatten
 
     leaves = dict(flatten(params))
     for t in leaves.values():
         t.requires_grad_(True)
-    batch = {k: torch.from_numpy(v).to(device).long()
-             for k, v in data.items()}
+    batch = to_device(data, device)
     loss, _ = lm.loss_fn(params, cfg, batch)
     grads = torch.autograd.grad(loss, list(leaves.values()),
                                 allow_unused=True)
@@ -2597,22 +2639,23 @@ def rec_train_cross_device(torch, dev, kl, cfg, params):
     return fields, check
 
 
-def rec_calibrate_cross_device(torch, dev, kl, cfg, params):
-    """Phase 9 (d): ``lm.whitening_calibrate`` of recurrentgemma-2b's
-    first 5 layers (``params``, bf16, darkformer m 256) on a 2 x 256
-    batch, on the card and on the CPU from the same params: B5 once (the
-    local layer's tap) and no other launch; the whitening gap max |M
-    Lambda M^T - I| (Lambda in f64 from the card's taps) within
+def calibrate_cross_device_at(torch, dev, kl, cfg, params, data, name,
+                              want_launches):
+    """Phase 9 (d) and 11 (b): ``lm.whitening_calibrate`` of ``params``
+    (a few layers at full width, bf16, darkformer m 256) on ``data`` (a
+    numpy 2 x 256 batch), on the card and on the CPU from the same
+    params: B5 ``want_launches`` times (once a causal attention layer's
+    tap; none for an encoder) and no other launch; the whitening gap max
+    |M Lambda M^T - I| (Lambda in f64 from the card's taps) within
     ``WHITEN_TOL``; each (attention layer, group)'s Sigma = M^T M gap
     over its max |Sigma| within ``CAL_SIGMA_TOL``. A planted fault (the
     taps scaled by the d^-1/4 temperature a second time) must fail the
-    Sigma check. Returns (the JSON fields, a function that runs the
-    checks)."""
-    from repro_torch.data import SyntheticLM
+    Sigma check; ``name`` names the model in a failure. Returns (the
+    JSON fields, a function that runs the checks)."""
+    from repro_torch.launch.train import to_device
     from repro_torch.models import lm
 
-    data = SyntheticLM(cfg.vocab, 256, 2, seed=0).batch(0)
-    batch = {k: torch.from_numpy(v).long() for k, v in data.items()}
+    batch = to_device(data, "cpu")
     card_batch = {k: t.to(dev) for k, t in batch.items()}
     cpu_cfg = dataclasses.replace(cfg, use_kernel=False)
     sound, seen = lm.collect_qk, {}
@@ -2663,15 +2706,15 @@ def rec_calibrate_cross_device(torch, dev, kl, cfg, params):
                                 "sigma_rel_err": fault}}
 
     def check():
-        if launches != attn_layers(cfg):
-            fail(f"{RECURRENT} calibration: {launches} B5 launches for "
-                 f"{attn_layers(cfg)} local layers")
+        if launches != want_launches:
+            fail(f"{name} calibration: {launches} B5 launches, expected "
+                 f"{want_launches}")
         if not max(white) <= WHITEN_TOL:
-            fail(f"{RECURRENT} calibration: whitening gap {max(white):.3e}")
+            fail(f"{name} calibration: whitening gap {max(white):.3e}")
         if not max(max(r) for r in got) <= CAL_SIGMA_TOL:
-            fail(f"{RECURRENT} calibration card vs CPU: Sigma gap {got}")
+            fail(f"{name} calibration card vs CPU: Sigma gap {got}")
         if not min(min(r) for r in fault) > CAL_SIGMA_TOL:
-            fail(f"{RECURRENT} calibration card vs CPU passes a planted "
+            fail(f"{name} calibration card vs CPU passes a planted "
                  f"fault ({fault})")
     return fields, check
 
@@ -2687,13 +2730,13 @@ def phase_recurrent_train(torch, dev, counters):
     ``serve --load`` of that checkpoint through B1/B2 (4 requests), its
     streams those of an engine on the params the run returned.
     (c) :func:`rec_train_cross_device` and (d)
-    :func:`rec_calibrate_cross_device` at 5 layers, full width, params
+    :func:`calibrate_cross_device_at` at 5 layers, full width, params
     from seed 0 drawn on the card. Returns the kernels' launches in (a)
     and (b)."""
     import gc
     import shutil
     from repro_torch import checkpoint as ckpt
-    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
     from repro_torch.launch import train
     from repro_torch.models import lm
 
@@ -2762,8 +2805,10 @@ def phase_recurrent_train(torch, dev, counters):
                                                 sub)
     grads["seconds"] = time.perf_counter() - t_cross
     t_cal = time.perf_counter()
-    cal, check_cal = rec_calibrate_cross_device(torch, dev, kl, sub_cfg,
-                                                sub)
+    cal, check_cal = calibrate_cross_device_at(
+        torch, dev, kl, sub_cfg, sub,
+        SyntheticLM(sub_cfg.vocab, 256, 2, seed=0).batch(0), RECURRENT,
+        attn_layers(sub_cfg))
     cal["phase_seconds"] = time.perf_counter() - t_cal
     del sub
     emit({"phase": "recurrent_train", "arch": RECURRENT,
@@ -2937,6 +2982,501 @@ def phase_rwkv(torch, dev, counters):
             + off_launches[n] for n in counters}
 
 
+# phase 11: the non-text modalities. hubert-xlarge at its full 48 layers
+# (0.97 B params, 1.9 GB of bf16: nothing cut) trained by the launcher on
+# masked audio frames; internvl2-76b at full width with its depth cut
+# (0.86 B params a layer and 2.1 B in its embed and head: 152 GB of bf16
+# at 80 layers, on an 80 GB card): VLM_SERVE_LAYERS layers served,
+# VLM_CROSS_LAYERS held card against CPU, VLM_TRAIN_LAYERS trained: the
+# largest depth whose train step fits (scripts/torch_train_memory.py), and
+# only with AdamW's factored second moment. Unfactored, the functional
+# update holds old and new f32 moments of the 2.1 B embed and head params
+# beside f32 temporaries of a 1.05 B-param leaf and runs out at 1 layer
+# and any batch; factored (the reference's option, which its dry-run
+# takes above 1e11 params), 1 layer peaks at 62 GB and 2 run out
+HUBERT = "hubert-xlarge"
+# 512-frame rows a step: the memory probe reads 45 GB at 8, 62 at 12 and
+# 78.9 of the card's 79.2 at 16, which leaves the launcher no room
+HUBERT_TRAIN_BATCH = 12
+HUBERT_TRAIN_STEPS = 4
+HUBERT_CROSS_LAYERS = 2
+VLM = "internvl2-76b"
+VLM_SERVE_LAYERS = 4
+VLM_ROWS = 4
+VLM_PROMPTS = (64, 256)         # text tokens after the 256 patches
+VLM_DECODE_STEPS = 32
+VLM_TRAIN_LAYERS = 1
+VLM_TRAIN_BATCH = 4
+VLM_TRAIN_SEQ = 256             # text tokens after the 256 patches
+VLM_TRAIN_STEPS = 3
+VLM_CROSS_LAYERS = 2
+VLM_CROSS_TEXT = 32
+VLM_CROSS_STEPS = 8
+
+
+def launch_counts(counters) -> dict:
+    return {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+
+
+def zero_counts(counters) -> None:
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def hubert_train(torch, dev, counters):
+    """Phase 11 (a): hubert-xlarge at full size trained by the launcher
+    (params from seed 0 drawn on the host, as the launcher draws them)
+    for ``HUBERT_TRAIN_STEPS`` steps of ``HUBERT_TRAIN_BATCH`` x 512
+    masked audio frames (SyntheticAudio seed 0). Its attention is
+    noncausal, the reference's two-matmul form, so no kernel launches.
+    Returns (the JSON fields, a function that runs the checks, the
+    launches)."""
+    from repro_torch.launch import train
+
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = []
+    t0 = time.perf_counter()
+    out = train.main(
+        ["--arch", HUBERT, "--batch", str(HUBERT_TRAIN_BATCH), "--seq",
+         str(L_TRAIN), "--lr", "3e-4", "--warmup", "2", "--log-every", "1",
+         "--device", str(dev), "--steps", str(HUBERT_TRAIN_STEPS),
+         "--seed", "0"],
+        on_step=lambda s: first.append(time.perf_counter()) if s == 0
+        else None)
+    wall = time.perf_counter() - t0
+    launches = launch_counts(counters)
+    cfg, m = out["config"], out["metrics"]
+    del out
+    losses, ms = [x["loss"] for x in m], [x["ms"] for x in m]
+    p50 = float(np.percentile(ms[1:], 50))
+    fields = {
+        "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": [cfg.n_heads, cfg.n_kv, cfg.head_dim],
+        "causal": cfg.causal, "batch": HUBERT_TRAIN_BATCH, "seq": L_TRAIN,
+        "steps": HUBERT_TRAIN_STEPS, "loss": losses, "step_ms": ms,
+        "step_ms_p50_after_first": p50,
+        "tokens_per_s": HUBERT_TRAIN_BATCH * L_TRAIN / (p50 / 1e3),
+        "init_s": first[0] - t0 - ms[0] / 1e3, "wall_s": wall,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches}
+
+    def check():
+        if len(losses) != HUBERT_TRAIN_STEPS or not all(np.isfinite(losses)):
+            fail(f"{HUBERT} train: losses {losses}")
+        if any(launches.values()):
+            fail(f"{HUBERT} train: kernels launched ({launches}); its "
+                 "noncausal attention has no kernel")
+    return fields, check, launches
+
+
+def hubert_cross_device(torch, dev, counters, seed: int = 0):
+    """Phase 11 (b): hubert-xlarge's first ``HUBERT_CROSS_LAYERS`` layers
+    at full width, params drawn on the card and one 2 x 256
+    SyntheticAudio batch, both from ``seed``: one loss and every
+    gradient on the card against the CPU, in bf16 and again with the
+    same params in f32. Every gradient within ``TRAIN_GRAD_TOL`` of its
+    leaf's max in both, the f32 loss within ``TRAIN_LOSS_TOL``; the bf16
+    loss gap is reported beside each bf16 side's distance to the CPU's
+    f32 loss, not held to that limit: its bf16 logits round 504-way over
+    the masked frames alone (141 of 512 at seed 0), and card and CPU sit
+    1.5e-5 to 8.4e-5 apart over seeds 0-3 (scripts/torch_train_gap_seeds.py
+    --arch hubert-xlarge), where phase 6's smollm-135m reads 3.4e-6 to
+    5.5e-6. A planted fault (the mask ignored on the card: no
+    ``mask_embed`` at the masked frames, the loss over every frame) must
+    fail both. Then :func:`calibrate_cross_device_at` on the same batch
+    in bf16 (no B5 launch: the taps run the noncausal forward). No kernel
+    launches anywhere. Returns (the JSON fields, the checks)."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticAudio
+    from repro_torch.models import lm
+
+    cfg = configs.get_config(HUBERT, n_layers=HUBERT_CROSS_LAYERS,
+                             use_kernel=True)
+    params = lm.init_params(cfg, seed=seed, device=dev, draw_on=dev)
+    data = SyntheticAudio(cfg.d_model, 256, 2, vocab=cfg.vocab,
+                          seed=seed).batch(0)
+    no_mask = {k: v for k, v in data.items() if k != "mask"}
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        # bf16: the params as drawn (the feature params stay f32); f32:
+        # every leaf upcast
+        c = dataclasses.replace(cfg, dtype=dtype)
+        p = (params if dtype == cfg.dtype
+             else lm.tree_map(lambda t: t.float(), params))
+        runs[dtype] = (
+            loss_and_grads(torch, c, p, data, dev),
+            loss_and_grads(torch, dataclasses.replace(c, use_kernel=False),
+                           lm.tree_map(lambda t: t.cpu(), p), data, "cpu"),
+            loss_and_grads(torch, c, p, no_mask, dev))
+    launches = launch_counts(counters)
+    gaps_ = {}
+    for dtype, (card, cpu, fault) in runs.items():
+        loss_gap, grad_gap, where = train_gaps(torch, card, cpu)
+        f_loss, f_grad, f_where = train_gaps(torch, fault, cpu)
+        gaps_[dtype] = {
+            "loss_card": float(card[0]), "loss_cpu": float(cpu[0]),
+            "loss_rel_err": loss_gap, "grad_rel_err": grad_gap,
+            "grad_worst_leaf": where,
+            "embed_grad_max": float(card[1]["['embed']"].abs().max()),
+            "planted_fault": {"loss_rel_err": f_loss,
+                              "grad_rel_err": f_grad,
+                              "grad_worst_leaf": f_where}}
+    f32_loss = runs["float32"][1][0]
+    for side, i in (("card", 0), ("cpu", 1)):
+        gaps_["bfloat16"][f"loss_{side}_vs_cpu_f32"] = float(
+            (runs["bfloat16"][i][0] - f32_loss).abs() / f32_loss.abs())
+    grads = {"n_layers": cfg.n_layers, "batch": 2, "seq": 256,
+             "seed": seed, "masked_frames": int(data["mask"].sum()),
+             **gaps_, "loss_tolerance": TRAIN_LOSS_TOL,
+             "loss_tolerance_applies_to": "float32",
+             "grad_tolerance": TRAIN_GRAD_TOL,
+             "planted_fault": "the mask ignored on the card",
+             "seconds": time.perf_counter() - t0}
+    del runs
+    t1 = time.perf_counter()
+    kl = counters["linear_attention_causal"][0]
+    cal, check_cal = calibrate_cross_device_at(torch, dev, kl, cfg, params,
+                                               data, HUBERT, 0)
+    cal["phase_seconds"] = time.perf_counter() - t1
+    launches_cal = launch_counts(counters)
+    del params
+
+    def check():
+        if any(launches.values()) or any(launches_cal.values()):
+            fail(f"{HUBERT} cross-device: kernels launched ({launches}, "
+                 f"{launches_cal})")
+        for dtype, g in gaps_.items():
+            if g["embed_grad_max"] != 0.0:
+                fail(f"{HUBERT} cross-device {dtype}: embed, which has no "
+                     f"path to the loss, got a gradient "
+                     f"({g['embed_grad_max']})")
+            if g["grad_rel_err"] > TRAIN_GRAD_TOL:
+                fail(f"{HUBERT} cross-device {dtype}: gradient gap "
+                     f"{g['grad_rel_err']:.3e} ({g['grad_worst_leaf']})")
+            f = g["planted_fault"]
+            if f["loss_rel_err"] <= TRAIN_LOSS_TOL and \
+                    f["grad_rel_err"] <= TRAIN_GRAD_TOL:
+                fail(f"{HUBERT} cross-device {dtype} check passes a "
+                     "planted fault")
+        if gaps_["float32"]["loss_rel_err"] > TRAIN_LOSS_TOL:
+            fail(f"{HUBERT} cross-device float32: loss gap "
+                 f"{gaps_['float32']['loss_rel_err']:.3e}")
+        check_cal()
+    return {"cross_device_training": grads, "calibration": cal}, check
+
+
+def vlm_serve(torch, dev, counters, cfg, params):
+    """Phase 11 (c): ``VLM_ROWS`` rows of 256 patches (SyntheticVLM seed 0)
+    and a prompt of each length in ``VLM_PROMPTS`` through one
+    ``lm.prefill`` (B2, the whole row in one call: L = 320 and 512, two
+    T-chunks), then ``VLM_DECODE_STEPS`` greedy ``lm.decode_step`` calls
+    (B1) against the engine's precomposed projection, under
+    ``set_sync_debug_mode("error")``: B2 = prefill calls x layers, B1 =
+    decode steps x layers and no other launch; ``pos`` num_patches +
+    prompt after the prefill and + decode steps after them; every logit
+    finite. Prefill ms and TPOT from CUDA events. Returns (the JSON
+    fields, the checks, the launches)."""
+    from repro_torch.data import SyntheticVLM
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import lm
+
+    runs, bad = [], []
+    total = dict.fromkeys(counters, 0)
+    proj = lm.build_decode_proj(params, cfg)
+    for n_text in VLM_PROMPTS:
+        data = SyntheticVLM(cfg.d_model, cfg.num_patches, n_text, VLM_ROWS,
+                            cfg.vocab, seed=0).batch(0)
+        batch = to_device({k: data[k] for k in ("tokens", "patch_embeds")},
+                          dev)
+        max_len = cfg.num_patches + n_text + VLM_DECODE_STEPS
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(VLM_DECODE_STEPS + 2)]
+        finite = []
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ev[0].record()
+            logits, st = lm.prefill(params, cfg, batch, max_len)
+            ev[1].record()
+            pos_prefill = st["pos"].clone()
+            finite.append(torch.isfinite(logits).all())
+            tok = logits[:, 0].argmax(-1)
+            for i in range(VLM_DECODE_STEPS):
+                logits, st = lm.decode_step(params, cfg, tok, st, proj=proj)
+                ev[i + 2].record()
+                finite.append(torch.isfinite(logits).all())
+                tok = logits.argmax(-1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        launches = launch_counts(counters)
+        for n in total:
+            total[n] += launches[n]
+        tpot = [ev[i].elapsed_time(ev[i + 1])
+                for i in range(1, VLM_DECODE_STEPS + 1)]
+        want = {**dict.fromkeys(counters, 0),
+                "prf_fused_prefill": cfg.n_layers,
+                "prf_fused_decode": VLM_DECODE_STEPS * cfg.n_layers}
+        pos = [int(pos_prefill), int(st["pos"])]
+        run = {"rows": VLM_ROWS, "patches": cfg.num_patches,
+               "prompt": n_text, "prefill_len": cfg.num_patches + n_text,
+               "prefill_ms": ev[0].elapsed_time(ev[1]),
+               "tpot_p50_ms": float(np.percentile(tpot, 50)),
+               "tpot_p99_ms": float(np.percentile(tpot, 99)),
+               "decode_steps": VLM_DECODE_STEPS, "pos": pos,
+               "launches": launches}
+        runs.append(run)
+        if launches != want:
+            bad.append(f"launches {launches}, expected {want}")
+        if pos != [cfg.num_patches + n_text,
+                   cfg.num_patches + n_text + VLM_DECODE_STEPS]:
+            bad.append(f"pos {pos} at prompt {n_text}")
+        if not all(bool(f) for f in finite):
+            bad.append(f"non-finite logits at prompt {n_text}")
+        del st, logits
+
+    def check():
+        if bad:
+            fail(f"{VLM} serving: {'; '.join(bad)}")
+    return runs, check, total
+
+
+def vlm_prefill_timing(torch, dev, kp, cfg):
+    """B2 alone at phase 11 (c)'s calls (``VLM_ROWS`` rows, internvl2-76b's
+    heads, bf16, all rows full) over 256 tokens (one T-chunk) and 256
+    patches + each of ``VLM_PROMPTS`` (two), with its bound (as
+    :func:`prefill_grant_timing`): whether a call's time grows with its
+    T-chunks. These timing calls are not counted on the path."""
+    from repro_torch.kernels import check as kc
+
+    g, hg, d, m = (cfg.n_kv, cfg.n_heads // cfg.n_kv, cfg.head_dim,
+                   cfg.attn.num_features)
+    out = []
+    for l in (256, *(cfg.num_patches + n for n in VLM_PROMPTS)):
+        args = kc.make_inputs(dev, VLM_ROWS, g, hg, d, m, d, l, True,
+                              seed=9, dtype=torch.bfloat16)
+        q, k, v, a, mm, s, z, c = args
+        rows = VLM_ROWS * l
+        byts = (nbytes(q, k, v, a, mm) + 2 * nbytes(s, z, c)
+                + nbytes(v) * hg)
+        flops = (feature_flops(rows * g * hg, rows * g, d, d, m, True)
+                 + rows * g * hg * (4 * m * d + 4 * m))
+        bms, by = bound(byts, flops)
+        out.append({"shape": f"B={VLM_ROWS} L={l} G={g} Hg={hg} d={d} "
+                             f"m={m} dv={d} bf16",
+                    "t_chunks": -(-l // 256),
+                    **kernel_times(torch, lambda: kp.fused_prf_prefill(
+                        *args, eps=1e-8), 20),
+                    "bound_ms": bms, "bound_by": by})
+    return out
+
+
+def vlm_drive(torch, lm, cfg, params, dev, data, feed=None):
+    """``lm.prefill`` of ``data`` (numpy tokens and patches, or tokens
+    alone for a text ``cfg``), then ``VLM_CROSS_STEPS`` decode steps, each
+    fed ``feed[i]`` or the argmax before it. Returns (each step's logits
+    on the CPU, the tokens fed, the final state on the CPU)."""
+    from repro_torch.launch.train import to_device
+    from repro_torch.serving import slots as slot_ops
+
+    keys = ("tokens", "patch_embeds") if cfg.modality == "vlm" else (
+        "tokens",)
+    logits, st = lm.prefill(params, cfg, to_device(
+        {k: data[k] for k in keys}, dev), max_len=512)
+    out, fed = [logits[:, 0].float().cpu()], []
+    for i in range(VLM_CROSS_STEPS):
+        fed.append(out[-1].argmax(-1) if feed is None else feed[i])
+        logits, st = lm.decode_step(params, cfg, fed[-1].to(dev), st)
+        out.append(logits.float().cpu())
+    return out, fed, slot_ops.tree_slot_map(lambda t, axis: t.cpu(), st)
+
+
+def vlm_cross_device(torch, dev, cfg, params):
+    """Phase 11 (e): phase 4's check on internvl2-76b's served params'
+    first ``VLM_CROSS_LAYERS`` layers (full width, bf16): one row of 256
+    patches and ``VLM_CROSS_TEXT`` tokens through ``lm.prefill``, then
+    ``VLM_CROSS_STEPS`` decode steps, the card through B2/B1 against the
+    CPU's plain path fed the card's tokens: every step's logits within
+    ``CROSS_DEVICE_TOL`` of max |logit|, each layer's S and z within
+    ``STATE_TOL``, ``pos`` equal. A planted fault (the patches dropped on
+    the card: the prompt's tokens alone) must fail. Returns (the JSON
+    fields, the checks)."""
+    from repro_torch.data import SyntheticVLM
+    from repro_torch.models import lm
+
+    data = SyntheticVLM(cfg.d_model, cfg.num_patches, VLM_CROSS_TEXT, 1,
+                        cfg.vocab, seed=1).batch(0)
+    t0 = time.perf_counter()
+    card = vlm_drive(torch, lm, cfg, params, dev, data)
+    t_cpu = time.perf_counter()
+    cpu = vlm_drive(torch, lm, dataclasses.replace(cfg, use_kernel=False),
+                    lm.tree_map(lambda t: t.cpu(), params), "cpu", data,
+                    feed=card[1])
+    cpu_s = time.perf_counter() - t_cpu
+    planted = vlm_drive(torch, lm, dataclasses.replace(cfg, modality="text"),
+                        params, dev, data, feed=card[1])
+    logit_err, state_err = gaps(torch, card, cpu)
+    fault_logit, fault_state = gaps(torch, planted, cpu)
+    pos = [int(card[2]["pos"]), int(cpu[2]["pos"])]
+    fields = {"n_layers": cfg.n_layers, "patches": cfg.num_patches,
+              "prompt": VLM_CROSS_TEXT, "decode_steps": VLM_CROSS_STEPS,
+              "rel_max_err": logit_err, "state_rel_err": state_err,
+              "tolerance": CROSS_DEVICE_TOL, "state_tolerance": STATE_TOL,
+              "argmax_agreement": [
+                  float((g.argmax(-1) == c.argmax(-1)).float().mean())
+                  for g, c in zip(card[0], cpu[0])],
+              "pos": pos, "cpu_seconds": cpu_s,
+              "planted_fault": {"what": "the patches dropped on the card",
+                                "rel_max_err": fault_logit,
+                                "state_rel_err": fault_state},
+              "seconds": time.perf_counter() - t0}
+
+    def check():
+        want = cfg.num_patches + VLM_CROSS_TEXT + VLM_CROSS_STEPS
+        if pos != [want, want]:
+            fail(f"{VLM} cross-device: pos {pos}, expected {want}")
+        if max(logit_err) > CROSS_DEVICE_TOL:
+            fail(f"{VLM} cross-device logits differ by {max(logit_err):.3e} "
+                 "of max |logit|")
+        if state_err > STATE_TOL:
+            fail(f"{VLM} cross-device state differs by {state_err:.3e} of "
+                 "its max")
+        if max(fault_logit) <= CROSS_DEVICE_TOL and \
+                fault_state <= STATE_TOL:
+            fail(f"{VLM} cross-device check passes a planted fault")
+    return fields, check
+
+
+def vlm_train(torch, dev, counters):
+    """Phase 11 (d): internvl2-76b at full width and ``VLM_TRAIN_LAYERS``
+    layers (params from seed 0 drawn on the card), ``VLM_TRAIN_STEPS``
+    steps of ``launch.steps.make_train_step`` (the launcher's AdamW and
+    cosine schedule; the launcher has no depth flag) on SyntheticVLM
+    batches of ``VLM_TRAIN_BATCH`` rows of 256 patches and
+    ``VLM_TRAIN_SEQ`` tokens: losses finite, B5 = steps x layers and no
+    other launch; step ms (synchronised) and peak device memory. Returns
+    (the JSON fields, the checks, the launches)."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.data import SyntheticVLM
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.schedules import cosine_warmup
+
+    cfg = configs.get_config(VLM, n_layers=VLM_TRAIN_LAYERS, use_kernel=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev, draw_on=dev)
+    opt_cfg = AdamWConfig(lr=3e-4, factored_second_moment=True)
+    opt = adamw_init(params, opt_cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = steps.make_train_step(cfg, opt_cfg,
+                                 cosine_warmup(3e-4, 2, VLM_TRAIN_STEPS))
+    data = SyntheticVLM(cfg.d_model, cfg.num_patches, VLM_TRAIN_SEQ,
+                        VLM_TRAIN_BATCH, cfg.vocab, seed=0)
+    zero_counts(counters)
+    losses, ms = [], []
+    for s in range(VLM_TRAIN_STEPS):
+        batch = to_device(data.batch(s), dev)
+        t1 = time.perf_counter()
+        params, opt, m = step(params, opt, batch, s)
+        losses.append(float(m["loss"]))                 # synchronises
+        ms.append((time.perf_counter() - t1) * 1e3)
+    launches = launch_counts(counters)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {**dict.fromkeys(counters, 0),
+            "linear_attention_causal": VLM_TRAIN_STEPS * cfg.n_layers}
+    fields = {"n_layers": cfg.n_layers, "batch": VLM_TRAIN_BATCH,
+              "patches": cfg.num_patches, "text": VLM_TRAIN_SEQ,
+              "steps": VLM_TRAIN_STEPS, "factored_second_moment": True,
+              "loss": losses, "step_ms": ms,
+              "tokens_per_s": VLM_TRAIN_BATCH * (cfg.num_patches
+                                                 + VLM_TRAIN_SEQ)
+              / (float(np.percentile(ms[1:], 50)) / 1e3),
+              "init_s": init_s, "peak_mem_gb": peak, "launches": launches}
+
+    def check():
+        if len(losses) != VLM_TRAIN_STEPS or not all(np.isfinite(losses)):
+            fail(f"{VLM} train: losses {losses}")
+        if launches != want:
+            fail(f"{VLM} train: launches {launches}, expected {want}")
+    return fields, check, launches
+
+
+def phase_modalities(torch, dev, counters):
+    """Phase 11: the non-text modalities. hubert-xlarge: (a)
+    :func:`hubert_train` at full size, (b) :func:`hubert_cross_device` at
+    2 layers; internvl2-76b at full width with its depth cut: (c)
+    :func:`vlm_serve` at ``VLM_SERVE_LAYERS`` layers drawn on the card,
+    (e) :func:`vlm_cross_device` on their first ``VLM_CROSS_LAYERS``,
+    (d) :func:`vlm_train` at ``VLM_TRAIN_LAYERS``. One line an arch.
+    Returns {arch: each kernel's launches in its runs}."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    train_fields, check_train, h_launches = hubert_train(torch, dev,
+                                                         counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cross, check_cross = hubert_cross_device(torch, dev, counters)
+    emit({"phase": "modalities", "arch": HUBERT, "train": train_fields,
+          **cross, "seconds": time.perf_counter() - t0})
+    check_train()
+    check_cross()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    cfg = configs.get_config(VLM, use_kernel=True)
+    full_depth = cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=VLM_SERVE_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, seed=0, device=dev, draw_on=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t1
+    param_gb = torch.cuda.memory_allocated() / 1e9
+    b2_timing = vlm_prefill_timing(
+        torch, dev, counters["prf_fused_prefill"][0], cfg)
+    runs, check_serve, v_launches = vlm_serve(torch, dev, counters, cfg,
+                                              params)
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    sub_cfg = dataclasses.replace(cfg, n_layers=VLM_CROSS_LAYERS)
+    sub = {**params, "units": {"b0": lm.tree_map(
+        lambda t: t[:VLM_CROSS_LAYERS], params["units"]["b0"])}}
+    vcross, check_vcross = vlm_cross_device(torch, dev, sub_cfg, sub)
+    del params, sub
+    gc.collect()
+    torch.cuda.empty_cache()
+    vtrain, check_vtrain, t_launches = vlm_train(torch, dev, counters)
+    emit({"phase": "modalities", "arch": VLM, "full_depth": full_depth,
+          "depth_cut": True, "serve": {
+              "n_layers": cfg.n_layers, "param_init_s": init_s,
+              "param_gb": param_gb, "peak_mem_gb": serve_peak,
+              "runs": runs, "b2_alone": b2_timing},
+          "cross_device": vcross, "train": vtrain,
+          "seconds": time.perf_counter() - t1})
+    check_serve()
+    check_vcross()
+    check_vtrain()
+    return {HUBERT: h_launches,
+            VLM: {n: v_launches[n] + t_launches[n] for n in counters}}
+
+
 # every kernel of the port: (its module, its launch counter, its CUDA
 # source, the Pallas TPU kernel it replaces)
 KERNELS = {
@@ -3034,6 +3574,7 @@ def main() -> int:
     recurrent = phase_recurrent(torch, dev, counters)
     recurrent_train = phase_recurrent_train(torch, dev, counters)
     rwkv = phase_rwkv(torch, dev, counters)
+    modalities = phase_modalities(torch, dev, counters)
 
     emit({"kernels": [
         {"name": n, "route": "cuda",
@@ -3050,6 +3591,7 @@ def main() -> int:
          "launches_recurrent": recurrent.get(n, 0),
          "launches_recurrent_train": recurrent_train[n],
          "launches_rwkv": rwkv[n],
+         "launches_modalities": {a: m[n] for a, m in modalities.items()},
          "bound_ms": timing[n]["bound_ms"],
          "bound_by": timing[n]["bound_by"], "library_ms": None}
         for n, (_, _, src, replaces) in KERNELS.items()],

@@ -5,12 +5,19 @@ Run from the repository root on a machine with a CUDA device:
 
     python3 scripts/torch_train_memory.py --arch recurrentgemma-2b \
         --seq 512 --batches 8 6 5 4
+    python3 scripts/torch_train_memory.py --arch hubert-xlarge \
+        --seq 512 --batches 16 12 8
+    python3 scripts/torch_train_memory.py --arch internvl2-76b \
+        --layers 1 --seq 256 --batches 4 2 1 --factored
 
 For each batch size, from the largest: params drawn on the card from
 seed 0 (``init_params(draw_on=)``), a fresh AdamW state (the launcher's
-``AdamWConfig(lr=3e-4)``), then ``--steps`` steps of
-``launch.steps.make_train_step`` (kernel on) on SyntheticLM batches of
-``batch x seq``, as ``launch/train.py`` runs them. Prints the card's
+``AdamWConfig(lr=3e-4)``; ``--factored`` keeps Adafactor-style row and
+column factors of its second moment, ``factored_second_moment``), then ``--steps`` steps of
+``launch.steps.make_train_step`` (kernel on) on the batches of
+``launch.train.make_data`` (``batch x seq``: text tokens, audio frames,
+or 256 patches before ``seq`` text tokens, by the config's modality),
+as ``launch/train.py`` runs them. Prints the card's
 name and power limit, then one JSON line a batch: the params' and the
 AdamW state's GB, the peak device memory (``max_memory_allocated``)
 over the steps, each step's host-clock ms (synchronised) and the loss;
@@ -42,8 +49,7 @@ def gb(tree) -> float:
 def run(args, batch: int) -> dict:
     import torch
     from repro_torch import configs
-    from repro_torch.data import SyntheticLM
-    from repro_torch.launch import steps
+    from repro_torch.launch import steps, train
     from repro_torch.models import lm
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.optim.schedules import cosine_warmup
@@ -54,23 +60,24 @@ def run(args, batch: int) -> dict:
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     out = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": batch,
-           "seq": args.seq, "device": args.device}
+           "seq": args.seq, "device": args.device,
+           "factored_second_moment": args.factored}
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     params = lm.init_params(cfg, seed=0, device=args.device,
                             draw_on=args.device)
-    opt_cfg = AdamWConfig(lr=3e-4)
+    opt_cfg = AdamWConfig(lr=3e-4, factored_second_moment=args.factored)
     opt = adamw_init(params, opt_cfg)
     out["param_gb"], out["opt_gb"] = gb(params), gb(opt)
     step = steps.make_train_step(cfg, opt_cfg,
                                  cosine_warmup(3e-4, 2, args.steps))
-    data = SyntheticLM(cfg.vocab, args.seq, batch, seed=0)
+    data = train.make_data(cfg, argparse.Namespace(
+        seq=args.seq, batch=batch, seed=0, data="synthetic"))
     ms, losses = [], []
     try:
         for s in range(args.steps):
-            b = {k: torch.from_numpy(v).to(args.device).long()
-                 for k, v in data.batch(s).items()}
+            b = train.to_device(data.batch(s), args.device)
             t0 = time.perf_counter()
             params, opt, m = step(params, opt, b, s)
             losses.append(float(m["loss"]))            # synchronises
@@ -95,6 +102,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--layers", type=int, default=0)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--factored", action="store_true",
+                    help="AdamW's factored second moment")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     if args.device != "cpu":

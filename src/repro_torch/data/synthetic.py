@@ -1,7 +1,6 @@
-"""Synthetic LM data with learnable structure (port of
-``repro.data.synthetic``; the audio and VLM streams wait with ROADMAP
-A12). Host-side numpy, so a (seed, step) batch is bitwise the
-reference's.
+"""Synthetic LM, audio and VLM data with learnable structure (port of
+``repro.data.synthetic``). Host-side numpy, so a (seed, step) batch is
+bitwise the reference's.
 
 Design requirements (framework-grade, not toy):
   * deterministic: batch(step) is a pure function of (seed, step, host) —
@@ -96,3 +95,57 @@ class SyntheticLM:
                 last_pos[cur] = t
             toks[i] = seq
         return {"tokens": toks, "labels": labels}
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticAudio:
+    """Masked-frame-prediction batches for the HuBERT-style encoder."""
+    d_model: int
+    seq_len: int
+    batch_size: int
+    vocab: int = 504
+    seed: int = 0
+    host: int = 0
+    mask_prob: float = 0.3
+
+    def batch(self, step: int) -> dict:
+        """Returns {"frames": (B, L, d_model) f32, "mask": (B, L) bool,
+        "labels": (B, L) int32}: each frame a noisy linear signature of
+        its label, so the task is learnable."""
+        rng = _rng(self.seed, self.host, step, salt=1)
+        b, l = self.batch_size, self.seq_len
+        labels = rng.integers(0, self.vocab, (b, l)).astype(np.int32)
+        dirs = np.random.default_rng(
+            np.random.SeedSequence([self.seed + 7])).standard_normal(
+            (self.vocab, self.d_model)).astype(np.float32)
+        frames = dirs[labels] + 0.5 * rng.standard_normal(
+            (b, l, self.d_model)).astype(np.float32)
+        mask = rng.random((b, l)) < self.mask_prob
+        return {"frames": frames.astype(np.float32), "mask": mask,
+                "labels": labels}
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticVLM:
+    """Patch-prefix + caption-token batches for the VLM backbone."""
+    d_model: int
+    num_patches: int
+    seq_len: int               # text length
+    batch_size: int
+    vocab: int
+    seed: int = 0
+    host: int = 0
+
+    def batch(self, step: int) -> dict:
+        """Returns {"tokens", "labels"} (B, seq_len) as
+        :class:`SyntheticLM` gives them and "patch_embeds" (B,
+        num_patches, d_model) f32."""
+        lm = SyntheticLM(self.vocab, self.seq_len, self.batch_size,
+                         seed=self.seed, host=self.host)
+        b = lm.batch(step)
+        rng = _rng(self.seed + 31, self.host, step, salt=2)
+        patches = 0.02 * rng.standard_normal(
+            (self.batch_size, self.num_patches,
+             self.d_model)).astype(np.float32)
+        return {"tokens": b["tokens"], "labels": b["labels"],
+                "patch_embeds": patches}

@@ -146,6 +146,8 @@ def main(argv=None) -> dict:
                              f"(choose from {', '.join(SERVABLE)})")
         cfg = cfgs.darkify(cfg, args.kernel, cfg.attn.num_features)
     cfg = dataclasses.replace(cfg, use_kernel=args.use_kernel)
+    if cfg.modality != "text":
+        raise SystemExit("serving engine drives text decode only")
 
     # with --load every leaf is overwritten: draw the template on the
     # device (seconds at full width, where the host takes minutes)

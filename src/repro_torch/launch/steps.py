@@ -17,7 +17,8 @@ def make_train_step(cfg: lm.ModelConfig, opt_cfg: AdamWConfig,
     (params, opt_state, metrics).
 
     ``batch``: {"tokens", "labels"} (B, L) int64 tensors on the params'
-    device. ``gen`` feeds the random-attention baseline's draws; when
+    device, with the modality's inputs ("frames" and "mask" for audio,
+    "patch_embeds" for vlm: ``launch.train.to_device``). ``gen`` feeds the random-attention baseline's draws; when
     None, a generator seeded with ``step`` (the reference folds the step
     into its key there). The other kinds read none.
     ``freeze`` is a predicate over a leaf's key path (the reference's

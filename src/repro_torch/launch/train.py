@@ -9,8 +9,11 @@ softmax attention and the random and constant baselines, which have no
 kernel and run plain PyTorch (the random one draws its logits from a
 generator seeded with the step). Checkpoints are
 ``{"params", "opt"}`` in the reference's layout, so either package can
-finetune from the other's. The mesh flags, ``--simulate-failure-at``
-and the supervisor's restart loop wait with ROADMAP A13.
+finetune from the other's. The data follow the config's modality:
+masked audio frames (hubert-xlarge), or patch embeddings before
+``--seq`` text tokens (internvl2-76b). The mesh flags,
+``--simulate-failure-at`` and the supervisor's restart loop wait with
+ROADMAP A13.
 
 Examples:
   # smollm-135m at full width on the GPU
@@ -28,6 +31,10 @@ Examples:
   # the reduced config on the CPU
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
       --reduced --device cpu --steps 20 --batch 4 --seq 64
+
+  # hubert-xlarge's masked-frame prediction (512 frames a row)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge \
+      --steps 4 --batch 8 --seq 512
 """
 from __future__ import annotations
 
@@ -41,7 +48,8 @@ import torch
 
 from repro_torch import checkpoint as ckpt_lib
 from repro_torch import configs as cfgs
-from repro_torch.data import C4Mock, SyntheticLM
+from repro_torch.data import (C4Mock, SyntheticAudio, SyntheticLM,
+                              SyntheticVLM)
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import lm
 from repro_torch.optim import AdamWConfig, adamw_init
@@ -51,9 +59,29 @@ KINDS = ("exact", "performer", "darkformer", "lfk", "random", "constant")
 
 
 def make_data(cfg: lm.ModelConfig, args):
+    """The batch stream for ``cfg``'s modality: audio frames, or patches
+    and ``args.seq`` text tokens a row (num_patches + seq positions),
+    or text from ``args.data``."""
+    if cfg.modality == "audio":
+        return SyntheticAudio(cfg.d_model, args.seq, args.batch,
+                              vocab=cfg.vocab, seed=args.seed)
+    if cfg.modality == "vlm":
+        return SyntheticVLM(cfg.d_model, cfg.num_patches, args.seq,
+                            args.batch, cfg.vocab, seed=args.seed)
     if args.data == "c4mock":
         return C4Mock(cfg.vocab, args.seq, args.batch, seed=args.seed)
     return SyntheticLM(cfg.vocab, args.seq, args.batch, seed=args.seed)
+
+
+def to_device(batch: dict, device) -> dict:
+    """A numpy batch as tensors on ``device``: integer arrays (tokens,
+    labels) as int64, frames and patches f32, the audio mask bool."""
+    def one(a):
+        t = torch.from_numpy(a)
+        if not (t.is_floating_point() or t.dtype == torch.bool):
+            t = t.long()
+        return t.to(device)
+    return {k: one(v) for k, v in batch.items()}
 
 
 def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> dict:
@@ -118,8 +146,7 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> dict:
     metrics_log = []
     t_start = time.perf_counter()
     for step in range(args.steps):
-        batch = {k: torch.from_numpy(v).to(args.device).long()
-                 for k, v in data.batch(step).items()}
+        batch = to_device(data.batch(step), args.device)
         t0 = time.perf_counter()
         params, opt_state, metrics = train_step(params, opt_state, batch,
                                                 step)

@@ -19,8 +19,11 @@ has no attention layer). The other blocks' feed-forward is a dense MLP
 or, with ``cfg.moe``, the capacity-routed mixture of experts, whose
 load-balancing loss the training forward sums over the layers (serving
 drops it, as the reference does). The calibration taps run over either
-layout. The non-text modalities and remat are not ported yet (ROADMAP
-Queue A, items A12e and A13).
+layout. Inputs are text tokens, or (``modality``) audio frames whose
+masked positions take a learned ``mask_embed`` (hubert-xlarge, an
+encoder: ``causal=False``), or a prefix of ``num_patches`` patch
+embeddings before the text tokens (internvl2-76b). Remat is not ported
+yet (ROADMAP Queue A, item A13).
 
 ``prefill_chunk`` and ``decode_step`` advance ``state`` IN PLACE: the
 kernels write each layer's (S, z, c) where it lies in the pool, the
@@ -73,6 +76,8 @@ class ModelConfig:
     use_kernel: bool = False              # hand-written kernel path
     z_loss: float = 1e-4
     causal: bool = True
+    modality: str = "text"                # text|audio|vlm
+    num_patches: int = 256                # vlm prefix length
 
     @property
     def head_dim(self) -> int:
@@ -164,10 +169,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     """Random params from ``seed``, in the reference's tree layout:
     {"embed", "final_norm", "units": {"b<i>": leaves (n_units, ...)},
     "rem": [block, ...] when the pattern leaves remainder layers,
-    "lm_head" when untied}. Drawn with a ``torch.Generator`` on
-    ``draw_on``, layer after layer (unit by unit, the pattern in order,
-    then the remainder), each layer written into its slice of stacked
-    tensors allocated once on ``device``, so the host holds one layer's
+    "lm_head" when untied, "mask_embed" (d_model,) for audio}. Drawn
+    with a ``torch.Generator`` on ``draw_on``, layer after layer (unit
+    by unit, the pattern in order, then the remainder; ``mask_embed``
+    last), each layer written into its slice of stacked tensors
+    allocated once on ``device``, so the host holds one layer's
     draws at a time (granite-8b's 8.2 B parameters never sit on the
     host). Drawn on the CPU (the default), a seed gives the same params
     on every device; drawn on a card (``draw_on=device``), other
@@ -193,6 +199,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     if not cfg.tie_embeddings:
         params["lm_head"] = ll.trunc_normal(gen, (cfg.d_model, cfg.vocab),
                                             1.0, dt).to(device)
+    if cfg.modality == "audio":
+        params["mask_embed"] = ll.trunc_normal(gen, (cfg.d_model,), 1.0,
+                                               dt).to(device)
     return params
 
 
@@ -440,12 +449,24 @@ def _apply_block(params, x, cfg: ModelConfig, kind: str = "attn", *, mode,
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """Token embeddings (text only; audio and vlm inputs are ROADMAP
-    A12e)."""
+    """The stack's input (B, L, d_model) in the param dtype: token
+    embeddings; for audio batch["frames"], with ``mask_embed`` wherever
+    batch["mask"] (bool (B, L), optional) is set; for vlm
+    batch["patch_embeds"] (B, num_patches, d_model) before the token
+    embeddings, so the patches take positions 0..num_patches-1."""
+    dt = cfg.param_dtype
+    if cfg.modality == "audio":
+        x = batch["frames"].to(dt)
+        if "mask" in batch:
+            x = torch.where(batch["mask"][..., None],
+                            params["mask_embed"].to(dt), x)
+        return x
     tok = params["embed"][batch["tokens"]]
     if cfg.embed_scale:
         tok = tok * torch.tensor(cfg.d_model ** 0.5, dtype=tok.dtype)
-    return tok.to(cfg.param_dtype)
+    if cfg.modality == "vlm":
+        return torch.cat([batch["patch_embeds"].to(dt), tok.to(dt)], dim=1)
+    return tok.to(dt)
 
 
 def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -472,8 +493,8 @@ def baseline_draws(cfg: ModelConfig, l: int,
 
 def forward_train(params, cfg: ModelConfig, batch: dict,
                   gen: Optional[torch.Generator] = None):
-    """Full forward over batch["tokens"] (B, L), layer by layer in either
-    layout. Returns (logits (B, L, V) f32, aux loss 0-d f32: the MoE
+    """Full forward over the batch's input (:func:`_embed_inputs`: (B, L)
+    positions), layer by layer in either layout. Returns (logits (B, L, V) f32, aux loss 0-d f32: the MoE
     load-balancing losses summed over the layers, zero without MoE).
     With ``cfg.use_kernel`` every layer's causal PRF attention runs the
     ``linear_attention_causal`` kernel. The random baseline reads layer
@@ -494,16 +515,23 @@ def forward_train(params, cfg: ModelConfig, batch: dict,
 
 def loss_fn(params, cfg: ModelConfig, batch: dict,
             gen: Optional[torch.Generator] = None):
-    """Next-token cross-entropy plus z-loss over the positions with
-    ``labels >= 0``; ``gen`` feeds the random baseline
-    (:func:`forward_train`). Returns (loss 0-d f32, metrics {loss, ce,
-    z_loss, aux, accuracy}, detached)."""
+    """Cross-entropy against batch["labels"] plus z-loss over the
+    positions with ``labels >= 0``; for vlm over the text positions only
+    (the last ``labels.shape[1]`` of the row), for audio with a
+    batch["mask"] over the masked frames only. ``gen`` feeds the random
+    baseline (:func:`forward_train`). Returns (loss 0-d f32, metrics
+    {loss, ce, z_loss, aux, accuracy}, detached)."""
     logits, aux = forward_train(params, cfg, batch, gen)
     labels = batch["labels"].long()
+    if cfg.modality == "vlm":
+        logits = logits[:, -labels.shape[1]:]
     logz = torch.logsumexp(logits, dim=-1)
     ll_tok = torch.gather(logits, -1,
                           labels.clamp(min=0)[..., None])[..., 0] - logz
-    wmask = (labels >= 0).float()
+    if cfg.modality == "audio" and "mask" in batch:
+        wmask = batch["mask"].float()
+    else:
+        wmask = (labels >= 0).float()
     denom = wmask.sum().clamp(min=1.0)
     ce = -(ll_tok * wmask).sum() / denom
     zl = cfg.z_loss * (logz.square() * wmask).sum() / denom
@@ -653,12 +681,15 @@ def prefill_chunk(params, cfg: ModelConfig, batch: dict, state: dict,
 
 
 def prefill(params, cfg: ModelConfig, batch: dict, max_len: int):
-    """Whole-prompt pass: one ``prefill_chunk`` over batch["tokens"]
-    (B, L) from a fresh serve state (the one-chunk schedule). Returns
-    (logits (B, 1, V) f32, the new state)."""
-    tokens = batch["tokens"]
-    state = init_serve_state(cfg, b=tokens.shape[0], max_len=max_len,
-                             device=tokens.device)
+    """Whole-prompt pass: one ``prefill_chunk`` over the batch's input
+    (:func:`_embed_inputs`: tokens (B, L), audio frames, or patches then
+    tokens, so a vlm row ends at ``pos`` = num_patches + L) from a fresh
+    serve state (the one-chunk schedule). An audio config runs this
+    causal serving path too: the reference's ``attn_prefill`` takes no
+    ``causal``. Returns (logits (B, 1, V) f32, the new state)."""
+    lead = batch["frames" if cfg.modality == "audio" else "tokens"]
+    state = init_serve_state(cfg, b=lead.shape[0], max_len=max_len,
+                             device=lead.device)
     logits, state = prefill_chunk(params, cfg, batch, state)
     return logits[:, None], state
 

@@ -247,6 +247,8 @@ class ServingEngine:
                  bucket_prefill: bool = True, overlap: bool = False,
                  prefix_cache: Union[bool, PrefixCacheConfig, None] = None,
                  device="cuda"):
+        if cfg.modality != "text":
+            raise ValueError("serving engine drives text decode only")
         if chunk_tokens is not None and chunk_tokens < 1:
             raise ValueError("chunk_tokens must be >= 1")
         if prefill_rows is not None and prefill_rows < 1:

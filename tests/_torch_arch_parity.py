@@ -18,7 +18,7 @@ import torch
 
 from repro import checkpoint as jckpt
 from repro import configs as jcfgs
-from repro.data import SyntheticLM
+from repro.data import SyntheticAudio, SyntheticLM, SyntheticVLM
 from repro.launch import steps as jsteps
 from repro.models import ModelConfig as JModelConfig
 from repro.models import lm as jlm
@@ -41,8 +41,8 @@ ATOL = 1e-4
 OUT_TOL = dict(atol=1e-5, rtol=1e-4)
 GRAD_TOL = dict(atol=2e-6, rtol=2e-4)
 # reference fields the port's ModelConfig leaves out: remat and the
-# sharding rules wait with ROADMAP A13; the others must hold the
-# reference's defaults (text, stacked layers, no patches)
+# sharding rules wait with ROADMAP A13; the other (scan_layers) must
+# hold the reference's default
 LEFT_OUT = ("remat", "sharding_overrides")
 # (L, valid_len) of each resumed chunk; no row is empty, as in serving
 CHUNKS = [(6, (6, 2, 3)), (5, None), (7, (3, 7, 1))]
@@ -74,7 +74,24 @@ def bits(a) -> bytes:
 
 
 def tokens(batch):
-    return {k: torch.tensor(v).long() for k, v in batch.items()}
+    """A numpy batch as the port's CPU tensors (``train.to_device``):
+    integer arrays int64, frames and patches f32, the mask bool."""
+    return train.to_device(batch, "cpu")
+
+
+def make_batch(cfg, seq=16, b=2, seed=1, step=0):
+    """One numpy batch of the reference's stream for ``cfg``'s modality:
+    SyntheticLM tokens, SyntheticAudio frames of ``seq`` positions, or
+    SyntheticVLM patches then ``seq`` text tokens."""
+    if cfg.modality == "audio":
+        data = SyntheticAudio(cfg.d_model, seq, b, vocab=cfg.vocab,
+                              seed=seed)
+    elif cfg.modality == "vlm":
+        data = SyntheticVLM(cfg.d_model, cfg.num_patches, seq, b, cfg.vocab,
+                            seed=seed)
+    else:
+        data = SyntheticLM(cfg.vocab, seq, b, seed=seed)
+    return data.batch(step)
 
 
 def assert_config_fields_match(arch):
@@ -111,12 +128,16 @@ def assert_init_tree_matches(arch):
     assert got == exp
 
 
-def check_loss_and_grads(arch, use_kernel=False, **kw):
+def check_loss_and_grads(arch, use_kernel=False, data=None, grads_out=None,
+                         **kw):
     """The loss (with ce, z_loss, aux and accuracy) and every gradient
-    leaf against ``jax.grad``; ``kw`` overrides config fields in both.
-    Returns the port's metrics."""
+    leaf against ``jax.grad`` on ``data`` (a numpy batch; by default
+    :func:`make_batch`'s 2 x 16 of the arch's modality); ``kw``
+    overrides config fields in both. Returns the port's metrics; the
+    port's gradients go into ``grads_out`` by path when it is a dict."""
     jcfg, tcfg, jparams, tparams = setup(arch, use_kernel=use_kernel, **kw)
-    data = SyntheticLM(jcfg.vocab, 16, 2, seed=1).batch(0)
+    if data is None:
+        data = make_batch(jcfg)
     jb = {k: jnp.asarray(v) for k, v in data.items()}
     (_, jm), jgrads = jax.jit(jax.value_and_grad(
         jlm.loss_fn, has_aux=True), static_argnums=1)(jparams, jcfg, jb)
@@ -135,6 +156,8 @@ def check_loss_and_grads(arch, use_kernel=False, **kw):
         g = torch.zeros_like(t) if g is None else g
         np.testing.assert_allclose(g.numpy(), exp[path], err_msg=path,
                                    **GRAD_TOL)
+        if grads_out is not None:
+            grads_out[path] = g
     return tm
 
 

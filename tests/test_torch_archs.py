@@ -33,18 +33,20 @@ DENSE = ["granite-8b", "qwen3-32b", "yi-34b"]
 
 def test_archs_lists_the_ported_configs_in_the_reference_order():
     from repro import configs as jcfgs
-    assert tcfgs.ARCHS == [a for a in jcfgs.ARCHS if a in tcfgs.ARCHS]
-    assert set(tcfgs.ARCHS) == {
-        "recurrentgemma-2b", "smollm-135m", "granite-8b", "qwen3-32b",
-        "yi-34b", "rwkv6-7b", "granite-moe-3b-a800m", "qwen3-moe-235b-a22b",
-        "darkformer-2b"}
-    for name in ("internvl2-76b", "hubert-xlarge"):
-        assert name in jcfgs.ARCHS and tcfgs.NOT_PORTED[name] == "A12e"
-        with pytest.raises(NotImplementedError, match="A12e"):
-            tcfgs.get_config(name)
+    assert tcfgs.ARCHS == jcfgs.ARCHS
+    assert not hasattr(tcfgs, "NOT_PORTED")
+    with pytest.raises(ValueError, match="unknown arch"):
+        tcfgs.get_config("gpt-5")
     # A12c is done: rwkv6-7b loads, reduced and at full size
     assert tcfgs.get_config("rwkv6-7b").block_pattern == ("rwkv",)
     assert tcfgs.get_config("rwkv6-7b", reduced=True).n_layers == 2
+    # A12e is done: internvl2-76b and hubert-xlarge load, reduced and at
+    # full size, with their modalities
+    assert tcfgs.get_config("internvl2-76b").modality == "vlm"
+    assert tcfgs.get_config("internvl2-76b", reduced=True).num_patches == 8
+    hubert = tcfgs.get_config("hubert-xlarge")
+    assert hubert.modality == "audio" and not hubert.causal
+    assert tcfgs.get_config("hubert-xlarge", reduced=True).n_layers == 2
 
 
 @pytest.mark.parametrize("arch", DENSE)

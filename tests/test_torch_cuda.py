@@ -56,6 +56,10 @@ def dev():
     (8, 1, 10, 256, 256, 256, True, False, torch.float32),
     (1, 1, 10, 256, 256, 256, True, True, torch.float32),
     (3, 1, 10, 256, 256, 256, False, True, torch.bfloat16),
+    # hubert-xlarge's MHA: 16 KV groups of one head, d_head = dv = 80
+    # (no path decodes it: the encoder runs no kernel)
+    (8, 16, 1, 80, 256, 80, True, True, torch.float32),
+    (8, 16, 1, 80, 256, 80, True, True, torch.bfloat16),
 ])
 def test_decode_kernel_matches_plain(dev, b, g, hg, d, m, dv, dark, stab,
                                      dtype):
@@ -212,6 +216,41 @@ def test_prefill_kernel_at_recurrentgemma_heads(dev, b, l, valid_len,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,valid_len", [
+    (4, 320, None), (4, 512, None), (4, 512, (512, 320, 257, 511))])
+def test_prefill_kernel_at_internvl2_vlm_prefill(dev, b, l, valid_len,
+                                                 dtype):
+    """B2 at internvl2-76b's heads (G 8, Hg 8, d_head = dv = 128, m 256)
+    over a whole VLM prompt in one call, 256 patches and 64 or 256 text
+    tokens: L = 320 and 512, two 256-token T-chunks with the carried
+    state rescaled by rho between them, from a non-zero carried state,
+    f32 and bf16 q/k/v."""
+    args = check.make_inputs(dev, b, 8, 8, 128, 256, 128, l, True,
+                             seed=l + b, dtype=dtype)
+    vl = (None if valid_len is None
+          else torch.tensor(valid_len, dtype=torch.int32, device=dev))
+    check.check_case("prefill internvl2", lambda: kp.launches,
+                     kp.fused_prf_prefill, kp.prf_fused_prefill_plain, args,
+                     (5, 6, 7), vl, eps=1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,valid_len", D128_GRANTS)
+def test_prefill_kernel_at_hubert_heads(dev, b, l, valid_len, dtype):
+    """B2 at hubert-xlarge's heads (G 16, Hg 1, d_head = dv = 80, m 256),
+    each grant of the packer; no path prefills it through B2 (the
+    encoder runs no kernel), so this holds the geometry alone."""
+    args = check.make_inputs(dev, b, 16, 1, 80, 256, 80, l, True,
+                             seed=b + l + 80, dtype=dtype)
+    vl = torch.tensor(valid_len, dtype=torch.int32, device=dev)
+    check.check_case("prefill hubert", lambda: kp.launches,
+                     kp.fused_prf_prefill, kp.prf_fused_prefill_plain, args,
+                     (5, 6, 7), vl, eps=1e-8)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,l", [(8, 32), (4, 64), (2, 128), (1, 256)])
 def test_prefill_kernel_updates_in_place_without_pool_copies(dev, b, l):
     """s, z and c stay where they lie, and the call allocates less than the
@@ -257,6 +296,12 @@ def test_prefill_kernel_updates_in_place_without_pool_copies(dev, b, l):
     # m = dv = 256
     (2, 1, 10, 1, 512, 256, 256, torch.bfloat16),
     (1, 1, 10, 1, 300, 256, 256, torch.float32),
+    # hubert-xlarge's MHA (16 groups of one head, dv 80): the geometry
+    # alone, as its noncausal training runs no kernel
+    (2, 16, 1, 1, 512, 256, 80, torch.bfloat16),
+    (1, 16, 1, 1, 300, 256, 80, torch.float32),
+    # internvl2-76b's training heads at 256 patches + 256 tokens
+    (2, 8, 8, 1, 512, 256, 128, torch.float32),
 ])
 def test_linear_attention_kernel_matches_plain(dev, b, g, hg, hk, l, m, dv,
                                                dtype):
@@ -324,6 +369,9 @@ def test_featmap_kernel_matches_plain(dev, n, d, r, m, dark, dtype):
     (8, 1, 10, 1, 256, 256, torch.bfloat16),
     (8, 1, 10, 1, 256, 256, torch.float32),
     (1, 1, 10, 1, 256, 256, torch.bfloat16),
+    # hubert-xlarge's MHA (16 groups of one head, dv 80)
+    (8, 16, 1, 1, 256, 80, torch.float32),
+    (8, 16, 1, 1, 256, 80, torch.bfloat16),
 ])
 def test_decode_step_kernel_matches_plain(dev, b, g, hg, hk, m, dv, dtype):
     """B3 against its plain version, S and z advanced where they lie."""
@@ -381,6 +429,9 @@ F32, BF16 = torch.float32, torch.bfloat16
     (4, 1, 10, 1, 64, 256, 256, F32, True),
     (2, 1, 10, 1, 128, 256, 256, BF16, True),
     (1, 1, 10, 1, 256, 256, 256, F32, True),
+    # hubert-xlarge's MHA (16 groups of one head, dv 80)
+    (4, 16, 1, 1, 64, 256, 80, F32, True),
+    (1, 16, 1, 1, 256, 256, 80, BF16, True),
 ])
 def test_carry_kernel_matches_plain(dev, b, g, hg, hk, l, m, dv, dtype,
                                     rho):
@@ -1294,3 +1345,74 @@ def test_rwkv_engine_makes_no_sync_and_matches_sequential(dev):
         assert _launch_counts() == before
     assert streams[0] == streams[1]
     assert [len(t) for t in streams[1]] == [r.max_new_tokens for r in reqs]
+
+
+# the noncausal PRF attention, card (cuBLAS) against CPU, f32 and bf16:
+# the largest output gap over the largest |output|
+NONCAUSAL_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.02}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_noncausal_prf_attention_matches_cpu(dev, dtype):
+    """hubert-xlarge's attention: ``rf_attention(causal=False)`` (the
+    reference's two-matmul form, plain PyTorch) at its heads (16 groups
+    of one head, d_head 80, m 256) over 2 x 512 frames, on the card
+    within NONCAUSAL_TOL of the CPU's, launching no kernel even under
+    ``use_kernel``."""
+    from repro_torch.core import attention as rfa
+    from repro_torch.core import feature_maps as fm
+    cfg = fm.FeatureConfig(kind="darkformer", num_features=256,
+                           orthogonal=True)
+    gen = torch.Generator().manual_seed(5)
+    fp = fm.init_feature_params(gen, cfg, 80, n_groups=16)
+    fp["m_mat"] += 0.1 * 80 ** -0.5 * torch.randn(fp["m_mat"].shape,
+                                                  generator=gen)
+    q = (torch.randn((2, 16, 1, 512, 80), generator=gen) * 80 ** -0.25)
+    k = (torch.randn((2, 16, 1, 512, 80), generator=gen) * 80 ** -0.25)
+    v = torch.randn((2, 16, 1, 512, 80), generator=gen)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    before = _launch_counts()
+    with torch.no_grad():
+        exp = rfa.rf_attention(q, k, v, fp, cfg, causal=False,
+                               use_kernel=True)
+        got = rfa.rf_attention(q.to(dev), k.to(dev), v.to(dev),
+                               {n: t.to(dev) for n, t in fp.items()}, cfg,
+                               causal=False, use_kernel=True)
+    assert _launch_counts() == before
+    assert got.dtype == exp.dtype == dtype and got.shape == exp.shape
+    err = float((got.cpu().float() - exp.float()).abs().max())
+    assert err <= NONCAUSAL_TOL[dtype] * float(exp.float().abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "internvl2-76b"])
+def test_embed_inputs_match_cpu(dev, arch):
+    """``lm._embed_inputs`` of the modality at full width, bf16: audio
+    frames with ``mask_embed`` at the masked frames, or 256 patches
+    before the text tokens; the card's bitwise the CPU's (a cast, a
+    select, a gather and a concatenation)."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    cfg = configs.get_config(arch, n_layers=1)
+    gen = torch.Generator().manual_seed(3)
+    params = {"embed": torch.randn((cfg.vocab, cfg.d_model),
+                                   generator=gen).to(torch.bfloat16)}
+    if cfg.modality == "audio":
+        params["mask_embed"] = torch.randn(
+            (cfg.d_model,), generator=gen).to(torch.bfloat16)
+    args = type("Args", (), dict(seq=64, batch=2, seed=0,
+                                 data="synthetic"))()
+    batch = train.make_data(cfg, args).batch(0)
+    exp = lm._embed_inputs(params, cfg, train.to_device(batch, "cpu"))
+    got = lm._embed_inputs({n: t.to(dev) for n, t in params.items()}, cfg,
+                           train.to_device(batch, dev))
+    length = 64 + (cfg.num_patches if cfg.modality == "vlm" else 0)
+    assert exp.shape == (2, length, cfg.d_model)
+    assert exp.dtype == got.dtype == torch.bfloat16
+    assert torch.equal(got.cpu(), exp)
+    if cfg.modality == "audio":
+        mask = torch.from_numpy(batch["mask"])
+        assert mask.any() and torch.equal(
+            exp[mask], params["mask_embed"].expand(int(mask.sum()), -1))
