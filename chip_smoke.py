@@ -95,7 +95,9 @@ Phases, each printed as a JSON line:
      planted fault (each layer run with the next layer's wk) must fail;
   5. training: smollm-135m at full width trained for 8 steps by the
      port's train launcher through the causal linear-attention kernel
-     (loss finite and falling, 30 launches a step), checkpointed, then
+     under the config's remat "dots" (loss finite and falling, 60
+     launches a step: :func:`b5_per_step`, each layer's forward and its
+     recompute in the backward), checkpointed, then
      finetuned qkv-only for 3 steps from that checkpoint (frozen bf16
      leaves bitwise, the frozen f32 feat.w moved by weight decay alone,
      wq/wk/wv/m_mat moved);
@@ -114,11 +116,12 @@ Phases, each printed as a JSON line:
      layers (Sigma = M^T M and the taps), with a planted fault; the
      eval loss of the exact, the transplanted and the calibrated models;
      the calibrated params finetuned qkv-only for 3 steps through B5 (3
-     x 30 launches, m_mat moved), then 4 requests served from the
+     x 60 launches under remat, m_mat moved), then 4 requests served from the
      finetuned params through B1/B2;
   6. cross-device training: one loss and all its gradients at full
-     width and 4 layers on the card (kernel) and on the CPU (plain
-     path), same params and batch; a planted fault (each layer's kernel
+     width and 4 layers on the card (kernel, 8 launches under remat) and
+     on the CPU (plain path), same params and batch; a planted fault
+     (each layer's kernel
      call fed the next layer's key features) must fail the same check;
   7. the homogeneous attention configs at full width, random weights
      from seed 0 drawn on the card, one model at a time: (a) granite-8b
@@ -164,15 +167,17 @@ Phases, each printed as a JSON line:
      (a) the train launcher at its full 26 layers and width (params from
      seed 0 drawn on the host, as the launcher draws them), kernel on,
      ``REC_TRAIN_STEPS`` steps of ``REC_TRAIN_BATCH`` x 512 tokens (the
-     largest batch of 512-token rows that fits the card:
-     scripts/torch_train_memory.py): losses finite, B5 = steps x 8 (the
-     local layers) and no other launch, a {"params", "opt"} checkpoint
+     launcher's default batch, which fits the card under remat "dots":
+     scripts/torch_train_memory.py): losses finite, B5 = steps x 16
+     (the 8 local layers, each recomputed under remat) and no other
+     launch, a {"params", "opt"} checkpoint
      with its ``rem`` list written; step times, the checkpoint's bytes,
      peak device memory; (b) phase 5b's ``serve --load`` of that
      checkpoint (4 requests through B1/B2, streams equal to an engine
      on the params the run returned); (c) phase 6's card-against-CPU
      loss and every gradient at 5 layers (one unit and the two
-     remainder layers), bf16, 2 x 256, with a planted fault (each
+     remainder layers; B5 twice, its local layer inside the unit), bf16,
+     2 x 256, with a planted fault (each
      RG-LRU layer fed the next one's gate weight); (d)
      ``lm.whitening_calibrate`` on the card at those 5 layers: B5 once,
      the whitening gap within phase 5c's limit, card-against-CPU Sigma
@@ -185,15 +190,16 @@ Phases, each printed as a JSON line:
      port runs. (a) phase 7's traffic through the overlapped scheduler
      under ``set_sync_debug_mode("error")``: full token counts, paths
      ``none``, none of the seven kernels launched; TTFT, TPOT,
-     throughput, init seconds and peak device memory; (b) 8 requests
-     through both schedulers at ``prefill_rows=1``: equal greedy
-     streams; (c) phase 3e's traffic through cache-on and cache-less
-     engines at ``prefill_rows=1``: forks of the (S, shift, cshift)
-     state, prefilled plus forked tokens equal to the prompts', equal
-     greedy streams; (d) phase 4's card-against-CPU check at 2 layers:
-     logits within phase 4's limit, each layer's S, shift and cshift
-     within ``REC_STATE_TOL``, with a planted fault (each layer's time
-     mix fed the next layer's key weight);
+     throughput, init seconds and peak device memory; at its first 8
+     layers, (b) 8 requests through both schedulers at
+     ``prefill_rows=1``: equal greedy streams; (c) phase 3e's traffic
+     through cache-on and cache-less engines at ``prefill_rows=1``:
+     forks of the (S, shift, cshift) state, prefilled plus forked
+     tokens equal to the prompts', equal greedy streams; (d) phase
+     4's card-against-CPU check at 2 layers: logits within phase 4's
+     limit, each layer's S, shift and cshift within ``REC_STATE_TOL``,
+     with a planted fault (each layer's time mix fed the next layer's
+     key weight);
   11. the non-text modalities: (a) hubert-xlarge (the audio encoder:
      48 layers, d_model 1280, 16 heads of 80, noncausal) at full size
      trained by the train launcher on masked audio frames
@@ -219,8 +225,25 @@ Phases, each printed as a JSON line:
      fault (the patches dropped on the card); (d) 1 layer trained
      through ``launch.steps.make_train_step`` with AdamW's factored
      second moment (4 rows of 256 patches and 256 tokens, 3 steps): B5 =
-     steps x layers and no other launch, losses finite, step ms, peak
-     memory.
+     steps x 2 (the layer and its recompute) and no other launch, losses
+     finite, step ms, peak memory;
+  12. training at scale, smollm-135m at full width, 8 x 512, remat
+     "dots": (a) the train launcher under the supervisor
+     (``--ckpt-dir``, ``--ckpt-every 4``) for 12 steps, clean, again
+     without the supervisor (two clean runs: the determinism gauge),
+     with ``--simulate-failure-at 6`` (restored from step 3's
+     checkpoint, steps 4 and 5 rerun: 14 steps), then ``--steps 16`` on
+     the clean directory (resumes at step 12, 4 steps): final params and
+     AdamW state and every logged metric after the restart equal to the
+     clean run's (bitwise where the two clean runs are), the checkpoints
+     kept, B5 = 60 x steps run; (b) one batch under remat none, full and
+     dots (and none again): loss and every gradient equal, the peak
+     memory falling from none to dots to full, ms and B5 of each; (c) a
+     single-rank NCCL group and ``make_local_mesh(1, 1)``: two sharded
+     steps (DTensor params and state) equal to two plain ones,
+     ``compressed_psum_mean`` none, bf16 and int8 equal to their
+     arithmetic, ``restore_to_shardings`` of (a)'s step-11 checkpoint
+     equal to the clean run's state; each part with its seconds.
 Then the kernels line (all seven kernels: launches on their path, max
 error, time and device time, prf_fused_decode's and prf_decode_step's
 cold beside their warm ones, plain time,
@@ -228,8 +251,8 @@ bound: bytes at 3.35 TB/s or operations at 67 TFLOP/s of f32, for
 linear_attention_causal, linear_attention_carry and prf_featmap, which
 run on the tensor cores, at 495 TFLOP/s of TF32; B1's and B2's launches
 in phase 3e's, each phase 7 model's and phase 8's serving run beside,
-and every kernel's in phase 9's training and serving, in phase 10 and
-in phase 11 by arch)
+and every kernel's in phase 9's training and serving, in phase 10, in
+phase 11 by arch and in phase 12, ``launches_runtime``)
 and, last, the
 ``{"ok": true, ...}`` line. Exits non-zero, without that line, when there is no CUDA device
 or any phase fails. Imports neither JAX nor the reference package.
@@ -242,6 +265,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -744,6 +768,19 @@ def serve(torch, dev, cfg, params, counters, shapes=None,
 def attn_layers(cfg) -> int:
     """The layers with attention: every layer but the RG-LRU's."""
     return sum(kind != "rec" for kind in cfg.layer_kinds())
+
+
+def b5_per_step(cfg) -> int:
+    """B5's launches in one training forward and backward of ``cfg``
+    (``lm.forward_train``): once a causal PRF attention layer, and once
+    more in the backward's recompute of each such layer that lies in a
+    unit of ``len(block_pattern)`` layers under remat "full" or "dots"
+    (the remainder layers run unwrapped). The no-gradient passes
+    (calibration, eval) launch once a layer."""
+    k = len(cfg.block_pattern)
+    return sum((2 if cfg.remat != "none" and li < cfg.n_units * k else 1)
+               for li, kind in enumerate(cfg.layer_kinds())
+               if kind != "rec")
 
 
 def fused_launches(counters, st, cfg) -> dict:
@@ -1779,7 +1816,7 @@ def phase_train(torch, dev, counters):
     if not losses[-1] < losses[0]:
         fail(f"train: loss did not fall ({losses[0]} -> {losses[-1]})")
     want = {n: 0 for n in counters}
-    want["linear_attention_causal"] = cfg.n_layers * steps_n
+    want["linear_attention_causal"] = b5_per_step(cfg) * steps_n
     if launches != want:
         fail(f"train: launches {launches}, expected {want}")
     del out
@@ -1821,7 +1858,7 @@ def phase_train(torch, dev, counters):
              f"leaves unchanged {trained_still}")
     if not all(np.isfinite(x["loss"]) for x in ft["metrics"]):
         fail("finetune: non-finite loss")
-    if kl.launches != 3 * cfg.n_layers:
+    if kl.launches != 3 * b5_per_step(cfg):
         fail(f"finetune: linear_attention_causal launches {kl.launches}")
     phase_serve_load(torch, dev, counters, ck, pre["params"], cfg)
     shutil.rmtree(ck, ignore_errors=True)
@@ -2165,7 +2202,7 @@ def phase_exact_finetune(torch, dev, counters):
         fail(f"exact -> darkformer: eval losses {eval_loss}")
     if not m_moved > 0.0:
         fail("exact -> darkformer finetune left m_mat at its calibration")
-    want["linear_attention_causal"] = 3 * cfg_d.n_layers
+    want["linear_attention_causal"] = 3 * b5_per_step(cfg_d)
     if ft_launches != want:
         fail(f"exact -> darkformer finetune: launches {ft_launches}, "
              f"expected {want}")
@@ -2194,6 +2231,14 @@ def train_gaps(torch, got, ref):
         if gap > worst:
             worst, where = gap, k
     return loss, worst, where
+
+
+def cpu_reference(cfg):
+    """``cfg`` for the CPU's side of a card-against-CPU gradient check:
+    the plain path, every activation kept (remat gives the CPU bitwise
+    the same loss and gradients, tests/test_torch_remat.py, and its
+    recompute would only cost the CPU time)."""
+    return dataclasses.replace(cfg, use_kernel=False, remat="none")
 
 
 def loss_and_grads(torch, cfg, params, data, device):
@@ -2238,7 +2283,7 @@ def phase_train_cross_device(torch, dev, kl, seed: int = 0):
     kl.launches = 0
     card = loss_and_grads(torch, cfg, params, data, dev)
     card_launches = kl.launches
-    cpu = loss_and_grads(torch, dataclasses.replace(cfg, use_kernel=False),
+    cpu = loss_and_grads(torch, cpu_reference(cfg),
                          lm.tree_map(lambda t: t.cpu(), params), data, "cpu")
     sound = kops.linear_attention_causal
     kfs = []
@@ -2273,9 +2318,10 @@ def phase_train_cross_device(torch, dev, kl, seed: int = 0):
                                     "key features",
                             "loss_rel_err": f_loss, "grad_rel_err": f_grad,
                             "grad_worst_leaf": f_where}})
-    if card_launches != cfg.n_layers:
+    if card_launches != b5_per_step(cfg):
         fail(f"cross-device training: {card_launches} kernel launches for "
-             f"{cfg.n_layers} layers")
+             f"{cfg.n_layers} layers under remat {cfg.remat!r}, expected "
+             f"{b5_per_step(cfg)}")
     if loss_gap > TRAIN_LOSS_TOL or grad_gap > TRAIN_GRAD_TOL:
         fail(f"cross-device training: loss gap {loss_gap:.3e}, gradient "
              f"gap {grad_gap:.3e} ({where})")
@@ -2580,16 +2626,16 @@ def phase_recurrent(torch, dev, counters):
 
 
 # phase 9: recurrentgemma-2b trained at its full 26 layers and width by
-# the train launcher (kernel on: B5 in the 8 local layers), 512-token
-# rows. The port keeps every activation (no remat yet, ROADMAP A13), the
-# log-step scan keeps ceil(log2 512) = 9 levels an RG-LRU layer, and
-# AdamW's f32 moments (23.2 GB) and its functional update hold old and new
-# moments at once. scripts/torch_train_memory.py on an H100 80GB HBM3,
-# 700 W: 8 x 512 runs out of memory; 6 x 512 peaks at 77.7 GB but ran out
-# in the launcher (6.2 GiB of the card reserved and fragmented); 5 x 512
-# and 4 x 512 both peak at 74.3 GB (79.2 GiB = 85.0 GB on the card), the
-# optimizer update's peak, above the backward's
-REC_TRAIN_BATCH = 5
+# the train launcher (kernel on: B5 in the 8 local layers, each again in
+# its unit's recompute), 512-token rows at the launcher's default batch
+# of 8, under the config's remat "dots". scripts/torch_train_memory.py
+# on an H100 80GB HBM3, 700 W: 8 and 6 x 512 both peak at 74.30 GB, the
+# functional AdamW update's peak (params, gradients, their clipped copy,
+# old and new f32 moments: 74.31 GB at 5 x 512 without remat), above the
+# backward's; without remat 8 x 512 ran out and 5 was the largest batch
+REC_TRAIN_BATCH = 8
+
+
 REC_TRAIN_STEPS = 4
 # (c), (d): one unit and the two remainder layers, full width, bf16
 REC_GRAD_LAYERS = 5
@@ -2609,7 +2655,7 @@ def rec_train_cross_device(torch, dev, kl, cfg, params):
     kl.launches = 0
     card = loss_and_grads(torch, cfg, params, data, dev)
     card_launches = kl.launches
-    cpu = loss_and_grads(torch, dataclasses.replace(cfg, use_kernel=False),
+    cpu = loss_and_grads(torch, cpu_reference(cfg),
                          lm.tree_map(lambda t: t.cpu(), params), data, "cpu")
     fault = loss_and_grads(torch, cfg, rec_gate_fault(torch, params), data,
                            dev)
@@ -2627,9 +2673,10 @@ def rec_train_cross_device(torch, dev, kl, cfg, params):
                                 "grad_worst_leaf": f_where}}
 
     def check():
-        if card_launches != attn_layers(cfg):
+        if card_launches != b5_per_step(cfg):
             fail(f"{RECURRENT} cross-device training: {card_launches} B5 "
-                 f"launches for {attn_layers(cfg)} local layers")
+                 f"launches for {attn_layers(cfg)} local layers, expected "
+                 f"{b5_per_step(cfg)}")
         if loss_gap > TRAIN_LOSS_TOL or grad_gap > TRAIN_GRAD_TOL:
             fail(f"{RECURRENT} cross-device training: loss gap "
                  f"{loss_gap:.3e}, gradient gap {grad_gap:.3e} ({where})")
@@ -2749,11 +2796,13 @@ def phase_recurrent_train(torch, dev, counters):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t_train = time.perf_counter()
-    out = train.main(["--arch", RECURRENT, "--batch", str(REC_TRAIN_BATCH),
-                      "--seq", str(L_TRAIN), "--lr", "3e-4", "--warmup", "2",
-                      "--log-every", "1", "--device", str(dev), "--steps",
-                      str(steps_n), "--seed", "0", "--ckpt-dir", str(ck),
-                      "--ckpt-every", str(steps_n)])
+    out = train.main(["--arch", RECURRENT, "--batch",
+                      str(REC_TRAIN_BATCH), "--seq", str(L_TRAIN),
+                      "--lr", "3e-4", "--warmup", "2", "--log-every",
+                      "1", "--device", str(dev), "--steps",
+                      str(steps_n), "--seed", "0", "--ckpt-dir",
+                      str(ck), "--ckpt-every", str(steps_n)])
+    reserved = torch.cuda.max_memory_reserved() / 1e9
     wall = time.perf_counter() - t_train
     launches = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2778,9 +2827,11 @@ def phase_recurrent_train(torch, dev, counters):
         "tokens_per_s": REC_TRAIN_BATCH * L_TRAIN
         / (float(np.percentile(ms[1:], 50)) / 1e3),
         "wall_s": wall, "launches": launches, "peak_mem_gb": peak,
+        "peak_reserved_gb": reserved,
+        "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF"),
         "checkpoint_steps": saved, "checkpoint_bytes": ck_bytes}
     want = {n: 0 for n in counters}
-    want["linear_attention_causal"] = steps_n * attn_layers(cfg)
+    want["linear_attention_causal"] = steps_n * b5_per_step(cfg)
     if len(losses) != steps_n or not all(np.isfinite(losses)):
         fail(f"{RECURRENT} train: losses {losses}")
     if launches != want:
@@ -2825,9 +2876,13 @@ def phase_recurrent_train(torch, dev, counters):
 # phase 10: rwkv6-7b at its full 32 layers and width (7.5 B params, 15 GB
 # of bf16, drawn on the card), layer-stacked, no attention layer: the
 # engine's path is "none" and no kernel of the port runs (its block runs
-# the reference's sequential scan in plain PyTorch, not B7). (d) holds
-# its first 2 layers card against CPU
+# the reference's sequential scan in plain PyTorch, not B7). (b) and (c)
+# run its first 8 layers: the schedulers' equality and the forks hold at
+# any depth, and its token loop made them 100 of the phase's 119 s at 32
+# on an H100 80GB HBM3 at 700 W. (d) holds its first 2 layers card
+# against CPU
 RWKV = "rwkv6-7b"
+RWKV_ROWS_LAYERS = 8
 RWKV_CROSS_LAYERS = 2
 
 
@@ -2900,13 +2955,14 @@ def phase_rwkv(torch, dev, counters):
     (a) Phase 7's traffic (8 requests, prompts of 64-256 tokens, 16-32
     new ones) through the overlapped scheduler under
     ``set_sync_debug_mode("error")``: full token counts, paths ``none``;
-    TTFT, TPOT, throughput, init seconds and peak device memory. (b) 8
-    requests through both schedulers at ``prefill_rows=1``: equal greedy
-    streams. (c) phase 3e's system-prompt traffic through cache-on and
-    cache-less engines at ``prefill_rows=1``: forks of the (S, shift,
-    cshift) state, prefilled plus forked tokens equal to the prompts',
-    equal greedy streams. None of the seven kernels launches anywhere in
-    the phase. (d) :func:`rwkv_cross_device` at the first 2 layers."""
+    TTFT, TPOT, throughput, init seconds and peak device memory. At the
+    first ``RWKV_ROWS_LAYERS`` layers: (b) 8 requests through both
+    schedulers at ``prefill_rows=1``: equal greedy streams; (c) phase
+    3e's system-prompt traffic through cache-on and cache-less engines
+    at ``prefill_rows=1``: forks of the (S, shift, cshift) state,
+    prefilled plus forked tokens equal to the prompts', equal greedy
+    streams. None of the seven kernels launches anywhere in the phase.
+    (d) :func:`rwkv_cross_device` at the first 2 layers."""
     import gc
     from repro_torch import configs
     from repro_torch.models import lm
@@ -2925,18 +2981,23 @@ def phase_rwkv(torch, dev, counters):
         prompt_range=(64, 256), gen_range=(16, 32))
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
+    rows_cfg = dataclasses.replace(cfg, n_layers=RWKV_ROWS_LAYERS)
+    rows = {**params, "units": lm.tree_map(
+        lambda t: t[:RWKV_ROWS_LAYERS], params["units"])}
     t_eq = time.perf_counter()
-    equal, eq_fields = overlap_equality(torch, dev, cfg, params)
-    eq_fields["seconds"] = time.perf_counter() - t_eq
+    equal, eq_fields = overlap_equality(torch, dev, rows_cfg, rows)
+    eq_fields.update(n_layers=RWKV_ROWS_LAYERS,
+                     seconds=time.perf_counter() - t_eq)
     eq_launches = {n: getattr(mod, attr)
                    for n, (mod, attr) in counters.items()}
     t_pc = time.perf_counter()
     on, on_launches, s_on, _, d_on = prefix_serve(
-        torch, dev, cfg, params, counters, PrefixCacheConfig(), 1)
+        torch, dev, rows_cfg, rows, counters, PrefixCacheConfig(), 1)
     off, off_launches, s_off, _, d_off = prefix_serve(
-        torch, dev, cfg, params, counters, None, 1)
+        torch, dev, rows_cfg, rows, counters, None, 1)
     same = [a == b for x, y in zip(s_on, s_off) for a, b in zip(x, y)]
-    prefix = {"cache_on": on, "cache_off": off, "tokens": len(same),
+    prefix = {"n_layers": RWKV_ROWS_LAYERS, "cache_on": on,
+              "cache_off": off, "tokens": len(same),
               "tokens_equal": sum(same) / len(same),
               "seconds": time.perf_counter() - t_pc}
     sub_cfg = dataclasses.replace(cfg, n_layers=RWKV_CROSS_LAYERS)
@@ -2975,7 +3036,7 @@ def phase_rwkv(torch, dev, counters):
         fail(f"{RWKV}: forked greedy streams differ from cold-start ones "
              f"({sum(same)} of {len(same)} tokens equal)")
     check()
-    del params, sub
+    del params, sub, rows
     gc.collect()
     torch.cuda.empty_cache()
     return {n: launches[n] + eq_launches[n] + on_launches[n]
@@ -3109,7 +3170,7 @@ def hubert_cross_device(torch, dev, counters, seed: int = 0):
              else lm.tree_map(lambda t: t.float(), params))
         runs[dtype] = (
             loss_and_grads(torch, c, p, data, dev),
-            loss_and_grads(torch, dataclasses.replace(c, use_kernel=False),
+            loss_and_grads(torch, cpu_reference(c),
                            lm.tree_map(lambda t: t.cpu(), p), data, "cpu"),
             loss_and_grads(torch, c, p, no_mask, dev))
     launches = launch_counts(counters)
@@ -3397,7 +3458,7 @@ def vlm_train(torch, dev, counters):
     gc.collect()
     torch.cuda.empty_cache()
     want = {**dict.fromkeys(counters, 0),
-            "linear_attention_causal": VLM_TRAIN_STEPS * cfg.n_layers}
+            "linear_attention_causal": VLM_TRAIN_STEPS * b5_per_step(cfg)}
     fields = {"n_layers": cfg.n_layers, "batch": VLM_TRAIN_BATCH,
               "patches": cfg.num_patches, "text": VLM_TRAIN_SEQ,
               "steps": VLM_TRAIN_STEPS, "factored_second_moment": True,
@@ -3477,6 +3538,432 @@ def phase_modalities(torch, dev, counters):
             VLM: {n: v_launches[n] + t_launches[n] for n in counters}}
 
 
+# phase 12: training at scale, smollm-135m at full width (8 x 512, the
+# config's remat "dots"): (a) the supervisor, 12 steps checkpointed every
+# 4, clean and with a failure injected before step 6 (restored from step
+# 3's checkpoint: steps 4 and 5 run again, 14 steps in all); (b) one
+# step's loss and gradients under each remat policy; (c) the mesh path on
+# a single-rank NCCL group
+RT_STEPS, RT_CKPT_EVERY, RT_FAIL_AT, RT_RESUME_STEPS = 12, 4, 6, 16
+
+
+def tree_gap(torch, a, b) -> float:
+    """max |a - b| over two trees' leaves, in f32; 0.0 when equal."""
+    from repro_torch.tree import flatten
+    fa, fb = flatten(a), flatten(b)
+    if [p for p, _ in fa] != [p for p, _ in fb]:
+        fail("trees of different structure compared")
+    return max((float((x.float() - y.float()).abs().max())
+                for (_, x), (_, y) in zip(fa, fb) if x.numel()),
+               default=0.0)
+
+
+def trees_equal(torch, a, b) -> bool:
+    from repro_torch.tree import flatten
+    return all(torch.equal(x, y) for (_, x), (_, y) in
+               zip(flatten(a), flatten(b)))
+
+
+def held(torch, got, ref, gauge) -> bool:
+    """``got`` equals ``ref`` as far as the card repeats itself: bitwise
+    where two clean runs were (``gauge`` 0.0), else within their gap."""
+    return (trees_equal(torch, got, ref) if gauge == 0.0
+            else tree_gap(torch, got, ref) <= gauge)
+
+
+def runtime_supervisor(torch, dev, counters):
+    """Phase 12 (a): ``train.main`` at smollm-135m's full width, 8 x 512,
+    ``RT_STEPS`` steps: clean under the supervisor (``--ckpt-dir``,
+    ``--ckpt-every 4``); again without it (the determinism gauge: two
+    clean runs); with ``--simulate-failure-at 6`` (14 steps run); then
+    ``--steps 16`` on the clean directory, which resumes at step 12.
+    Returns (the JSON fields, the checks, the B5 launches, the clean
+    directory, the clean run's final {"params", "opt"})."""
+    import shutil
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.launch import train
+
+    base = ["--arch", "smollm-135m", "--batch", str(B), "--seq",
+            str(L_TRAIN), "--lr", "3e-4", "--warmup", "2", "--log-every",
+            "1", "--device", str(dev), "--seed", "0"]
+    dirs = {k: ROOT / "build" / f"chip_smoke_rt_{k}"
+            for k in ("clean", "faulty")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+
+    def run(argv):
+        seen: list = []
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train.main(base + argv, on_step=seen.append)
+        torch.cuda.synchronize()
+        out.update(seen=seen, launches=launch_counts(counters),
+                   seconds=time.perf_counter() - t0)
+        return out
+    ck = ["--ckpt-every", str(RT_CKPT_EVERY)]
+    clean = run(["--steps", str(RT_STEPS), "--ckpt-dir",
+                 str(dirs["clean"])] + ck)
+    again = run(["--steps", str(RT_STEPS)])
+    faulty = run(["--steps", str(RT_STEPS), "--ckpt-dir",
+                  str(dirs["faulty"]), "--simulate-failure-at",
+                  str(RT_FAIL_AT)] + ck)
+    saved = {k: ckpt.all_steps(str(d)) for k, d in dirs.items()}
+    resumed = run(["--steps", str(RT_RESUME_STEPS), "--ckpt-dir",
+                   str(dirs["clean"])] + ck)
+    shutil.rmtree(dirs["faulty"], ignore_errors=True)
+    cfg = clean["config"]
+    per_step = b5_per_step(cfg)
+
+    def state(o):
+        return {"params": o["params"], "opt": o["opt"]}
+    gauge = tree_gap(torch, state(clean), state(again))
+    gap = tree_gap(torch, state(clean), state(faulty))
+    ok = held(torch, state(faulty), state(clean), gauge)
+    by_step = {m["step"]: m for m in clean["metrics"]}
+    again_gap = max(abs(m[k] - by_step[m["step"]][k])
+                    for m in again["metrics"] for k in m if k != "ms")
+    metric_gap = max(abs(m[k] - by_step[m["step"]][k])
+                     for m in faulty["metrics"] for k in m if k != "ms")
+    after = faulty["metrics"][RT_FAIL_AT:]
+    rerun = list(range(RT_FAIL_AT)) + list(range(
+        (RT_FAIL_AT // RT_CKPT_EVERY) * RT_CKPT_EVERY, RT_STEPS))
+    want_launches = {k: n * per_step for k, n in (
+        ("clean", RT_STEPS), ("again", RT_STEPS),
+        ("faulty", len(rerun)), ("resumed", RT_RESUME_STEPS - RT_STEPS))}
+    runs = {"clean": clean, "again": again, "faulty": faulty,
+            "resumed": resumed}
+    fields = {
+        "config": cfg.name, "remat": cfg.remat, "batch": B, "seq": L_TRAIN,
+        "steps": RT_STEPS, "ckpt_every": RT_CKPT_EVERY,
+        "fail_at": RT_FAIL_AT,
+        "steps_run": {k: o["seen"] for k, o in runs.items()},
+        "seconds": {k: o["seconds"] for k, o in runs.items()},
+        "step_ms": {k: [m["ms"] for m in o["metrics"]]
+                    for k, o in runs.items()},
+        "loss": {k: [m["loss"] for m in o["metrics"]]
+                 for k, o in runs.items()},
+        "checkpoints": saved,
+        "checkpoints_after_resume": ckpt.all_steps(str(dirs["clean"])),
+        "launches": {k: o["launches"] for k, o in runs.items()},
+        "b5_per_step": per_step, "b5_expected": want_launches,
+        "clean_vs_clean_state_gap": gauge,
+        "clean_vs_clean_metric_gap": again_gap,
+        "faulty_vs_clean_state_gap": gap,
+        "faulty_vs_clean_metric_gap": metric_gap,
+        "faulty_equal": ok, "stragglers": {
+            k: o["stragglers"] for k, o in runs.items()}}
+    keep = state(clean)
+    del again, faulty, resumed, runs
+
+    def check():
+        if fields["steps_run"]["faulty"] != rerun:
+            fail(f"supervisor: steps run {fields['steps_run']['faulty']}, "
+                 f"expected {rerun}")
+        if fields["steps_run"]["clean"] != list(range(RT_STEPS)) or \
+                fields["steps_run"]["resumed"] != list(
+                    range(RT_STEPS, RT_RESUME_STEPS)):
+            fail(f"supervisor: steps run {fields['steps_run']}")
+        if not ok:
+            fail(f"supervisor: the faulty run's state is {gap:.3e} from the "
+                 f"clean run's (two clean runs: {gauge:.3e})")
+        if [m["step"] for m in after] != rerun[RT_FAIL_AT:] or \
+                metric_gap > again_gap:
+            fail(f"supervisor: metrics after the restart {metric_gap:.3e} "
+                 f"from the clean run's (two clean runs: {again_gap:.3e})")
+        if saved != {"clean": [3, 7, 11], "faulty": [3, 7, 11]} or \
+                fields["checkpoints_after_resume"] != [7, 11, 15]:
+            fail(f"supervisor: checkpoints {saved}, after the resume "
+                 f"{fields['checkpoints_after_resume']}")
+        for k, o in fields["launches"].items():
+            want = {**dict.fromkeys(counters, 0),
+                    "linear_attention_causal": want_launches[k]}
+            if o != want:
+                fail(f"supervisor ({k}): launches {o}, expected {want}")
+        if not all(np.isfinite(x) for v in fields["loss"].values()
+                   for x in v):
+            fail(f"supervisor: losses {fields['loss']}")
+    b5 = sum(o["linear_attention_causal"] for o in fields["launches"]
+             .values())
+    return fields, check, b5, dirs["clean"], keep
+
+
+def runtime_remat(torch, dev, counters):
+    """Phase 12 (b): smollm-135m at full width, one batch of 8 x 512 and
+    the same params (seed 0): under each remat policy, two calls of the
+    loss and gradients (``steps.make_grad_fn``) and three train steps
+    (``steps.make_train_step``), each phase's peak device memory (reset
+    before it), ms (synchronised) and B5's launches; "none" again last,
+    the determinism gauge. Loss and every gradient must equal the
+    "none" ones (bitwise if the two "none" runs are). Returns (fields,
+    checks, B5 launches)."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.schedules import constant
+
+    cfg0 = configs.get_config("smollm-135m", use_kernel=True)
+    params = lm.init_params(cfg0, seed=0, device=dev)
+    opt_cfg = AdamWConfig(lr=3e-4)
+    opt = adamw_init(params, opt_cfg)
+    batch = to_device(SyntheticLM(cfg0.vocab, L_TRAIN, B, seed=0).batch(0),
+                      dev)
+    res, kept = {}, {}
+    b5 = 0
+    for name in ("none", "full", "dots", "none_again"):
+        cfg = dataclasses.replace(cfg0, remat=name.split("_")[0])
+        grad_fn = steps.make_grad_fn(cfg)
+        step = steps.make_train_step(cfg, opt_cfg, constant(3e-4))
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counts(counters)
+        g_ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            grads, m = grad_fn(params, batch, 0)
+            torch.cuda.synchronize()
+            g_ms.append((time.perf_counter() - t0) * 1e3)
+        g_peak = torch.cuda.max_memory_allocated()
+        g_launches = launch_counts(counters)
+        kept[name] = {"loss": m["loss"], "grads": grads}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s_ms = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            _, _, sm = step(params, opt, batch, i)
+            float(sm["loss"])                               # synchronises
+            s_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = launch_counts(counters)
+        b5 += launches["linear_attention_causal"]
+        res[name] = {
+            "remat": cfg.remat, "loss": float(m["loss"]),
+            "grad_ms": g_ms, "grad_peak_gb": g_peak / 1e9,
+            "grad_peak_above_state_gb": (g_peak - base) / 1e9,
+            "step_ms": s_ms,
+            "step_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "grad_launches": g_launches["linear_attention_causal"],
+            "launches": launches}
+        del grads
+    gauge = tree_gap(torch, kept["none"], kept["none_again"])
+    gaps = {n: tree_gap(torch, kept[n], kept["none"])
+            for n in ("full", "dots", "none_again")}
+    equal = {n: held(torch, kept[n], kept["none"], gauge)
+             for n in ("full", "dots")}
+    per_step = {n: b5_per_step(dataclasses.replace(cfg0, remat=r["remat"]))
+                for n, r in res.items()}
+    del kept, params, opt, batch
+    fields = {"config": cfg0.name, "batch": B, "seq": L_TRAIN,
+              "policies": res, "none_vs_none_gap": gauge,
+              "gap_to_none": gaps, "equal_to_none": equal,
+              "b5_per_step": per_step}
+
+    def check():
+        for n in ("full", "dots"):
+            if not equal[n]:
+                fail(f"remat {n}: loss and gradients {gaps[n]:.3e} from "
+                     f"'none' (two 'none' runs: {gauge:.3e})")
+        for n, r in res.items():
+            want = {**dict.fromkeys(counters, 0),
+                    "linear_attention_causal": 5 * per_step[n]}
+            if r["launches"] != want or r["grad_launches"] != \
+                    2 * per_step[n]:
+                fail(f"remat {n}: launches {r['launches']}, expected "
+                     f"{want}")
+        if not res["none"]["grad_peak_gb"] > res["dots"]["grad_peak_gb"] \
+                > res["full"]["grad_peak_gb"]:
+            fail("remat: peak memory does not fall from none to dots to "
+                 f"full: {[res[n]['grad_peak_gb'] for n in res]}")
+    return fields, check, b5
+
+
+def runtime_mesh(torch, dev, counters, ck_dir, clean_state):
+    """Phase 12 (c): a single-rank NCCL group on a ``FileStore`` under
+    build/, ``make_local_mesh(1, 1, device_type="cuda")``: two sharded
+    steps of smollm-135m at full width (``steps.make_sharded_train_step``,
+    DTensor params and optimizer state) against two plain steps, run
+    twice (the determinism gauge); ``compressed_psum_mean`` none, bf16 and
+    int8 against their arithmetic on one rank; ``restore_to_shardings`` of
+    (a)'s step-11 checkpoint against the clean run's final state. The
+    group is destroyed after. Returns (fields, checks, B5 launches)."""
+    import torch.distributed as dist
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.schedules import constant
+    from repro_torch.parallel import (compressed_psum_mean, local_batch,
+                                      make_shardings, opt_state_specs,
+                                      param_specs, place_tree)
+    from repro_torch.tree import flatten
+
+    store = ROOT / "build" / "chip_smoke_nccl_store"
+    store.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(1, 1, device_type=dev.type)
+        init_s = time.perf_counter() - t0
+        cfg = configs.get_config("smollm-135m", use_kernel=True)
+        params = lm.init_params(cfg, seed=0, device=dev)
+        opt_cfg = AdamWConfig(lr=3e-4)
+        opt = adamw_init(params, opt_cfg)
+        data = SyntheticLM(cfg.vocab, L_TRAIN, B, seed=0)
+        plain = steps.make_train_step(cfg, opt_cfg, constant(3e-4))
+
+        def two(step_fn, p, o, shard):
+            ms, ms_out = [], []
+            for i in range(2):
+                b = data.batch(i)
+                if shard:
+                    b = local_batch(b, mesh)
+                b = to_device(b, dev)
+                t1 = time.perf_counter()
+                p, o, m = step_fn(p, o, b, i)
+                ms_out.append({k: float(v) for k, v in m.items()})
+                ms.append((time.perf_counter() - t1) * 1e3)
+            return p, o, ms_out, ms
+        zero_counts(counters)
+        ref = two(plain, params, opt, False)
+        ref2 = two(plain, params, opt, False)
+        pspecs = param_specs(params, mesh, overrides=cfg.sharding_overrides)
+        psh = make_shardings(pspecs, mesh)
+        osh = make_shardings(opt_state_specs(opt, pspecs, mesh), mesh)
+        sp, so = place_tree(params, psh), place_tree(opt, osh)
+        sharded = two(steps.make_sharded_train_step(cfg, opt_cfg,
+                                                    constant(3e-4), mesh),
+                      sp, so, True)
+        launches = launch_counts(counters)
+        placements_kept = all(
+            hasattr(t, "placements") for _, t in flatten(
+                {"p": sharded[0], "o": sharded[1]}))
+        full = {"params": lm.tree_map(lambda t: t.full_tensor(),
+                                      sharded[0]),
+                "opt": lm.tree_map(lambda t: t.full_tensor(), sharded[1])}
+        plain_state = {"params": ref[0], "opt": ref[1]}
+        gauge = tree_gap(torch, plain_state, {"params": ref2[0],
+                                              "opt": ref2[1]})
+        gap = tree_gap(torch, full, plain_state)
+        step_equal = held(torch, full, plain_state, gauge) and \
+            sharded[2] == ref[2]
+        del full, plain_state, ref2, sp, so
+
+        gen = torch.Generator(device=dev).manual_seed(3)
+        g = {"a": torch.randn(4096, generator=gen, device=dev),
+             "b": {"c": torch.randn(96, 576, generator=gen, device=dev,
+                                    dtype=torch.bfloat16)}}
+        eb = lm.tree_map(lambda t: 0.01 * torch.randn(
+            t.shape, generator=gen, device=dev), g)
+        comp = {}
+        out, _ = compressed_psum_mean(g, ("data",), "none", mesh=mesh)
+        comp["none"] = trees_equal(torch, out, g)
+        out, _ = compressed_psum_mean(g, ("data",), "bf16", mesh=mesh)
+        comp["bf16"] = trees_equal(torch, out, lm.tree_map(
+            lambda t: t.to(torch.bfloat16).float().to(t.dtype), g))
+        out, new_eb = compressed_psum_mean(g, ("data",), "int8", eb,
+                                           mesh=mesh)
+
+        def quant(t, e):
+            gf = t.float() + e
+            scale = gf.abs().max() / 127.0 + 1e-12
+            deq = torch.clamp(torch.round(gf / scale), -127, 127) * scale
+            return deq, gf - deq
+        pairs = lm.tree_map(quant, g, eb)
+        comp["int8"] = trees_equal(torch, out, lm.tree_map(
+            lambda t, pr: pr[0].to(t.dtype), g, pairs)) and trees_equal(
+            torch, new_eb, lm.tree_map(lambda t, pr: pr[1], g, pairs))
+
+        restored, step = ckpt.restore_to_shardings(
+            str(ck_dir), clean_state, {
+                "params": make_shardings(param_specs(
+                    clean_state["params"], mesh), mesh),
+                "opt": make_shardings(opt_state_specs(
+                    clean_state["opt"], param_specs(clean_state["params"],
+                                                    mesh), mesh), mesh)},
+            step=RT_STEPS - 1)
+        restored_equal = trees_equal(torch, lm.tree_map(
+            lambda t: t.full_tensor(), restored), clean_state)
+        del restored
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    per_step = b5_per_step(cfg)
+    fields = {"backend": backend, "world": 1, "mesh": [1, 1],
+              "group_init_s": init_s, "plain_step_ms": ref[3],
+              "sharded_step_ms": sharded[3],
+              "plain_vs_plain_gap": gauge, "sharded_vs_plain_gap": gap,
+              "sharded_equal": step_equal,
+              "placements_kept": placements_kept,
+              "compression_equal": comp, "restored_step": step,
+              "restore_to_shardings_equal": restored_equal,
+              "launches": launches, "b5_expected": 6 * per_step,
+              "seconds": time.perf_counter() - t0}
+
+    def check():
+        if not step_equal or not placements_kept:
+            fail(f"mesh: two sharded steps {gap:.3e} from the plain ones "
+                 f"(two plain runs: {gauge:.3e}), placements kept "
+                 f"{placements_kept}")
+        if not all(comp.values()):
+            fail(f"mesh: compressed_psum_mean {comp}")
+        if step != RT_STEPS - 1 or not restored_equal:
+            fail(f"mesh: restore_to_shardings of step {step} "
+                 f"equal={restored_equal}")
+        want = {**dict.fromkeys(counters, 0),
+                "linear_attention_causal": 6 * per_step}
+        if launches != want:
+            fail(f"mesh: launches {launches}, expected {want}")
+    return fields, check, launches["linear_attention_causal"]
+
+
+def phase_runtime(torch, dev, counters):
+    """Phase 12: training at scale: (a) :func:`runtime_supervisor`, (b)
+    :func:`runtime_remat`, (c) :func:`runtime_mesh`, one JSON line each
+    with its seconds. Returns each kernel's launches in the phase (B5's;
+    the others' must be 0)."""
+    import gc
+    import shutil
+
+    t0 = time.perf_counter()
+    sup, check_sup, b5_a, ck_dir, clean = runtime_supervisor(torch, dev,
+                                                             counters)
+    emit({"phase": "runtime_supervisor", **sup,
+          "phase_seconds": time.perf_counter() - t0})
+    check_sup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    rem, check_rem, b5_b = runtime_remat(torch, dev, counters)
+    emit({"phase": "runtime_remat", **rem,
+          "seconds": time.perf_counter() - t1})
+    check_rem()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh, check_mesh, b5_c = runtime_mesh(torch, dev, counters, ck_dir,
+                                          clean)
+    emit({"phase": "runtime_mesh", **mesh})
+    check_mesh()
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    del clean
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**dict.fromkeys(counters, 0),
+            "linear_attention_causal": b5_a + b5_b + b5_c}
+
+
 # every kernel of the port: (its module, its launch counter, its CUDA
 # source, the Pallas TPU kernel it replaces)
 KERNELS = {
@@ -3502,6 +3989,15 @@ KERNELS = {
 
 def main() -> int:
     import importlib
+
+    # before torch loads: the caching allocator's expandable segments.
+    # Phase 9's launcher run (8 x 512) fits the card alone at a 74.30 GB
+    # peak, but after phases 2-8 the default allocator held 8.2-9.4 GiB
+    # in split cached blocks and step 1's update ran out (an H100 80GB
+    # HBM3 at 700 W); expandable segments leave no such blocks. The
+    # launcher run alone at that batch wants the same setting (README).
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3575,6 +4071,7 @@ def main() -> int:
     recurrent_train = phase_recurrent_train(torch, dev, counters)
     rwkv = phase_rwkv(torch, dev, counters)
     modalities = phase_modalities(torch, dev, counters)
+    runtime = phase_runtime(torch, dev, counters)
 
     emit({"kernels": [
         {"name": n, "route": "cuda",
@@ -3592,6 +4089,7 @@ def main() -> int:
          "launches_recurrent_train": recurrent_train[n],
          "launches_rwkv": rwkv[n],
          "launches_modalities": {a: m[n] for a, m in modalities.items()},
+         "launches_runtime": runtime[n],
          "bound_ms": timing[n]["bound_ms"],
          "bound_by": timing[n]["bound_by"], "library_ms": None}
         for n, (_, _, src, replaces) in KERNELS.items()],

@@ -24,7 +24,8 @@ over the steps, each step's host-clock ms (synchronised) and the loss;
 or, where the card runs out of memory, ``"oom": true`` with the peak
 reached before it. ``--layers N`` cuts the depth, ``--reduced --device
 cpu`` rehearses the control flow on the CPU (no device memory is
-read). Imports neither JAX nor the reference.
+read). Full-size configs train under their remat "dots", reported as
+``remat``. Imports neither JAX nor the reference.
 """
 from __future__ import annotations
 
@@ -59,7 +60,8 @@ def run(args, batch: int) -> dict:
                              use_kernel=True)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": batch,
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "remat": cfg.remat,
+           "batch": batch,
            "seq": args.seq, "device": args.device,
            "factored_second_moment": args.factored}
     if cuda:

@@ -9,8 +9,13 @@ little-endian bytes (bf16 as its 16-bit words under the dtype name
 
 Guarantees, as the reference's: written to ``step_<N>.tmp-<pid>``,
 fsync'd, then renamed, so a crash never corrupts the latest checkpoint;
-keep-last-k garbage collection. ``restore_to_shardings`` (elastic
-restore onto a mesh) waits with ROADMAP A13.
+keep-last-k garbage collection. Sharded leaves (DTensors) are saved as
+their full value, gathered on every rank; under a process group of more
+than one rank only rank 0 writes. Restore follows the template: a
+DTensor leaf comes back with its mesh and placements, and
+``restore_to_shardings`` places every leaf by a sharding tree on any
+mesh (the elastic path: a checkpoint written on one mesh reloads onto
+another).
 """
 from __future__ import annotations
 
@@ -20,9 +25,21 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import msgpack_subset
 from repro_torch.tree import flatten, map_with_path
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's full value (a collective: every rank calls it); a
+    plain tensor itself."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _writer() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _pack_leaf(t: torch.Tensor) -> dict:
@@ -41,13 +58,20 @@ def _unpack_leaf(rec: dict) -> torch.Tensor:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree, keep: int = 3) -> str:
-    """Write the step's checkpoint atomically; keep the newest ``keep``."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Write the step's checkpoint atomically; keep the newest ``keep``.
+    Under a process group every rank calls it (a DTensor leaf is gathered
+    by all); rank 0 writes, the others return the path at once."""
     final = os.path.join(ckpt_dir, f"step_{step}")
+    if not _writer():
+        for _, v in flatten(tree):
+            _full(v)
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + f".tmp-{os.getpid()}"
     os.makedirs(tmp, exist_ok=True)
     chunks: list = []
-    msgpack_subset.pack({k: _pack_leaf(v) for k, v in flatten(tree)}, chunks)
+    msgpack_subset.pack({k: _pack_leaf(_full(v)) for k, v in flatten(tree)},
+                        chunks)
     with open(os.path.join(tmp, "state.msgpack"), "wb") as f:
         f.writelines(chunks)
         f.flush()
@@ -88,8 +112,10 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 def restore_checkpoint(ckpt_dir: str, target, step: Optional[int] = None):
     """Restore into the structure of ``target`` (a nested dict of
-    tensors), each leaf cast to the target leaf's dtype and device.
+    tensors), each leaf cast to the target leaf's dtype and device; a
+    DTensor target leaf gives a DTensor with its mesh and placements.
     Returns (tree, step)."""
+    from torch.distributed.tensor import DTensor
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -106,5 +132,21 @@ def restore_checkpoint(ckpt_dir: str, target, step: Optional[int] = None):
             raise ValueError(f"shape mismatch for {key}: ckpt "
                              f"{tuple(arr.shape)} vs target "
                              f"{tuple(t.shape)}")
+        if isinstance(t, DTensor):
+            from repro_torch.parallel.sharding import place
+            return place(arr.to(t.dtype), t.device_mesh, t.placements)
         return arr.to(device=t.device, dtype=t.dtype)
     return map_with_path(leaf, target), step
+
+
+def restore_to_shardings(ckpt_dir: str, target, shardings,
+                         step: Optional[int] = None):
+    """Elastic restore: each leaf restored as ``target``'s (its shape
+    and dtype checked against the checkpoint), then placed with its
+    sharding from ``shardings``, a tree mirroring ``target`` of
+    ``parallel.sharding.NamedSharding`` on any ``DeviceMesh``: a
+    checkpoint written on one mesh reloads onto another. Returns (tree
+    of DTensors, step)."""
+    from repro_torch.parallel.sharding import place_tree
+    tree, step = restore_checkpoint(ckpt_dir, target, step)
+    return place_tree(tree, shardings), step

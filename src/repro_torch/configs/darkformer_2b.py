@@ -22,4 +22,4 @@ def reduced() -> ModelConfig:
         name="darkformer-2b-smoke", n_layers=3, d_model=64, n_heads=4,
         n_kv=1, d_head=16, d_ff=128, vocab=256, mlp_kind="geglu",
         attn=FeatureConfig(kind="darkformer", num_features=32),
-        embed_scale=True, tie_embeddings=True)
+        embed_scale=True, tie_embeddings=True, remat="none")

@@ -3,9 +3,7 @@
 [arXiv:2405.04324; hf] 36L d_model=4096 32H (GQA kv=8, d_head=128)
 d_ff=14336 vocab=49152, untied head.
 
-Field for field the reference's ``repro.configs.granite_8b``, less
-``remat``, which the port's ``ModelConfig`` does not carry (the train
-forward keeps its activations; remat waits with ROADMAP A13).
+Field for field the reference's ``repro.configs.granite_8b``.
 """
 from repro_torch.configs.base import DEFAULT_ATTN
 from repro_torch.core.feature_maps import FeatureConfig
@@ -24,4 +22,4 @@ def reduced() -> ModelConfig:
         name="granite-8b-smoke", n_layers=2, d_model=64, n_heads=4, n_kv=2,
         d_head=16, d_ff=128, vocab=256,
         attn=FeatureConfig(kind="darkformer", num_features=32),
-        tie_embeddings=False)
+        tie_embeddings=False, remat="none")

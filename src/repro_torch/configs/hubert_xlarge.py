@@ -6,9 +6,7 @@ a stub: the inputs are precomputed frame embeddings (B, L, d_model).
 Encoder-only: its PRF attention is the noncausal two-matmul form, which
 runs no kernel.
 
-Field for field the reference's ``repro.configs.hubert_xlarge``, less
-``remat``, which the port's ``ModelConfig`` does not carry (ROADMAP
-A13).
+Field for field the reference's ``repro.configs.hubert_xlarge``.
 """
 from repro_torch.configs.base import DEFAULT_ATTN
 from repro_torch.core.feature_maps import FeatureConfig
@@ -29,4 +27,4 @@ def reduced() -> ModelConfig:
         n_kv=4, d_head=16, d_ff=128, vocab=64, causal=False,
         modality="audio", norm_kind="layernorm", mlp_kind="gelu",
         attn=FeatureConfig(kind="darkformer", num_features=32),
-        tie_embeddings=False)
+        tie_embeddings=False, remat="none")

@@ -4,9 +4,7 @@
 d_ff=28672 vocab=128256. The vision frontend is a stub: the inputs are
 precomputed patch embeddings (B, 256, d_model) before the text tokens.
 
-Field for field the reference's ``repro.configs.internvl2_76b``, less
-``remat``, which the port's ``ModelConfig`` does not carry (ROADMAP
-A13).
+Field for field the reference's ``repro.configs.internvl2_76b``.
 """
 from repro_torch.configs.base import DEFAULT_ATTN
 from repro_torch.core.feature_maps import FeatureConfig
@@ -27,4 +25,4 @@ def reduced() -> ModelConfig:
         n_kv=2, d_head=16, d_ff=128, vocab=256, modality="vlm",
         num_patches=8,
         attn=FeatureConfig(kind="darkformer", num_features=32),
-        tie_embeddings=False)
+        tie_embeddings=False, remat="none")

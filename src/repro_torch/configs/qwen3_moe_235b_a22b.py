@@ -4,9 +4,7 @@
 d_head=128) per-expert d_ff=1536, vocab=151936, RoPE theta 1e6,
 untied head.
 
-Field for field the reference's ``repro.configs.qwen3_moe_235b_a22b``,
-less ``remat``, which the port's ``ModelConfig`` does not carry
-(ROADMAP A13).
+Field for field the reference's ``repro.configs.qwen3_moe_235b_a22b``.
 """
 from repro_torch.configs.base import DEFAULT_ATTN
 from repro_torch.core.feature_maps import FeatureConfig
@@ -29,4 +27,4 @@ def reduced() -> ModelConfig:
         n_heads=4, n_kv=2, d_head=16, d_ff=32, vocab=256, qk_norm=True,
         attn=FeatureConfig(kind="darkformer", num_features=32),
         moe=MoEConfig(num_experts=8, top_k=2, d_ff=32),
-        tie_embeddings=False)
+        tie_embeddings=False, remat="none")

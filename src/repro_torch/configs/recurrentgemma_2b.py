@@ -3,9 +3,8 @@
 [arXiv:2402.19427; hf] 26L d_model=2560 10H (MQA kv=1, d_head=256)
 d_ff=7680 (GeGLU) vocab=256000, local-attention window 2048.
 
-Field for field the reference's ``repro.configs.recurrentgemma_2b``,
-less ``remat``, which the port's ``ModelConfig`` does not carry. The
-pattern leaves 8 units and 2 remainder layers, both ``rec``. With the
+Field for field the reference's ``repro.configs.recurrentgemma_2b``.
+The pattern leaves 8 units and 2 remainder layers, both ``rec``. With the
 paper's attention (a PRF kind) the "local" blocks attend over their
 whole prefix, as the reference's do: only exact attention applies the
 window.
@@ -32,4 +31,4 @@ def reduced() -> ModelConfig:
         block_pattern=("rec", "rec", "local"), window=16,
         mlp_kind="geglu",
         attn=FeatureConfig(kind="darkformer", num_features=32),
-        d_rnn=64, embed_scale=True, tie_embeddings=True)
+        d_rnn=64, embed_scale=True, tie_embeddings=True, remat="none")

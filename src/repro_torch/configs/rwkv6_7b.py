@@ -3,8 +3,7 @@
 [arXiv:2404.05892; hf] 32L d_model=4096 (64 heads of 64) d_ff=14336
 vocab=65536, untied head.
 
-Field for field the reference's ``repro.configs.rwkv6_7b``, less
-``remat``, which the port's ``ModelConfig`` does not carry. Every layer
+Field for field the reference's ``repro.configs.rwkv6_7b``. Every layer
 is an ``rwkv`` block, so the stack is homogeneous (layer-stacked) and
 has no attention layer: ``attn`` is carried as the reference carries it
 and no path reads it.
@@ -27,4 +26,4 @@ def reduced() -> ModelConfig:
         name="rwkv6-7b-smoke", n_layers=2, d_model=64, n_heads=4, n_kv=4,
         d_head=16, d_ff=128, vocab=256, block_pattern=("rwkv",),
         attn=FeatureConfig(kind="darkformer", num_features=32),
-        tie_embeddings=False)
+        tie_embeddings=False, remat="none")

@@ -20,4 +20,4 @@ def reduced() -> ModelConfig:
         name="smollm-135m-smoke", n_layers=3, d_model=48, n_heads=3,
         n_kv=3, d_head=16, d_ff=96, vocab=256,
         attn=FeatureConfig(kind="darkformer", num_features=32),
-        tie_embeddings=True)
+        tie_embeddings=True, remat="none")

@@ -3,9 +3,7 @@
 [arXiv:2403.04652; hf] 60L d_model=7168 56H (GQA kv=8, d_head=128)
 d_ff=20480 vocab=64000, RoPE theta 5e6, untied head.
 
-Field for field the reference's ``repro.configs.yi_34b``, less
-``remat``, which the port's ``ModelConfig`` does not carry (ROADMAP
-A13).
+Field for field the reference's ``repro.configs.yi_34b``.
 """
 from repro_torch.configs.base import DEFAULT_ATTN
 from repro_torch.core.feature_maps import FeatureConfig
@@ -25,4 +23,4 @@ def reduced() -> ModelConfig:
         name="yi-34b-smoke", n_layers=2, d_model=56, n_heads=7, n_kv=1,
         d_head=16, d_ff=112, vocab=256,
         attn=FeatureConfig(kind="darkformer", num_features=32),
-        tie_embeddings=False)
+        tie_embeddings=False, remat="none")

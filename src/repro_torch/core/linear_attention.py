@@ -191,3 +191,18 @@ def linear_attention_decode(qf: torch.Tensor, kf: torch.Tensor,
     num = torch.einsum("...m,...md->...d", qf, s)
     den = torch.einsum("...m,...m->...", qf, z)
     return (num / (den[..., None] + eps)).to(v.dtype), LinearState(s, z)
+
+
+def sequence_parallel_state_combine(partial_states: LinearState,
+                                    group=None) -> LinearState:
+    """Sequence-parallel prefill: each rank's prefix state over its own
+    slice of the sequence, summed over the ranks of ``group`` (None: the
+    default group) with one all-reduce of (S, z) packed in one buffer.
+    The state update is associative, so the sum is the whole sequence's
+    state. Returns a new LinearState; the inputs are left alone."""
+    import torch.distributed as dist
+    s, z = partial_states.s, partial_states.z
+    buf = torch.cat([s.reshape(-1), z.reshape(-1)])
+    dist.all_reduce(buf, group=group)
+    return LinearState(buf[:s.numel()].view(s.shape),
+                       buf[s.numel():].view(z.shape))

@@ -1,14 +1,58 @@
 """Step builders for the training launcher (port of the training half of
-``repro.launch.steps``)."""
+``repro.launch.steps``), and the data-parallel step over a mesh.
+
+:func:`make_sharded_train_step` keeps params and optimizer state as
+DTensors with their placements between steps, but computes on full
+local tensors: each rank gathers every leaf, runs the port's own step
+arithmetic (kernels included) on its shard of the batch, and reduces the
+gradients over the DP axes. So every kernel sees plain tensors, and the
+step returns what the unsharded step returns on the whole batch: MoE's
+load-balancing term too, from the router's statistics all-reduced over
+the DP axes in every MoE layer (under remat once more in the
+recompute). It
+does not shard a device's compute or memory (no FSDP or tensor-parallel
+execution): each rank holds the full params while it steps.
+"""
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Callable, Optional
 
 import torch
 
+from repro_torch.models import layers as ll
 from repro_torch.models import lm
 from repro_torch.optim import AdamWConfig, adamw_update
-from repro_torch.tree import flatten, map_with_path
+from repro_torch.tree import flatten, map_with_path, tree_map
+
+
+def make_grad_fn(cfg: lm.ModelConfig, freeze: Optional[Callable] = None):
+    """Returns grad_fn(params, batch, step, gen=None, loss_scale=None) ->
+    (grads, metrics): the loss's gradient at every leaf (zeros where
+    ``freeze`` holds or no path reaches the loss), the loss multiplied
+    by ``loss_scale`` (a 0-d tensor) when given. Arguments as
+    :func:`make_train_step`'s."""
+
+    def grad_fn(params, batch, step, gen: Optional[torch.Generator] = None,
+                loss_scale: Optional[torch.Tensor] = None):
+        inputs = map_with_path(lambda p, t: t.detach().requires_grad_(
+            not (freeze and freeze(p))), params)
+        if gen is None and cfg.attn.kind == "random":
+            gen = torch.Generator().manual_seed(int(step))
+        loss, metrics = lm.loss_fn(inputs, cfg, batch, gen)
+        if loss_scale is not None:
+            loss = loss * loss_scale
+        diff = [(p, t) for p, t in flatten(inputs) if t.requires_grad]
+        grads = dict(zip((p for p, _ in diff), torch.autograd.grad(
+            loss, [t for _, t in diff], allow_unused=True)))
+
+        def grad(path, t):
+            g = grads.get(path)     # None: frozen, or no path to the loss
+            return torch.zeros_like(t) if g is None else g
+        return map_with_path(grad, inputs), metrics
+
+    return grad_fn
 
 
 def make_train_step(cfg: lm.ModelConfig, opt_cfg: AdamWConfig,
@@ -26,25 +70,100 @@ def make_train_step(cfg: lm.ModelConfig, opt_cfg: AdamWConfig,
     The decoupled weight decay still shrinks a frozen leaf by
     lr * weight_decay * p (visible in f32, lost to rounding in bf16).
     """
+    grad_fn = make_grad_fn(cfg, freeze)
 
     def train_step(params, opt_state, batch, step,
                    gen: Optional[torch.Generator] = None):
-        inputs = map_with_path(lambda p, t: t.detach().requires_grad_(
-            not (freeze and freeze(p))), params)
-        if gen is None and cfg.attn.kind == "random":
-            gen = torch.Generator().manual_seed(int(step))
-        loss, metrics = lm.loss_fn(inputs, cfg, batch, gen)
-        diff = [(p, t) for p, t in flatten(inputs) if t.requires_grad]
-        grads = dict(zip((p for p, _ in diff), torch.autograd.grad(
-            loss, [t for _, t in diff], allow_unused=True)))
-
-        def grad(path, t):
-            g = grads.get(path)     # None: frozen, or no path to the loss
-            return torch.zeros_like(t) if g is None else g
-        new, opt_state, om = adamw_update(
-            params, map_with_path(grad, inputs), opt_state, opt_cfg,
-            schedule(step))
+        grads, metrics = grad_fn(params, batch, step, gen)
+        new, opt_state, om = adamw_update(params, grads, opt_state, opt_cfg,
+                                          schedule(step))
         return new, opt_state, {**metrics, **om}
+
+    return train_step
+
+
+def make_sharded_grad_fn(cfg: lm.ModelConfig, mesh,
+                         freeze: Optional[Callable] = None):
+    """Returns grad_fn(params, batch, step, gen=None) -> (grads, metrics)
+    on every rank of ``mesh``: ``params`` full plain tensors, ``batch``
+    this rank's shard (``parallel.sharding.local_batch``). Each rank's
+    loss is weighted by its share of the loss denominator summed over
+    the DP axes (the masked positions: ``lm.loss_weights``) and the
+    gradients are averaged over the DP axes (``compressed_psum_mean``),
+    so grads and metrics are the whole batch's, equal on every rank.
+    MoE's load-balancing term takes the router's per-expert means (me,
+    ce) over the whole batch: each MoE layer all-reduces them over the
+    DP axes (the ranks hold equal row counts), and me keeps this rank's
+    own gradient path, divided by the loss scale, so the DP mean of the
+    gradients is the whole batch's."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel.compression import compressed_psum_mean
+    from repro_torch.parallel.sharding import dp_axes
+
+    local = make_grad_fn(cfg, freeze)
+    dp = dp_axes(mesh)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    n_dp = math.prod(sizes[a] for a in dp)
+
+    def grad_fn(params, batch, step, gen: Optional[torch.Generator] = None):
+        raw = lm.loss_weights(cfg, batch).sum()
+        total = raw.clone()
+        for a in dp:
+            dist.all_reduce(total, group=mesh.get_group(a))
+        # n_dp x this rank's share: the DP mean of the scaled losses is
+        # the whole batch's loss
+        scale = n_dp * raw.clamp(min=1.0) / total.clamp(min=1.0)
+
+        def whole_batch(me, ce):
+            st = torch.stack([me.detach(), ce])
+            for a in dp:
+                dist.all_reduce(st, group=mesh.get_group(a))
+            st = st / n_dp
+            return st[0] + (me - me.detach()) / scale, st[1]
+        with (ll.moe_balance_over(whole_batch) if cfg.moe is not None
+              else contextlib.nullcontext()):
+            grads, metrics = local(params, batch, step, gen,
+                                   loss_scale=scale)
+        grads, _ = compressed_psum_mean(grads, dp, "none", mesh=mesh)
+        metrics, _ = compressed_psum_mean(
+            {k: v * scale for k, v in metrics.items()}, dp, "none",
+            mesh=mesh)
+        return grads, metrics
+
+    return grad_fn
+
+
+def make_sharded_train_step(cfg: lm.ModelConfig, opt_cfg: AdamWConfig,
+                            schedule: Callable, mesh,
+                            freeze: Optional[Callable] = None):
+    """Returns train_step(params, opt_state, batch, step, gen=None) ->
+    (params, opt_state, metrics) over ``mesh`` (a ``DeviceMesh``; every
+    rank calls it). ``params`` and ``opt_state`` are DTensor trees
+    (``parallel.sharding.place_tree``), ``batch`` this rank's shard. Every
+    leaf is gathered whole, :func:`make_sharded_grad_fn` gives the whole
+    batch's gradients, AdamW updates the full leaves on every rank, and
+    each new leaf goes back with its placements."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel.sharding import place
+
+    grad_fn = make_sharded_grad_fn(cfg, mesh, freeze)
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    def back(new, old):
+        return place(new, old.device_mesh, old.placements)
+
+    def train_step(params, opt_state, batch, step,
+                   gen: Optional[torch.Generator] = None):
+        p_full, o_full = tree_map(full, params), tree_map(full, opt_state)
+        grads, metrics = grad_fn(p_full, batch, step, gen)
+        new_p, new_o, om = adamw_update(p_full, grads, o_full, opt_cfg,
+                                        schedule(step))
+        return (tree_map(back, new_p, params),
+                tree_map(back, new_o, opt_state), {**metrics, **om})
 
     return train_step
 

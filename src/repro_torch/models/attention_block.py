@@ -14,6 +14,7 @@ import torch
 from repro_torch.core import attention as rfa
 from repro_torch.core import feature_maps as fm
 from repro_torch.models import layers as ll
+from repro_torch.models.remat import dot
 
 
 def attn_init(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
@@ -38,9 +39,9 @@ def _project(params, x, n_heads, n_kv, d_head, qk_norm, positions,
              rope_theta):
     b, l, _ = x.shape
     hg = n_heads // n_kv
-    q = (x @ params["wq"]).reshape(b, l, n_kv, hg, d_head)
-    k = (x @ params["wk"]).reshape(b, l, n_kv, 1, d_head)
-    v = (x @ params["wv"]).reshape(b, l, n_kv, 1, d_head)
+    q = dot(x, params["wq"]).reshape(b, l, n_kv, hg, d_head)
+    k = dot(x, params["wk"]).reshape(b, l, n_kv, 1, d_head)
+    v = dot(x, params["wv"]).reshape(b, l, n_kv, 1, d_head)
     q = torch.movedim(q, 1, 3)         # (B, G, Hg, L, dh)
     k = torch.movedim(k, 1, 3)
     v = torch.movedim(v, 1, 3)
@@ -57,7 +58,7 @@ def _merge_heads(out, params):
     # out: (B, G, Hg, L, dh) -> (B, L, H*dh) @ wo
     b, g, hg, l, dh = out.shape
     out = torch.movedim(out, 3, 1).reshape(b, l, g * hg * dh)
-    return out @ params["wo"]
+    return dot(out, params["wo"])
 
 
 def attn_apply(params: dict, x: torch.Tensor, cfg: fm.FeatureConfig, *,

@@ -7,10 +7,14 @@ constraints on the dispatch buffers) waits with ROADMAP A13.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.remat import dot
 
 
 def trunc_normal(gen: torch.Generator, shape, scale: float,
@@ -83,14 +87,14 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, kind: str,
 
 def mlp_apply(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "swiglu":
-        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+        h = F.silu(dot(x, params["w_gate"])) * dot(x, params["w_up"])
     elif kind == "geglu":
         # jax.nn.gelu defaults to the tanh approximation
-        h = (F.gelu(x @ params["w_gate"], approximate="tanh")
-             * (x @ params["w_up"]))
+        h = (F.gelu(dot(x, params["w_gate"]), approximate="tanh")
+             * dot(x, params["w_up"]))
     else:
-        h = F.gelu(x @ params["w_up"], approximate="tanh")
-    return h @ params["w_out"]
+        h = F.gelu(dot(x, params["w_up"]), approximate="tanh")
+    return dot(h, params["w_out"])
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +130,7 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig):
     l = x.shape[1]
     e, k = cfg.num_experts, cfg.top_k
     cap = max(1, int(cfg.capacity_factor * k * l / e))
-    probs = torch.softmax(x.float() @ router, dim=-1)
+    probs = torch.softmax(dot(x.float(), router), dim=-1)
     gates, idx = torch.topk(probs, k, dim=-1, sorted=True)
     gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
     return probs, gates, idx, *moe_positions(idx, e, cap), cap
@@ -146,13 +150,33 @@ def moe_positions(idx: torch.Tensor, num_experts: int, cap: int):
     return pos, pos < cap
 
 
+# (me, ce) -> the whole batch's (me, ce); set by moe_balance_over
+_whole_batch: Optional[Callable] = None
+
+
+@contextlib.contextmanager
+def moe_balance_over(whole_batch: Callable):
+    """Within, :func:`moe_apply` forms its load-balancing loss from
+    ``whole_batch(me, ce)`` instead of its own (me, ce): the
+    data-parallel step's statistics over every rank's rows. A module
+    global, not a thread's: a remat recompute that autograd runs on a
+    device thread reads it too."""
+    global _whole_batch
+    prev, _whole_batch = _whole_batch, whole_batch
+    try:
+        yield
+    finally:
+        _whole_batch = prev
+
+
 def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig):
     """x: (B, L, d) -> (out (B, L, d) in x's dtype, aux loss 0-d f32).
 
     Router logits in f32, softmax, top-k with the gates renormalised;
     the Switch load-balancing loss w · E · Σ_e mean(probs_e) ·
-    mean(top-1 == e). Each kept (token, k) pair is scattered into a (B,
-    E, cap, d) buffer by ADDING, as the reference's ``.at[].add``: a
+    mean(top-1 == e), both means over the whole batch
+    (:func:`moe_balance_over`). Each kept (token, k) pair is scattered
+    into a (B, E, cap, d) buffer by ADDING, as the reference's ``.at[].add``: a
     dropped pair lands on slot cap - 1 as zeros and leaves the token that
     holds the slot as it is. The experts' SwiGLU runs as batched
     products over the buffer; the outputs are gathered back and combined
@@ -164,6 +188,8 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig):
     me = probs.mean((0, 1))                                  # (E,)
     ce = (idx[..., 0, None] == torch.arange(e, device=x.device)
           ).float().mean((0, 1))
+    if _whole_batch is not None:
+        me, ce = _whole_batch(me, ce)
     aux = cfg.aux_loss_weight * e * (me * ce).sum()
     pos_c = pos.clamp(0, cap - 1)
     b_idx = torch.arange(b, device=x.device)[:, None, None].expand_as(idx)

@@ -22,8 +22,11 @@ drops it, as the reference does). The calibration taps run over either
 layout. Inputs are text tokens, or (``modality``) audio frames whose
 masked positions take a learned ``mask_embed`` (hubert-xlarge, an
 encoder: ``causal=False``), or a prefix of ``num_patches`` patch
-embeddings before the text tokens (internvl2-76b). Remat is not ported
-yet (ROADMAP Queue A, item A13).
+embeddings before the text tokens (internvl2-76b). The training forward
+wraps each unit of ``len(block_pattern)`` layers (one layer in the
+homogeneous stacks) in ``torch.utils.checkpoint`` under ``cfg.remat``,
+as the reference wraps its scanned unit in ``jax.checkpoint``; the
+remainder layers run unwrapped (:data:`REMAT_POLICIES`).
 
 ``prefill_chunk`` and ``decode_step`` advance ``state`` IN PLACE: the
 kernels write each layer's (S, z, c) where it lies in the pool, the
@@ -37,9 +40,11 @@ page pools (``init_kv_pages``) passed beside the state as ``pages=``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint as tcp
 
 from repro_torch.core import calibration as cal
 from repro_torch.core import feature_maps as fm
@@ -47,7 +52,39 @@ from repro_torch.core import linear_attention as la
 from repro_torch.models import attention_block as ab
 from repro_torch.models import layers as ll
 from repro_torch.models import recurrent as rec
+from repro_torch.models import remat as remat_lib
 from repro_torch.tree import tree_map
+
+# the reference's remat keys and the JAX policy each names. The port
+# runs each as torch.utils.checkpoint (non-reentrant, the form that
+# works under the train step's torch.autograd.grad): "none" keeps every
+# activation, "full" keeps only the unit's input, "dots" also keeps the
+# outputs of the products without a batch dimension (JAX's
+# dots_with_no_batch_dims_saveable): x @ W, each through remat.dot, one
+# aten.mm of (rows, d) x (d, f). The batched products (MoE's per-expert
+# einsums, the attention scores, the feature map's einsums batched over
+# the KV groups) reach aten.bmm and are recomputed. The training forward
+# has no unbatched einsum: the only aten.bmm of batch 1 there is the
+# feature map's over G = 1 group (recurrentgemma-2b's MQA), batched in
+# JAX's sense, so it is recomputed too.
+REMAT_POLICIES = {
+    "none": None,
+    "full": "nothing_saveable",
+    "dots": "dots_with_no_batch_dims_saveable",
+}
+
+
+def _remat(fn, remat: str):
+    """``fn`` under the remat policy ``remat`` (a key of
+    :data:`REMAT_POLICIES`); itself for "none", or when no gradient is
+    recorded."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat {remat!r} (known: "
+                         f"{', '.join(REMAT_POLICIES)})")
+    if REMAT_POLICIES[remat] is None or not torch.is_grad_enabled():
+        return fn
+    kw = {"context_fn": remat_lib.dots_contexts} if remat == "dots" else {}
+    return functools.partial(tcp.checkpoint, fn, use_reentrant=False, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +115,10 @@ class ModelConfig:
     causal: bool = True
     modality: str = "text"                # text|audio|vlm
     num_patches: int = 256                # vlm prefix length
+    remat: str = "dots"                   # key of REMAT_POLICIES
+    # per-arch sharding-rule overrides, ((path regex, spec tuple), ...),
+    # applied before the global rules of repro_torch.parallel.sharding
+    sharding_overrides: tuple = ()
 
     @property
     def head_dim(self) -> int:
@@ -499,18 +540,43 @@ def forward_train(params, cfg: ModelConfig, batch: dict,
     With ``cfg.use_kernel`` every layer's causal PRF attention runs the
     ``linear_attention_causal`` kernel. The random baseline reads layer
     i's (L, L) logits from :func:`baseline_draws` of ``gen``; the other
-    kinds read none."""
+    kinds read none. Each unit of ``len(block_pattern)`` layers runs
+    under ``cfg.remat`` (:func:`_remat`); under "full" and "dots" its
+    forward runs again in the backward, kernel launches included."""
     _check_servable(cfg)
     x = _embed_inputs(params, cfg, batch)
     draws = (baseline_draws(cfg, x.shape[1], gen, x.device)
              if cfg.attn.kind == "random" else None)
+    blocks = list(_blocks(params, cfg))
+    k = len(cfg.block_pattern)
+
+    def run(x, lo, hi):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for li in range(lo, hi):
+            kind, bp = blocks[li][:2]
+            x, aux_l = _apply_block(
+                bp, x, cfg, kind, mode="train",
+                draw=None if draws is None else draws[li])
+            if aux_l is not None:
+                aux = aux + aux_l
+        return x, aux
+    unit = _remat(run, cfg.remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for li, (kind, bp, _, _, _) in enumerate(_blocks(params, cfg)):
-        x, aux_l = _apply_block(bp, x, cfg, kind, mode="train",
-                                draw=None if draws is None else draws[li])
-        if aux_l is not None:
-            aux = aux + aux_l
-    return _logits(params, cfg, x), aux
+    for u in range(cfg.n_units):
+        x, aux_u = unit(x, u * k, (u + 1) * k)
+        aux = aux + aux_u
+    x, aux_r = run(x, cfg.n_units * k, cfg.n_layers)
+    return _logits(params, cfg, x), aux + aux_r
+
+
+def loss_weights(cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """The positions :func:`loss_fn` averages over, as f32 weights shaped
+    as batch["labels"]: the masked frames for audio with a
+    batch["mask"], else ``labels >= 0``. Their sum (at least 1) is the
+    loss's denominator."""
+    if cfg.modality == "audio" and "mask" in batch:
+        return batch["mask"].float()
+    return (batch["labels"] >= 0).float()
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict,
@@ -528,10 +594,7 @@ def loss_fn(params, cfg: ModelConfig, batch: dict,
     logz = torch.logsumexp(logits, dim=-1)
     ll_tok = torch.gather(logits, -1,
                           labels.clamp(min=0)[..., None])[..., 0] - logz
-    if cfg.modality == "audio" and "mask" in batch:
-        wmask = batch["mask"].float()
-    else:
-        wmask = (labels >= 0).float()
+    wmask = loss_weights(cfg, batch)
     denom = wmask.sum().clamp(min=1.0)
     ce = -(ll_tok * wmask).sum() / denom
     zl = cfg.z_loss * (logz.square() * wmask).sum() / denom

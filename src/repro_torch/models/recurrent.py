@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as ll
+from repro_torch.models.remat import dot
 
 RGLRU_C = 8.0
 CONV_K = 4
@@ -142,13 +143,13 @@ def rglru_apply(params: dict, u: torch.Tensor,
     conv tail gathered at its valid end, so the carry is the one an
     unpadded run over ``valid_len[b]`` tokens gives. Nothing here waits
     for the device."""
-    x = u @ params["wx"]
-    g = u @ params["wg"]
+    x = dot(u, params["wx"])
+    g = dot(u, params["wg"])
     prefix = None if state is None else state.conv
     x_conv, xp = _causal_conv(x, params["conv_w"], prefix)
     xf = x_conv.float()
-    r = torch.sigmoid(xf @ params["wa"].float())
-    i_gate = torch.sigmoid(xf @ params["wi"].float())
+    r = torch.sigmoid(dot(xf, params["wa"].float()))
+    i_gate = torch.sigmoid(dot(xf, params["wi"].float()))
     a = torch.exp(-RGLRU_C * F.softplus(params["lam"].float()) * r)
     b, l = u.shape[0], u.shape[1]
     if valid_len is not None:
@@ -167,7 +168,7 @@ def rglru_apply(params: dict, u: torch.Tensor,
         last = (vl - 1).clamp(min=0)[:, None, None]
         h_last = hs.gather(1, last.expand(-1, 1, hs.shape[-1]))[:, 0]
     out = (hs * F.gelu(g.float(), approximate="tanh")).to(u.dtype)
-    return out @ params["wo"], RGLRUState(h=h_last, conv=tail)
+    return dot(out, params["wo"]), RGLRUState(h=h_last, conv=tail)
 
 
 def rglru_decode(params: dict, u: torch.Tensor, state: RGLRUState):
@@ -275,11 +276,12 @@ def rwkv6_apply(params: dict, x: torch.Tensor, n_heads: int,
     mu = params["mu"]
     xr, xk, xv, xw, xg = (x + (xprev - x) * mu[i].to(x.dtype)
                           for i in range(5))
-    r = (xr @ params["wr"]).reshape(b, l, n_heads, dh)
-    k = (xk @ params["wk"]).reshape(b, l, n_heads, dh)
-    v = (xv @ params["wv"]).reshape(b, l, n_heads, dh)
-    g = xg @ params["wg"]
-    dd = torch.tanh(xw.float() @ params["decay_a"]) @ params["decay_b"]
+    r = dot(xr, params["wr"]).reshape(b, l, n_heads, dh)
+    k = dot(xk, params["wk"]).reshape(b, l, n_heads, dh)
+    v = dot(xv, params["wv"]).reshape(b, l, n_heads, dh)
+    g = dot(xg, params["wg"])
+    dd = dot(torch.tanh(dot(xw.float(), params["decay_a"])),
+             params["decay_b"])
     w = torch.exp(-torch.exp(params["lam_w"] + dd)).reshape(b, l, n_heads,
                                                             dh)
     if valid_len is not None:
@@ -293,7 +295,7 @@ def rwkv6_apply(params: dict, x: torch.Tensor, n_heads: int,
                           params["u"], s0)
     o = ll.layernorm(params["ln_x"], o.transpose(1, 2).reshape(b, l, d))
     o = o * F.silu(g.float()).to(o.dtype)
-    out = o.to(x.dtype) @ params["wo"]
+    out = dot(o.to(x.dtype), params["wo"])
     return out, RWKVState(s=s_last,
                           shift=_last_valid(x, valid_len).float())
 
@@ -332,7 +334,7 @@ def rwkv6_channel_mix(params: dict, x: torch.Tensor,
     mu = params["mu"]
     xk = x + (xprev - x) * mu[0].to(x.dtype)
     xr = x + (xprev - x) * mu[1].to(x.dtype)
-    k = torch.square(F.relu(xk @ params["wk"]))
-    out = (torch.sigmoid((xr @ params["wr"]).float()).to(x.dtype)
-           * (k @ params["wv"]))
+    k = torch.square(F.relu(dot(xk, params["wk"])))
+    out = (torch.sigmoid(dot(xr, params["wr"]).float()).to(x.dtype)
+           * dot(k, params["wv"]))
     return out, _last_valid(x, valid_len).float()

@@ -40,10 +40,9 @@ from repro_torch.tree import flatten
 ATOL = 1e-4
 OUT_TOL = dict(atol=1e-5, rtol=1e-4)
 GRAD_TOL = dict(atol=2e-6, rtol=2e-4)
-# reference fields the port's ModelConfig leaves out: remat and the
-# sharding rules wait with ROADMAP A13; the other (scan_layers) must
-# hold the reference's default
-LEFT_OUT = ("remat", "sharding_overrides")
+# reference fields the port's ModelConfig leaves out; the one it lacks
+# (scan_layers) must hold the reference's default
+LEFT_OUT = ()
 # (L, valid_len) of each resumed chunk; no row is empty, as in serving
 CHUNKS = [(6, (6, 2, 3)), (5, None), (7, (3, 7, 1))]
 # the engines' traffic: prompts up to 21 tokens in chunks of 16, so the

@@ -88,7 +88,9 @@ def test_port_imports_neither_jax_nor_reference():
                 "models/recurrent", "optim/adamw",
                 "optim/schedules", "data/synthetic", "data/c4_mock",
                 "checkpoint/store", "checkpoint/msgpack_subset",
-                "launch/steps", "launch/train", "tree"):
+                "launch/steps", "launch/train", "launch/mesh",
+                "runtime/fault_tolerance", "parallel/sharding",
+                "parallel/compression", "tree"):
         assert f"src/repro_torch/{mod}.py" in names, mod
     assert "scripts/torch_decode_rows.py" in names
     bad = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\.|"
