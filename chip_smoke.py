@@ -164,13 +164,14 @@ Phases, each printed as a JSON line:
      ``REC_STATE_TOL``, with a planted fault (each RG-LRU layer fed the
      next one's gate weight). Phase 2 holds B1/B2 at its head layout;
   9. recurrentgemma-2b trained, checkpointed and calibrated over unit/rem:
-     (a) the train launcher at its full 26 layers and width (params from
+     (a) the train launcher at full width and ``REC_TRAIN_LAYERS`` of
+     its 26 layers (4 units and both remainder layers; params from
      seed 0 drawn on the host, as the launcher draws them), kernel on,
      ``REC_TRAIN_STEPS`` steps of ``REC_TRAIN_BATCH`` x 512 tokens (the
-     launcher's default batch, which fits the card under remat "dots":
-     scripts/torch_train_memory.py): losses finite, B5 = steps x 16
-     (the 8 local layers, each recomputed under remat) and no other
-     launch, a {"params", "opt"} checkpoint
+     launcher's default batch, which fits the card under remat "dots"
+     at all 26: scripts/torch_train_memory.py): losses finite, B5 =
+     steps x 8 (the 4 local layers, each recomputed under remat) and no
+     other launch, a {"params", "opt"} checkpoint
      with its ``rem`` list written; step times, the checkpoint's bytes,
      peak device memory; (b) phase 5b's ``serve --load`` of that
      checkpoint (4 requests through B1/B2, streams equal to an engine
@@ -200,6 +201,18 @@ Phases, each printed as a JSON line:
      limit, each layer's S, shift and cshift within ``REC_STATE_TOL``,
      with a planted fault (each layer's time mix fed the next layer's
      key weight);
+  10b. rwkv6-7b trained at full width with its depth cut to
+     ``RWKV_TRAIN_LAYERS`` of 32 (params drawn on the card from seed 0):
+     (a) ``RWKV_TRAIN_STEPS`` steps of ``launch.steps.make_train_step``
+     (the launcher's AdamW with an unfactored second moment and cosine
+     schedule) on SyntheticLM batches of ``RWKV_TRAIN_BATCH`` x 512
+     under the config's remat "dots": losses finite, none of the seven
+     kernels launched (the block runs the reference's token loop, not
+     B7), step ms p50 and max, peak device memory; (b) its first 2
+     layers card vs CPU, 2 x 256: every bf16 gradient within phase 6's
+     limit, the f32 loss within phase 6's limit and the bf16 loss gap
+     reported beside it (phase 11 (b)'s rule), a planted fault (each
+     layer fed the next layer's ``decay_a``) failing both;
   11. the non-text modalities: (a) hubert-xlarge (the audio encoder:
      48 layers, d_model 1280, 16 heads of 80, noncausal) at full size
      trained by the train launcher on masked audio frames
@@ -243,7 +256,15 @@ Phases, each printed as a JSON line:
      steps (DTensor params and state) equal to two plain ones,
      ``compressed_psum_mean`` none, bf16 and int8 equal to their
      arithmetic, ``restore_to_shardings`` of (a)'s step-11 checkpoint
-     equal to the clean run's state; each part with its seconds.
+     equal to the clean run's state; (d) the serving half on its own
+     single-rank NCCL group: 8 requests (smollm-135m, B1/B2) through an
+     overlapped engine given ``make_local_mesh(1, 1)`` and through one
+     without it, greedy streams bitwise equal, B1 and B2 launches
+     equal, every pool leaf a DTensor with ``serve_state_specs``'
+     placements; phase 3e's traffic at ``prefill_rows=1`` through a
+     cache-on engine on the mesh whose snapshots are demoted to the
+     host before it, forks served by the mesh-aware promotion, streams
+     equal to a cache-less engine's; each part with its seconds.
 Then the kernels line (all seven kernels: launches on their path, max
 error, time and device time, prf_fused_decode's and prf_decode_step's
 cold beside their warm ones, plain time,
@@ -252,7 +273,7 @@ linear_attention_causal, linear_attention_carry and prf_featmap, which
 run on the tensor cores, at 495 TFLOP/s of TF32; B1's and B2's launches
 in phase 3e's, each phase 7 model's and phase 8's serving run beside,
 and every kernel's in phase 9's training and serving, in phase 10, in
-phase 11 by arch and in phase 12, ``launches_runtime``)
+phase 10b, in phase 11 by arch and in phase 12, ``launches_runtime``)
 and, last, the
 ``{"ok": true, ...}`` line. Exits non-zero, without that line, when there is no CUDA device
 or any phase fails. Imports neither JAX nor the reference package.
@@ -2625,14 +2646,19 @@ def phase_recurrent(torch, dev, counters):
     return out
 
 
-# phase 9: recurrentgemma-2b trained at its full 26 layers and width by
-# the train launcher (kernel on: B5 in the 8 local layers, each again in
-# its unit's recompute), 512-token rows at the launcher's default batch
-# of 8, under the config's remat "dots". scripts/torch_train_memory.py
-# on an H100 80GB HBM3, 700 W: 8 and 6 x 512 both peak at 74.30 GB, the
-# functional AdamW update's peak (params, gradients, their clipped copy,
-# old and new f32 moments: 74.31 GB at 5 x 512 without remat), above the
-# backward's; without remat 8 x 512 ran out and 5 was the largest batch
+# phase 9: recurrentgemma-2b trained at full width by the train launcher
+# (kernel on: B5 in the local layers, each again in its unit's
+# recompute), 512-token rows at the launcher's default batch of 8, under
+# the config's remat "dots". At its full 26 layers
+# scripts/torch_train_memory.py on an H100 80GB HBM3, 700 W reads 74.30
+# GB at 8 and 6 x 512, the functional AdamW update's peak (params,
+# gradients, their clipped copy, old and new f32 moments: 74.31 GB at 5
+# x 512 without remat), above the backward's; without remat 8 x 512 ran
+# out and 5 was the largest batch. The phase runs 14 of the 26 layers (4
+# units and both remainder layers, so the rem list stays): at 26 its 29
+# GB checkpoint's save and restore took about 90 s, and the whole run
+# 947 s with phase 10b, above its 900 s budget
+REC_TRAIN_LAYERS = 14
 REC_TRAIN_BATCH = 8
 
 
@@ -2767,12 +2793,13 @@ def calibrate_cross_device_at(torch, dev, kl, cfg, params, data, name,
 
 
 def phase_recurrent_train(torch, dev, counters):
-    """Phase 9: recurrentgemma-2b trained at full size by the port's
+    """Phase 9: recurrentgemma-2b trained at full width and
+    ``REC_TRAIN_LAYERS`` layers (``configs.cut_depth``) by the port's
     launcher (kernel on; params drawn on the host from seed 0, as the
     launcher draws them) for ``REC_TRAIN_STEPS`` steps of
     ``REC_TRAIN_BATCH`` x 512 tokens, checkpointed ({"params", "opt"},
-    the ``rem`` list among them). (a) Losses finite, B5 = steps x 8 (the
-    local layers) and no other launch, the checkpoint written, step
+    the ``rem`` list among them). (a) Losses finite, B5 = steps x 2 x
+    the local layers and no other launch, the checkpoint written, step
     times, its seconds and bytes, peak device memory. (b) Phase 5b's
     ``serve --load`` of that checkpoint through B1/B2 (4 requests), its
     streams those of an engine on the params the run returned.
@@ -2783,6 +2810,7 @@ def phase_recurrent_train(torch, dev, counters):
     import gc
     import shutil
     from repro_torch import checkpoint as ckpt
+    from repro_torch import configs
     from repro_torch.data import SyntheticLM
     from repro_torch.launch import train
     from repro_torch.models import lm
@@ -2796,12 +2824,13 @@ def phase_recurrent_train(torch, dev, counters):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t_train = time.perf_counter()
-    out = train.main(["--arch", RECURRENT, "--batch",
-                      str(REC_TRAIN_BATCH), "--seq", str(L_TRAIN),
-                      "--lr", "3e-4", "--warmup", "2", "--log-every",
-                      "1", "--device", str(dev), "--steps",
-                      str(steps_n), "--seed", "0", "--ckpt-dir",
-                      str(ck), "--ckpt-every", str(steps_n)])
+    with configs.cut_depth(REC_TRAIN_LAYERS):
+        out = train.main(["--arch", RECURRENT, "--batch",
+                          str(REC_TRAIN_BATCH), "--seq", str(L_TRAIN),
+                          "--lr", "3e-4", "--warmup", "2", "--log-every",
+                          "1", "--device", str(dev), "--steps",
+                          str(steps_n), "--seed", "0", "--ckpt-dir",
+                          str(ck), "--ckpt-every", str(steps_n)])
     reserved = torch.cuda.max_memory_reserved() / 1e9
     wall = time.perf_counter() - t_train
     launches = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
@@ -2819,7 +2848,8 @@ def phase_recurrent_train(torch, dev, counters):
     gc.collect()
     torch.cuda.empty_cache()
     train_fields = {
-        "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "n_layers": cfg.n_layers, "full_depth": 26, "depth_cut": True,
+        "d_model": cfg.d_model,
         "layer_kinds": collections.Counter(cfg.layer_kinds()),
         "n_rem": cfg.n_rem, "batch": REC_TRAIN_BATCH, "seq": L_TRAIN,
         "steps": steps_n, "loss": losses, "step_ms": ms,
@@ -2832,6 +2862,9 @@ def phase_recurrent_train(torch, dev, counters):
         "checkpoint_steps": saved, "checkpoint_bytes": ck_bytes}
     want = {n: 0 for n in counters}
     want["linear_attention_causal"] = steps_n * b5_per_step(cfg)
+    if cfg.n_layers != REC_TRAIN_LAYERS:
+        fail(f"{RECURRENT} train: {cfg.n_layers} layers, expected "
+             f"{REC_TRAIN_LAYERS}")
     if len(losses) != steps_n or not all(np.isfinite(losses)):
         fail(f"{RECURRENT} train: losses {losses}")
     if launches != want:
@@ -2840,8 +2873,10 @@ def phase_recurrent_train(torch, dev, counters):
         fail(f"{RECURRENT} train: checkpoints {saved}")
 
     t_load = time.perf_counter()
-    serve_launches = phase_serve_load(torch, dev, counters, ck, trained,
-                                      cfg, phase="recurrent_serve_load")
+    with configs.cut_depth(REC_TRAIN_LAYERS):
+        serve_launches = phase_serve_load(torch, dev, counters, ck,
+                                          trained, cfg,
+                                          phase="recurrent_serve_load")
     del trained
     shutil.rmtree(ck, ignore_errors=True)
     gc.collect()
@@ -3041,6 +3076,207 @@ def phase_rwkv(torch, dev, counters):
     torch.cuda.empty_cache()
     return {n: launches[n] + eq_launches[n] + on_launches[n]
             + off_launches[n] for n in counters}
+
+
+# phase 10b: rwkv6-7b trained at full width (d_model 4096, 64 heads of
+# 64, d_ff 14 336, vocab 65 536) with its depth cut, params drawn on the
+# card, under the config's remat "dots" and the launcher's AdamW with an
+# unfactored second moment. 7.53 B params at 32 layers (218.6 M a layer,
+# 0.537 B in the embed and head); the functional update holds params,
+# gradients, their clipped copy and old and new f32 moments, about 22
+# bytes a param, and the recomputed layer's token loop keeps about three
+# (8, 64, 64, 64) f32 tensors a token (13 GB at 8 x 512), so 8 layers
+# (2.29 B params) fit and 12 would need about 70-74 GB
+# (scripts/torch_train_memory.py --arch rwkv6-7b --layers 8 12)
+RWKV_TRAIN_LAYERS = 8
+RWKV_TRAIN_BATCH = 8
+RWKV_TRAIN_STEPS = 4
+RWKV_GRAD_LAYERS = 2
+
+
+def rwkv_decay_fault(torch, params):
+    """``params`` with each rwkv layer's ``decay_a`` taken from the next
+    layer (the last from the first)."""
+    units = params["units"]["b0"]
+    return {**params, "units": {"b0": {**units, "tmix": {
+        **units["tmix"],
+        "decay_a": torch.roll(units["tmix"]["decay_a"], -1, 0)}}}}
+
+
+def loss_only(torch, cfg, params, data, device):
+    """``lm.loss_fn`` on ``data`` moved to ``device``, without gradients,
+    as a CPU scalar."""
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import lm
+
+    with torch.no_grad():
+        loss, _ = lm.loss_fn(params, cfg, to_device(data, device))
+    return loss.cpu()
+
+
+def rwkv_train_cross_device(torch, dev, counters, cfg, params):
+    """Phase 10b (b): phase 6's check on rwkv6-7b's first
+    ``RWKV_GRAD_LAYERS`` layers (``params``, full width), one 2 x 256
+    SyntheticLM batch from seed 0, phase 11 (b)'s rule: one loss and
+    every gradient on the card against the CPU in bf16, every gradient
+    within ``TRAIN_GRAD_TOL`` of its leaf's max; the loss again with the
+    same params in f32 (no gradient: card and CPU forward), within
+    ``TRAIN_LOSS_TOL``. The bf16 loss gap is reported beside each bf16
+    side's distance to the CPU's f32 loss, not held to that limit: bf16
+    rounding alone sets it (3.1e-5 on an H100 80GB HBM3 at 700 W, where
+    the f32 gap read 8.3e-8). A planted fault (:func:`rwkv_decay_fault` on
+    the card) must fail both. No kernel launches. Returns (the JSON
+    fields, the checks)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import lm
+
+    data = SyntheticLM(cfg.vocab, 256, 2, seed=0).batch(0)
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    card = loss_and_grads(torch, cfg, params, data, dev)
+    cpu = loss_and_grads(torch, cpu_reference(cfg),
+                         lm.tree_map(lambda t: t.cpu(), params), data, "cpu")
+    fault = loss_and_grads(torch, cfg, rwkv_decay_fault(torch, params),
+                           data, dev)
+    loss_gap, grad_gap, where = train_gaps(torch, card, cpu)
+    f_loss, f_grad, f_where = train_gaps(torch, fault, cpu)
+    bf16 = {"loss_card": float(card[0]), "loss_cpu": float(cpu[0]),
+            "loss_rel_err": loss_gap, "grad_rel_err": grad_gap,
+            "grad_worst_leaf": where,
+            "planted_fault": {"loss_rel_err": f_loss,
+                              "grad_rel_err": f_grad,
+                              "grad_worst_leaf": f_where}}
+    del card, cpu, fault
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = lm.tree_map(lambda t: t.float(), params)
+    l_card = loss_only(torch, c32, p32, data, dev)
+    l_cpu = loss_only(torch, cpu_reference(c32),
+                      lm.tree_map(lambda t: t.cpu(), p32), data, "cpu")
+    l_fault = loss_only(torch, c32, rwkv_decay_fault(torch, p32), data, dev)
+    del p32
+    launches = launch_counts(counters)
+
+    def rel(a):
+        return float((a - l_cpu).abs() / l_cpu.abs())
+    f32 = {"loss_card": float(l_card), "loss_cpu": float(l_cpu),
+           "loss_rel_err": rel(l_card),
+           "planted_fault": {"loss_rel_err": rel(l_fault)}}
+    bf16["loss_card_vs_cpu_f32"] = rel(torch.tensor(bf16["loss_card"]))
+    bf16["loss_cpu_vs_cpu_f32"] = rel(torch.tensor(bf16["loss_cpu"]))
+    fields = {"n_layers": cfg.n_layers, "batch": 2, "seq": 256,
+              "bfloat16": bf16, "float32": f32,
+              "loss_tolerance": TRAIN_LOSS_TOL,
+              "loss_tolerance_applies_to": "float32",
+              "grad_tolerance": TRAIN_GRAD_TOL,
+              "grad_tolerance_applies_to": "bfloat16",
+              "planted_fault": "each rwkv layer fed the next layer's "
+                               "decay_a",
+              "launches": launches, "seconds": time.perf_counter() - t0}
+
+    def check():
+        if any(launches.values()):
+            fail(f"{RWKV} cross-device training: kernels launched "
+                 f"({launches})")
+        if grad_gap > TRAIN_GRAD_TOL:
+            fail(f"{RWKV} cross-device training bfloat16: gradient gap "
+                 f"{grad_gap:.3e} ({where})")
+        if f_grad <= TRAIN_GRAD_TOL:
+            fail(f"{RWKV} cross-device training bfloat16 check passes a "
+                 "planted fault")
+        if f32["loss_rel_err"] > TRAIN_LOSS_TOL:
+            fail(f"{RWKV} cross-device training float32: loss gap "
+                 f"{f32['loss_rel_err']:.3e}")
+        if f32["planted_fault"]["loss_rel_err"] <= TRAIN_LOSS_TOL:
+            fail(f"{RWKV} cross-device training float32 check passes a "
+                 "planted fault")
+    return fields, check
+
+
+def phase_rwkv_train(torch, dev, counters):
+    """Phase 10b: rwkv6-7b at full width and ``RWKV_TRAIN_LAYERS``
+    layers (``configs.get_config(..., n_layers=)``: the launcher has no
+    depth flag, as the reference's has none), params from seed 0 drawn
+    on the card. (a) ``RWKV_TRAIN_STEPS`` steps of
+    ``launch.steps.make_train_step`` (the launcher's step, its
+    ``AdamWConfig(lr=3e-4)`` and cosine schedule) on SyntheticLM batches
+    of ``RWKV_TRAIN_BATCH`` x 512 under remat "dots": losses finite, no
+    kernel launched, step ms (synchronised), peak device memory. (b)
+    :func:`rwkv_train_cross_device` on the first ``RWKV_GRAD_LAYERS``
+    layers of the same draw. Returns each kernel's launches (all 0)."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.schedules import cosine_warmup
+    from repro_torch.tree import flatten
+
+    t0 = time.perf_counter()
+    cfg = configs.get_config(RWKV, n_layers=RWKV_TRAIN_LAYERS,
+                             use_kernel=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, seed=0, device=dev, draw_on=dev)
+    opt_cfg = AdamWConfig(lr=3e-4)
+    opt = adamw_init(params, opt_cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    step = steps.make_train_step(cfg, opt_cfg,
+                                 cosine_warmup(3e-4, 2, RWKV_TRAIN_STEPS))
+    data = SyntheticLM(cfg.vocab, L_TRAIN, RWKV_TRAIN_BATCH, seed=0)
+    zero_counts(counters)
+    losses, ms = [], []
+    for s_ in range(RWKV_TRAIN_STEPS):
+        batch = to_device(data.batch(s_), dev)
+        t1 = time.perf_counter()
+        params, opt, m = step(params, opt, batch, s_)
+        losses.append(float(m["loss"]))                 # synchronises
+        ms.append((time.perf_counter() - t1) * 1e3)
+    launches = launch_counts(counters)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    reserved = torch.cuda.max_memory_reserved() / 1e9
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_fields = {
+        "n_layers": cfg.n_layers, "full_depth": 32, "depth_cut": True,
+        "d_model": cfg.d_model, "n_heads": cfg.n_heads, "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab, "remat": cfg.remat,
+        "params": sum(t.numel() for _, t in flatten(params)),
+        "factored_second_moment": False, "batch": RWKV_TRAIN_BATCH,
+        "seq": L_TRAIN, "steps": RWKV_TRAIN_STEPS, "loss": losses,
+        "step_ms": ms, "step_ms_p50": float(np.percentile(ms, 50)),
+        "step_ms_max": max(ms),
+        "tokens_per_s": RWKV_TRAIN_BATCH * L_TRAIN
+        / (float(np.percentile(ms[1:], 50)) / 1e3),
+        "init_s": init_s, "params_and_opt_gb": state_gb,
+        "peak_mem_gb": peak, "peak_reserved_gb": reserved,
+        "launches": launches}
+    # the trained draw's first layers for (b): a fresh draw would cost a
+    # second init; (b) holds the card against the CPU on the same params
+    sub_cfg = dataclasses.replace(cfg, n_layers=RWKV_GRAD_LAYERS)
+    sub = {**params, "units": lm.tree_map(
+        lambda t: t[:RWKV_GRAD_LAYERS].clone(), params["units"])}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cross, check = rwkv_train_cross_device(torch, dev, counters, sub_cfg,
+                                           sub)
+    del sub
+    emit({"phase": "rwkv_train", "arch": RWKV, "train": train_fields,
+          "cross_device_training": cross,
+          "seconds": time.perf_counter() - t0})
+    if len(losses) != RWKV_TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"{RWKV} train: losses {losses}")
+    if any(launches.values()):
+        fail(f"{RWKV} train: kernels launched ({launches})")
+    check()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n: launches[n] + cross["launches"][n] for n in counters}
 
 
 # phase 11: the non-text modalities. hubert-xlarge at its full 48 layers
@@ -3929,11 +4165,167 @@ def runtime_mesh(torch, dev, counters, ck_dir, clean_state):
     return fields, check, launches["linear_attention_causal"]
 
 
+def mesh_serve(torch, dev, counters, params, cfg, reqs, mesh=None,
+               **kw):
+    """``reqs`` through an overlapped engine (8 slots, max_len 1024,
+    chunk_tokens 256; ``kw`` more of its arguments) on ``mesh`` or
+    without one, counted from 0: (streams in submission order, the
+    launches, the engine)."""
+    from repro_torch.serving import ServingEngine
+
+    eng = ServingEngine(params, cfg, max_slots=8, max_len=1024,
+                        chunk_tokens=256, seed=0, overlap=True, mesh=mesh,
+                        device=dev, **kw)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    by_uid = {r.uid: r.tokens for r in eng.run()}
+    torch.cuda.synchronize()
+    return [by_uid[r.uid] for r in reqs], launch_counts(counters), eng
+
+
+def placements_as_specs(eng, mesh) -> list:
+    """The pool and staging leaves that are not DTensors with the
+    placements ``serve_state_specs`` gives them (empty: all are)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.parallel import (make_shardings, serve_state_specs,
+                                      sharding)
+
+    bad = []
+    for name in ("pool", "staging"):
+        tree = getattr(eng, name)
+        want = dict(sharding._leaves_with_path(make_shardings(
+            serve_state_specs(tree, mesh), mesh)))
+        for path, t in sharding._leaves_with_path(tree):
+            if not (isinstance(t, DTensor)
+                    and tuple(t.placements) == want[path].placements):
+                bad.append(name + path)
+    return bad
+
+
+def runtime_serve_mesh(torch, dev, counters):
+    """Phase 12 (d): the serving half of distribution on phase 12 (c)'s
+    single-rank NCCL group (a ``FileStore`` under build/) and
+    ``make_local_mesh(1, 1)``: smollm-135m at full width through B1/B2.
+    8 requests (prompts of 64-256 tokens, 16-32 new) through an
+    overlapped engine given the mesh and through one without it: greedy
+    streams bitwise equal, B1 and B2 launches equal, every pool leaf a
+    DTensor with ``serve_state_specs``' placements. Then phase 3e's
+    system-prompt traffic at ``prefill_rows=1``: a cache-on engine on
+    the mesh, primed with each shared prefix, every snapshot demoted to
+    the host tier before the traffic (so its forks are served by the
+    mesh-aware promotion), against a cache-less engine without the
+    mesh: forks and promotions happen, streams equal. The group is
+    destroyed after. Returns (fields, checks, launches)."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.serving import (PrefixCacheConfig, Request,
+                                     shared_prefix_requests,
+                                     synthetic_requests)
+    from repro_torch.serving import prefix_cache as pcache
+
+    store = ROOT / "build" / "chip_smoke_nccl_serve_store"
+    store.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(1, 1, device_type=dev.type)
+        cfg = configs.get_config("smollm-135m", use_kernel=True)
+        params = lm.init_params(cfg, seed=0, device=dev, draw_on=dev)
+
+        def reqs():
+            return synthetic_requests(8, cfg.vocab, seed=3,
+                                      prompt_range=(64, 256),
+                                      gen_range=(16, 32))
+        mesh_serve(torch, dev, counters, params, cfg, reqs()[:2])  # warm
+        plain, l_plain, _ = mesh_serve(torch, dev, counters, params, cfg,
+                                       reqs())
+        t1 = time.perf_counter()
+        sharded, l_mesh, eng = mesh_serve(torch, dev, counters, params,
+                                          cfg, reqs(), mesh=mesh)
+        mesh_s = time.perf_counter() - t1
+        bad = placements_as_specs(eng, mesh)
+        paths = (eng.stats["prefill_path"], eng.stats["decode_path"])
+        del eng
+
+        traffic = shared_prefix_requests(16, cfg.vocab, **PREFIX_TRAFFIC)
+        leads = [lead for lead, n in collections.Counter(
+            tuple(r.prompt[:256]) for r in traffic).items() if n > 1]
+
+        def copy(rs):
+            return [Request(prompt=list(r.prompt),
+                            max_new_tokens=r.max_new_tokens) for r in rs]
+        cold, _, _ = mesh_serve(torch, dev, counters, params, cfg,
+                                copy(traffic), prefill_rows=1)
+        on, l_on, eng = mesh_serve(
+            torch, dev, counters, params, cfg,
+            [Request(prompt=list(ld) + [1, 2, 3], max_new_tokens=2)
+             for ld in leads], mesh=mesh, prefill_rows=1,
+            prefix_cache=PrefixCacheConfig())
+        for ent in eng.prefix_cache._entries.values():
+            if not ent.on_host:
+                ent.state = pcache.snapshot_to_host(ent.state)
+                ent.on_host = True
+        before = dict(eng.stats)
+        reqs_on = copy(traffic)
+        for r in reqs_on:
+            eng.submit(r)
+        zero_counts(counters)
+        by_uid = {r.uid: r.tokens for r in eng.run()}
+        l_on = launch_counts(counters)
+        forked = [by_uid[r.uid] for r in reqs_on]
+        st = eng.stats
+        delta = {k: st[k] - before.get(k, 0) for k in PREFIX_STATS}
+        bad_fork = placements_as_specs(eng, mesh)
+        del eng, params
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    same = [a == b for x, y in zip(forked, cold) for a, b in zip(x, y)]
+    fields = {"backend": "nccl", "world": 1, "mesh": [1, 1],
+              "config": cfg.name, "requests": 8, "paths": list(paths),
+              "streams_equal": sharded == plain,
+              "launches_plain": l_plain, "launches_mesh": l_mesh,
+              "mesh_run_s": mesh_s, "pool_leaves_off_spec": bad,
+              "prefix": {"requests": len(traffic), "prefill_rows": 1,
+                         **delta, "launches": l_on,
+                         "tokens": len(same),
+                         "tokens_equal": sum(same) / max(len(same), 1),
+                         "pool_leaves_off_spec": bad_fork},
+              "seconds": time.perf_counter() - t0}
+    launches = {n: l_mesh[n] + l_on[n] for n in counters}
+
+    def check():
+        if paths != ("fused_kernel", "fused_kernel"):
+            fail(f"serve mesh: paths {paths}")
+        if sharded != plain:
+            fail("serve mesh: the mesh engine's greedy streams differ "
+                 "from the engine's without a mesh")
+        if l_mesh != l_plain or not (l_mesh["prf_fused_decode"]
+                                     and l_mesh["prf_fused_prefill"]):
+            fail(f"serve mesh: launches {l_mesh} on the mesh, {l_plain} "
+                 "without")
+        if bad or bad_fork:
+            fail(f"serve mesh: pool leaves off their specs "
+                 f"({bad + bad_fork})")
+        if delta["forked_requests"] < 1 or delta["prefix_promotions"] < 1:
+            fail(f"serve mesh: no fork from a promoted snapshot ({delta})")
+        if forked != cold:
+            fail(f"serve mesh: forked streams differ from cold ones "
+                 f"({sum(same)} of {len(same)} tokens equal)")
+    return fields, check, launches
+
+
 def phase_runtime(torch, dev, counters):
     """Phase 12: training at scale: (a) :func:`runtime_supervisor`, (b)
-    :func:`runtime_remat`, (c) :func:`runtime_mesh`, one JSON line each
-    with its seconds. Returns each kernel's launches in the phase (B5's;
-    the others' must be 0)."""
+    :func:`runtime_remat`, (c) :func:`runtime_mesh`, and the serving
+    half of distribution, (d) :func:`runtime_serve_mesh`, one JSON line
+    each with its seconds. Returns each kernel's launches in the phase
+    (B5's in (a)-(c), B1's and B2's in (d); the others' must be 0)."""
     import gc
     import shutil
 
@@ -3960,8 +4352,14 @@ def phase_runtime(torch, dev, counters):
     del clean
     gc.collect()
     torch.cuda.empty_cache()
-    return {**dict.fromkeys(counters, 0),
-            "linear_attention_causal": b5_a + b5_b + b5_c}
+    serve_mesh, check_serve_mesh, serve_launches = runtime_serve_mesh(
+        torch, dev, counters)
+    emit({"phase": "runtime_serve_mesh", **serve_mesh})
+    check_serve_mesh()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**serve_launches, "linear_attention_causal":
+            b5_a + b5_b + b5_c + serve_launches["linear_attention_causal"]}
 
 
 # every kernel of the port: (its module, its launch counter, its CUDA
@@ -4070,6 +4468,7 @@ def main() -> int:
     recurrent = phase_recurrent(torch, dev, counters)
     recurrent_train = phase_recurrent_train(torch, dev, counters)
     rwkv = phase_rwkv(torch, dev, counters)
+    rwkv_train = phase_rwkv_train(torch, dev, counters)
     modalities = phase_modalities(torch, dev, counters)
     runtime = phase_runtime(torch, dev, counters)
 
@@ -4088,6 +4487,7 @@ def main() -> int:
          "launches_recurrent": recurrent.get(n, 0),
          "launches_recurrent_train": recurrent_train[n],
          "launches_rwkv": rwkv[n],
+         "launches_rwkv_train": rwkv_train[n],
          "launches_modalities": {a: m[n] for a, m in modalities.items()},
          "launches_runtime": runtime[n],
          "bound_ms": timing[n]["bound_ms"],

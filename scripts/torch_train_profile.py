@@ -4,6 +4,7 @@
 Run from the repository root on a machine with a CUDA device:
 
     python3 scripts/torch_train_profile.py        # smollm-135m, 8 x 512
+    python3 scripts/torch_train_profile.py --arch rwkv6-7b --layers 8
 
 Runs the port's train launcher (``repro_torch.launch.train.main``):
 smollm-135m at full width, random weights from seed 0, kernel on,
@@ -13,14 +14,20 @@ the card's name and power limit and one JSON line: the host-clock ms of
 the recorded steps, the device's busy ms (the union of the kernels'
 device intervals), its idle share, the device time by class of kernel
 (the B5 kernel, matrix products, elementwise, reductions, the rest) and
-the top kernels by device time. Further arguments go to the launcher
-after these defaults (``--reduced --device cpu`` rehearses the control
-flow on the CPU, where no device time is recorded). Imports neither JAX
-nor the reference.
+the top kernels by device time, and the device time of the RWKV-6
+token loop (``models.recurrent._wkv_scan``: its forward ops, those of
+its remat recompute, and the backward of both) and its share of the
+busy time. ``--layers N`` cuts the config's depth to N layers (the
+launcher has no depth flag: the script hands it the cut config).
+Further arguments go to the launcher after these defaults (``--reduced
+--device cpu`` rehearses the control flow on the CPU, where no device
+time is recorded). Imports neither JAX nor the reference.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -31,6 +38,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 WARM, ACTIVE, TOP = 3, 2, 25
+SCAN = "recurrent._wkv_scan"           # the token loop's profiler range
 # substrings of kernel names, first match wins
 CLASSES = (("linear_attn_causal (B5)", ("las::",)),
            ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
@@ -60,16 +68,77 @@ def busy_us(intervals) -> float:
     return total + (0.0 if cur_e is None else cur_e - cur_s)
 
 
+def scan_device_us(events) -> float:
+    """Device time of the kernels launched inside a ``SCAN`` range, or by
+    the backward of an autograd op recorded inside one (a backward node
+    carries its forward op's sequence number and thread), the engine's
+    accumulation of that node's gradients into their buffers included
+    (it runs in the node's ``autograd::engine::evaluate_function`` range,
+    outside the node's own)."""
+    def ancestors(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+
+    fwd = set()
+    inside = set()
+    for e in events:
+        if any(a.name == SCAN for a in ancestors(e)):
+            inside.add(id(e))
+            if e.sequence_nr >= 0:
+                fwd.add((e.sequence_nr, e.thread))
+    # the scan's backward nodes, and the engine ranges around them
+    roots = set()
+    for e in events:
+        if e.scope == 1 and (e.sequence_nr, e.fwd_thread) in fwd:
+            roots.add(id(e))
+            p = e.cpu_parent
+            if p is not None and p.name.startswith(
+                    "autograd::engine::evaluate_function"):
+                roots.add(id(p))
+    total = 0.0
+    for e in events:
+        if id(e) in inside or any(id(a) in roots for a in ancestors(e)):
+            total += sum(k.duration for k in e.kernels)
+    return total
+
+
+@contextlib.contextmanager
+def scan_range():
+    """Wrap ``models.recurrent._wkv_scan`` (looked up at each call) in a
+    profiler range named ``SCAN``."""
+    import torch
+    from repro_torch.models import recurrent
+
+    plain = recurrent._wkv_scan
+
+    @functools.wraps(plain)
+    def ranged(*args):
+        with torch.profiler.record_function(SCAN):
+            return plain(*args)
+    recurrent._wkv_scan = ranged
+    try:
+        yield
+    finally:
+        recurrent._wkv_scan = plain
+
+
 def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    from repro_torch import configs
     from repro_torch.launch import train
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    dev = argparse.ArgumentParser(add_help=False)
-    dev.add_argument("--device", default="cuda")
-    cuda = dev.parse_known_args(argv)[0].device != "cpu"
+    ap = argparse.ArgumentParser(add_help=False)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layers", type=int, default=0)
+    own, _ = ap.parse_known_args(argv)
+    cuda = own.device != "cpu"
+    if own.layers:
+        i = argv.index("--layers")
+        del argv[i:i + 2]
     if cuda:
         if not torch.cuda.is_available():
             print("torch_train_profile: no CUDA device", file=sys.stderr)
@@ -94,7 +163,9 @@ def main(argv=None) -> int:
     with profile(activities=acts,
                  schedule=schedule(skip_first=WARM, wait=0, warmup=1,
                                    active=ACTIVE, repeat=1),
-                 on_trace_ready=lambda p: events.extend(p.events())) as prof:
+                 on_trace_ready=lambda p: events.extend(p.events())) as prof, \
+            (configs.cut_depth(own.layers) if own.layers
+             else contextlib.nullcontext()), scan_range():
         out = train.main(launcher, on_step=on_step)
     wall_ms = (done[total - 1] - done[WARM]) * 1e3
     # device-side events, less the profiler's own step annotations
@@ -114,8 +185,10 @@ def main(argv=None) -> int:
     for name, (ms, _) in by_name.items():
         by_class[classify(name)] = by_class.get(classify(name), 0.0) + ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
+    scan_ms = scan_device_us(events) / 1e3
     print(json.dumps({
-        "config": out["config"].name, "launcher_args": launcher,
+        "config": out["config"].name, "n_layers": out["config"].n_layers,
+        "remat": out["config"].remat, "launcher_args": launcher,
         "profiled_steps": ACTIVE,
         "losses": [m["loss"] for m in out["metrics"]][-ACTIVE:],
         "wall_ms_per_step": wall_ms / ACTIVE,
@@ -125,6 +198,8 @@ def main(argv=None) -> int:
         "device_ms_per_step_by_class": {
             k: v / ACTIVE for k, v in sorted(by_class.items(),
                                              key=lambda kv: -kv[1])},
+        "wkv_scan_device_ms_per_step": scan_ms / ACTIVE,
+        "wkv_scan_share_of_busy": (scan_ms / busy) if busy else None,
         "top_kernels": [{"name": n[:120], "class": classify(n),
                          "ms_per_step": ms / ACTIVE,
                          "launches_per_step": cnt / ACTIVE}

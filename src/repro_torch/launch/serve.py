@@ -13,7 +13,13 @@ prefix snapshots at block boundaries and admits later requests that
 share a cached prefix by forking its state (for exact attention over
 paged KV, path ``exact_paged``); ``--shared-prefix N`` serves traffic
 whose prompts open with a shared N-token prefix, ``--prompt-len`` then
-giving the suffix's range.
+giving the suffix's range. ``--mesh-data`` x ``--mesh-model`` above
+1 x 1 places the engine's slot and staging pools on a mesh over the
+process group ``torchrun`` describes (NCCL for ``--device cuda``, gloo
+for ``cpu``; the train launcher's ``make_mesh``): every rank serves the
+same requests with the params whole, and the pools live as DTensors
+between steps (``ServingEngine(mesh=)``: no compute or memory is
+sharded). At 1 x 1 no group is made.
 
 Examples:
   # 8 requests over 4 slots on the GPU, greedy
@@ -36,6 +42,10 @@ Examples:
   # serve what the port's trainer saved
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --load /tmp/ck
+
+  # the pools on a (2, 1) mesh of two gloo ranks on the CPU
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --arch smollm-135m --reduced --device cpu --mesh-data 2
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ import argparse
 import dataclasses
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch import checkpoint as ckpt_lib
 from repro_torch import configs as cfgs
@@ -59,6 +70,10 @@ def _parse_range(spec: str) -> tuple[int, int]:
         lo, hi = spec.split("-", 1)
         return int(lo), int(hi)
     return int(spec), int(spec)
+
+
+def _quiet(*args, **kw) -> None:
+    """A rank other than 0 prints nothing."""
 
 
 def main(argv=None) -> dict:
@@ -136,6 +151,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--load", default=None,
                     help="checkpoint dir written by the trainer: serve "
                          "its newest params")
+    ap.add_argument("--mesh-data", type=int, default=1)
+    ap.add_argument("--mesh-model", type=int, default=1)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -148,6 +165,12 @@ def main(argv=None) -> dict:
     cfg = dataclasses.replace(cfg, use_kernel=args.use_kernel)
     if cfg.modality != "text":
         raise SystemExit("serving engine drives text decode only")
+    # a non-trivial mesh places the pools; 1 x 1 keeps the engine as it is
+    mesh = None
+    if args.mesh_data * args.mesh_model > 1:
+        from repro_torch.launch.train import make_mesh
+        mesh = make_mesh(args.mesh_data, args.mesh_model, args.device)
+    say = print if mesh is None or dist.get_rank() == 0 else _quiet
 
     # with --load every leaf is overwritten: draw the template on the
     # device (seconds at full width, where the host takes minutes)
@@ -158,7 +181,7 @@ def main(argv=None) -> dict:
         wrapped, step = ckpt_lib.restore_checkpoint(args.load,
                                                     {"params": params})
         params = wrapped["params"]
-        print(f"loaded params from {args.load} @ step {step}")
+        say(f"loaded params from {args.load} @ step {step}")
     pc = None
     if args.prefix_cache:
         pc = PrefixCacheConfig(block_tokens=args.prefix_block,
@@ -171,7 +194,7 @@ def main(argv=None) -> dict:
                            prefill_rows=args.prefill_rows,
                            bucket_prefill=not args.no_bucket_prefill,
                            overlap=args.overlap, prefix_cache=pc,
-                           device=args.device)
+                           mesh=mesh, device=args.device)
     if args.shared_prefix > 0:
         reqs = shared_prefix_requests(
             args.requests, cfg.vocab, seed=args.seed, rate=args.rate,
@@ -192,7 +215,7 @@ def main(argv=None) -> dict:
     except ValueError as e:                    # e.g. prompt >= max_len
         raise SystemExit(f"bad request: {e}")
 
-    print(f"serving {args.requests} requests over {args.slots} slots "
+    say(f"serving {args.requests} requests over {args.slots} slots "
           f"(kernel={cfg.attn.kind}, path={engine.stats['decode_path']}, "
           f"max_len={args.max_len}, "
           f"rate={args.rate or 'batch'}, device={args.device})")
@@ -200,15 +223,15 @@ def main(argv=None) -> dict:
 
     for res in sorted(results, key=lambda r: r.uid):
         span = res.finish_time - res.arrival_time
-        print(f"  req {res.uid}: prompt={len(res.prompt)} "
+        say(f"  req {res.uid}: prompt={len(res.prompt)} "
               f"gen={len(res.tokens)} ttft={res.ttft * 1e3:.0f}ms "
               f"span={span:.2f}s tokens[:8]={res.tokens[:8]}")
     st = engine.stats
-    print(f"attention paths: prefill={st['prefill_path']} "
+    say(f"attention paths: prefill={st['prefill_path']} "
           f"decode={st['decode_path']} "
           f"scheduler={'overlap' if st['overlap'] else 'sequential'}")
     if "decode_stall_ms_p50" in st:
-        print(f"decode stall (host blocked on token readiness): "
+        say(f"decode stall (host blocked on token readiness): "
               f"p50={st['decode_stall_ms_p50']:.2f}ms "
               f"p99={st['decode_stall_ms_p99']:.2f}ms "
               f"max={st['decode_stall_ms_max']:.2f}ms; "
@@ -217,18 +240,18 @@ def main(argv=None) -> dict:
     tpots = np.array([t for r in results for t in r.tpots])
     span = max(r.finish_time for r in results) - min(
         r.arrival_time for r in results)
-    print(f"throughput: {st['emitted_tokens'] / max(span, 1e-9):.1f} tok/s "
+    say(f"throughput: {st['emitted_tokens'] / max(span, 1e-9):.1f} tok/s "
           f"({st['emitted_tokens']} tokens in {span:.2f}s)")
     if tpots.size:
-        print(f"per-token latency: p50={np.percentile(tpots, 50) * 1e3:.1f}ms "
+        say(f"per-token latency: p50={np.percentile(tpots, 50) * 1e3:.1f}ms "
               f"p99={np.percentile(tpots, 99) * 1e3:.1f}ms")
     if "ttft_p50" in st:
-        print(f"ttft: p50={st['ttft_p50'] * 1e3:.0f}ms "
+        say(f"ttft: p50={st['ttft_p50'] * 1e3:.0f}ms "
               f"p99={st['ttft_p99'] * 1e3:.0f}ms")
-    print(f"slot occupancy: {st['mean_occupancy'] * 100:.0f}% over "
+    say(f"slot occupancy: {st['mean_occupancy'] * 100:.0f}% over "
           f"{st['decode_steps']} decode steps")
     if "prefix_hits" in st:
-        print(f"prefix cache: {st['prefix_hits']} hits, "
+        say(f"prefix cache: {st['prefix_hits']} hits, "
               f"{st['prefix_misses']} misses, "
               f"{st['forked_requests']} forked requests "
               f"({st['forked_tokens']} prompt tokens not prefilled), "
@@ -238,7 +261,7 @@ def main(argv=None) -> dict:
               f"{st['prefix_evictions']} evictions; device "
               f"{st['prefix_device_bytes'] / 2**20:.1f} MiB, host "
               f"{st['prefix_host_bytes'] / 2**20:.1f} MiB")
-    print(f"prefill: {st['prefill_tokens']} tokens in "
+    say(f"prefill: {st['prefill_tokens']} tokens in "
           f"{st['prefill_chunks']} chunks over {st['prefill_calls']} "
           f"batched calls ({st['prefill_rows_per_call']:.1f} rows/call, "
           f"batch occupancy {st['prefill_batch_occupancy'] * 100:.0f}%, "

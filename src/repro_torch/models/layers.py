@@ -2,8 +2,9 @@
 
 The counterpart of ``repro.models.layers``. Params are plain dicts of
 tensors with the reference's key names, so a reference param tree maps
-leaf for leaf (``bridge``). MoE's ``dispatch_spec`` (sharding
-constraints on the dispatch buffers) waits with ROADMAP A13.
+leaf for leaf (``bridge``). MoE's ``dispatch_spec`` pins the dispatch
+buffers' placements when they are DTensors; the port computes on full
+local tensors (``launch.steps``), so today the pin is the identity.
 """
 from __future__ import annotations
 
@@ -108,6 +109,11 @@ class MoEConfig:
     d_ff: int                    # per-expert hidden
     capacity_factor: float = 1.25
     aux_loss_weight: float = 0.01
+    # Optional (dp_axes, expert_axis), the reference's: the (B, E, C, d)
+    # dispatch buffers and the (B, L, K, d) gather get batch on dp_axes
+    # and, for the former, the expert dim on expert_axis ("model" under
+    # EP, None under the TP-expert fallback). See _pin.
+    dispatch_spec: Optional[tuple] = None
 
 
 def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig,
@@ -169,6 +175,26 @@ def moe_balance_over(whole_batch: Callable):
         _whole_batch = prev
 
 
+def _pin(t: torch.Tensor, cfg: MoEConfig, expert_axis: bool):
+    """``t`` redistributed to ``cfg.dispatch_spec``'s placements on its
+    own mesh when it is a DTensor (the reference's sharding constraint);
+    a plain tensor, or no spec, passes through unchanged. The port's
+    steps compute on full local tensors, so on its paths the pin is the
+    identity today."""
+    if cfg.dispatch_spec is None:
+        return t
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return t
+    from repro_torch.parallel.sharding import P, NamedSharding
+    dp, eax = cfg.dispatch_spec
+    axes = [tuple(dp)] + [None] * (t.ndim - 1)
+    if expert_axis:
+        axes[1] = eax
+    return t.redistribute(t.device_mesh,
+                          NamedSharding(t.device_mesh, P(*axes)).placements)
+
+
 def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig):
     """x: (B, L, d) -> (out (B, L, d) in x's dtype, aux loss 0-d f32).
 
@@ -180,7 +206,8 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig):
     dropped pair lands on slot cap - 1 as zeros and leaves the token that
     holds the slot as it is. The experts' SwiGLU runs as batched
     products over the buffer; the outputs are gathered back and combined
-    with the gates (zero for dropped pairs) in x's dtype."""
+    with the gates (zero for dropped pairs) in x's dtype. The buffers
+    and the gather pass through :func:`_pin` as the reference's do."""
     b, l, d = x.shape
     e = cfg.num_experts
     probs, gate_vals, idx, pos, in_cap, cap = moe_route(
@@ -197,9 +224,11 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig):
     xin = torch.zeros((b, e, cap, d), dtype=x.dtype,
                       device=x.device).index_put(
         (b_idx, idx, pos_c), upd, accumulate=True)           # (B, E, C, d)
+    xin = _pin(xin, cfg, True)
     h = (F.silu(torch.einsum("becd,edf->becf", xin, params["w_gate"]))
          * torch.einsum("becd,edf->becf", xin, params["w_up"]))
-    xout = torch.einsum("becf,efd->becd", h, params["w_out"])
-    gathered = xout[b_idx, idx, pos_c]                       # (B, L, K, d)
+    xout = _pin(torch.einsum("becf,efd->becd", h, params["w_out"]), cfg,
+                True)
+    gathered = _pin(xout[b_idx, idx, pos_c], cfg, False)     # (B, L, K, d)
     gates = (gate_vals * in_cap.float()).to(x.dtype)
     return torch.einsum("blkd,blk->bld", gathered, gates), aux

@@ -389,6 +389,15 @@ def place_tree(tree: PyTree, shardings: PyTree) -> PyTree:
         lambda p, t: place(t, flat[p].mesh, flat[p].placements), tree)
 
 
+def full_tensors(tree: PyTree) -> PyTree:
+    """``tree`` with each DTensor leaf gathered whole (``full_tensor()``,
+    a collective every rank of its mesh makes) and every other leaf as
+    it is."""
+    from torch.distributed.tensor import DTensor
+    return _map_with_path(
+        lambda _, t: t.full_tensor() if isinstance(t, DTensor) else t, tree)
+
+
 def constrain_batch_axis(x: torch.Tensor, mesh):
     """``x`` as a DTensor with its leading batch dim sharded over the DP
     axes and replicated elsewhere (the reference's sharding constraint at

@@ -98,18 +98,35 @@ on the host safe. Both schedulers share the admission path, so forking
 composes with overlap, cancel and flush; ``stats`` gains the
 ``prefix_*`` counters, ``forked_requests`` and ``forked_tokens``.
 
-Not ported yet: mesh-sharded pools and snapshots (ROADMAP.md Queue A,
-item A13).
+``mesh=`` (a ``DeviceMesh``; every rank builds the engine with the same
+params and submits the same requests) places BOTH pools as DTensors per
+``parallel.serve_state_specs``: slots over the DP axes, the head groups
+of the KV cache and of the linear state over 'model' (the paged layout's
+page pools, which carry no slot axis, replicated), as the reference's
+``device_put`` does. Each step gathers every pool leaf whole on every
+rank, runs the same step functions on full local tensors (so B1, B2
+and the exact caches see plain tensors, as without a mesh), and places
+the pools back with their placements unchanged; a host-tier prefix
+snapshot is promoted with the pools' placements. The gathers need every
+rank to make the same schedule, so admission reads one clock: whenever
+a request could be admitted, the ranks take the first mesh rank's
+``now`` (a broadcast along each mesh dim), and timed arrivals
+(``rate``, ``run(realtime=True)``) are admitted at the same step on
+every rank. No compute or memory is sharded: each rank holds the full
+params and, while it steps, the full pools, and its streams are bitwise
+those of the engine without a mesh under the same admission clock.
 """
 from __future__ import annotations
 
 import bisect
+import contextlib
 import functools
 import time
 from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import feature_maps as fm
 from repro_torch.models import lm
@@ -239,6 +256,9 @@ class ServingEngine:
     default, False, is the sequential scheduler. ``prefix_cache`` (True
     for the defaults, or a ``PrefixCacheConfig``) turns on snapshot
     capture and fork-on-admit, with paged KV for the exact kind.
+    ``mesh`` (a ``DeviceMesh`` of ``device``'s type) places the pools
+    between steps (module docstring); ``pool`` and ``staging`` are then
+    DTensor trees.
     """
 
     def __init__(self, params, cfg: lm.ModelConfig, *, max_slots: int = 4,
@@ -246,7 +266,7 @@ class ServingEngine:
                  seed: int = 0, prefill_rows: Optional[int] = None,
                  bucket_prefill: bool = True, overlap: bool = False,
                  prefix_cache: Union[bool, PrefixCacheConfig, None] = None,
-                 device="cuda"):
+                 mesh=None, device="cuda"):
         if cfg.modality != "text":
             raise ValueError("serving engine drives text decode only")
         if chunk_tokens is not None and chunk_tokens < 1:
@@ -265,6 +285,7 @@ class ServingEngine:
         self.overlap = overlap
         self.seed = seed
         self.device = torch.device(device)
+        self.mesh = mesh
         if prefix_cache is True:
             prefix_cache = PrefixCacheConfig()
         self._pc_cfg: Optional[PrefixCacheConfig] = prefix_cache or None
@@ -341,15 +362,31 @@ class ServingEngine:
                 "fused_kernel" if self.device.type == "cuda" else
                 "fused_plain")
         self._serve_paths = {"prefill_path": path, "decode_path": path}
+        self._pool_shardings = self._page_shardings = None
+        if mesh is not None:
+            from repro_torch.parallel import sharding
+            self._pool_shardings = sharding.make_shardings(
+                sharding.serve_state_specs(self.pool, mesh), mesh)
+            self.pool = sharding.place_tree(self.pool, self._pool_shardings)
+            self.staging = sharding.place_tree(self.staging,
+                                               self._pool_shardings)
+            if self._paged:
+                # page gathers and scatters are id-indexed: replicated
+                self._page_shardings = {
+                    k: sharding.NamedSharding(mesh, sharding.P())
+                    for k in self._pages}
+                self._pages = sharding.place_tree(self._pages,
+                                                  self._page_shardings)
         # prefix -> snapshot store: demotion to pinned host memory and
-        # promotion back never wait; an evicted paged entry hands its
-        # pages back to the allocator
+        # promotion back (onto the pools' placements under a mesh) never
+        # wait; an evicted paged entry hands its pages back to the
+        # allocator
         self.prefix_cache: Optional[PrefixCache] = None
         if self._pc_cfg is not None:
             self.prefix_cache = PrefixCache(
                 self._pc_cfg, to_host=pcache.snapshot_to_host,
                 to_device=functools.partial(pcache.snapshot_to_device,
-                                            device=self.device),
+                                            device=self.device, mesh=mesh),
                 release_pages=self._alloc.release if self._paged else None)
 
         self._slots: list[Optional[_Slot]] = [None] * max_slots
@@ -390,6 +427,16 @@ class ServingEngine:
         if self._t0 is None:
             self._t0 = time.monotonic()
         return time.monotonic() - self._t0
+
+    def _mesh_now(self, now: float) -> float:
+        """The first mesh rank's ``now``, on every rank of the mesh: one
+        broadcast along each mesh dim, from the dim's first rank."""
+        t = torch.tensor([now], dtype=torch.float64, device=self.device)
+        for d in range(self.mesh.ndim):
+            group = self.mesh.get_group(d)
+            dist.broadcast(t, src=dist.get_global_rank(group, 0),
+                           group=group)
+        return float(t.item())
 
     def _idx(self, rows) -> torch.Tensor:
         return to_device(rows, self.device, np.int64)
@@ -588,6 +635,9 @@ class ServingEngine:
         every forked tail page) and stay queued while the page pool is
         exhausted even after evicting cached prefixes."""
         pc = self.prefix_cache
+        if (self.mesh is not None and self._queue
+                and any(s is None for s in self._slots)):
+            now = self._mesh_now(now)
         fresh_adm: list[int] = []
         fresh_tables: list = []
         forks: dict[str, list] = {}    # entry key -> [ent, idxs, tables]
@@ -645,7 +695,11 @@ class ServingEngine:
         if fresh_adm:
             self._seed(self._fresh_row, fresh_adm, fresh_tables)
         for ent, idxs, tables in forks.values():
-            self._seed(pc.device_state(ent), idxs, tables)
+            row = pc.device_state(ent)
+            if self.mesh is not None:
+                from repro_torch.parallel import full_tensors
+                row = full_tensors(row)
+            self._seed(row, idxs, tables)
 
     def _plan_prefill(self) -> list[tuple[int, int]]:
         """Token-budget packer: split this step's prompt-token budget
@@ -858,8 +912,33 @@ class ServingEngine:
         empty). The sequential loop runs one packed prefill chunk, then
         one batched decode whose tokens it waits for; the overlapped loop
         runs one turn of its pipeline (module docstring)."""
-        if self.overlap:
-            return self._step_overlap()
+        with self._whole_pools():
+            if self.overlap:
+                return self._step_overlap()
+            return self._step_sequential()
+
+    @contextlib.contextmanager
+    def _whole_pools(self):
+        """Under a mesh: the pools (and the paged KV's page pools) as full
+        local tensors within, placed back with their placements after.
+        Without one, nothing."""
+        if self.mesh is None:
+            yield
+            return
+        from repro_torch.parallel import full_tensors, place_tree
+        self.pool = full_tensors(self.pool)
+        self.staging = full_tensors(self.staging)
+        if self._paged:
+            self._pages = full_tensors(self._pages)
+        try:
+            yield
+        finally:
+            self.pool = place_tree(self.pool, self._pool_shardings)
+            self.staging = place_tree(self.staging, self._pool_shardings)
+            if self._paged:
+                self._pages = place_tree(self._pages, self._page_shardings)
+
+    def _step_sequential(self) -> list[RequestResult]:
         finished: list[RequestResult] = []
         self._flush_freed()
         self._admissions(self._now())
@@ -1029,12 +1108,14 @@ class ServingEngine:
         every token produced so far is on the host. Returns the newly
         finished results; ``[]`` on the sequential engine."""
         finished: list[RequestResult] = []
-        while self._inflight is not None or self._pending_merge is not None:
-            self._retire(finished)
-            first = self._merge_pending()
-            if first is not None:
-                self._inflight = {"first": first, "decode": None,
-                                  "seq": first.seq}
+        with self._whole_pools():
+            while (self._inflight is not None
+                   or self._pending_merge is not None):
+                self._retire(finished)
+                first = self._merge_pending()
+                if first is not None:
+                    self._inflight = {"first": first, "decode": None,
+                                      "seq": first.seq}
         return finished
 
     def _done(self, slot: _Slot) -> bool:

@@ -378,7 +378,10 @@ def snapshot_to_host(tree) -> HostSnapshot:
     """Demote a device snapshot: each CUDA leaf copied into a pinned
     host tensor with ``non_blocking=True`` on the current stream, then an
     event recorded. Nothing waits. A CPU snapshot (an engine on the CPU)
-    is already in host memory and stays as it is."""
+    is already in host memory and stays as it is. A snapshot promoted
+    onto a mesh (DTensor leaves) is gathered whole first."""
+    from repro_torch.parallel.sharding import full_tensors
+    tree = full_tensors(tree)
     event = None
     dev = tree["pos"].device
     if dev.type == "cuda":
@@ -391,9 +394,21 @@ def snapshot_to_host(tree) -> HostSnapshot:
     return HostSnapshot(tree, event)
 
 
-def snapshot_to_device(snap: HostSnapshot, device: torch.device):
+def snapshot_to_device(snap: HostSnapshot, device: torch.device,
+                       mesh=None):
     """Promote a demoted snapshot back to ``device``: pinned to CUDA
     copies with ``non_blocking=True`` on the current stream, enqueued
-    behind the demotion's copies. Nothing waits."""
-    return slot_ops.tree_slot_map(
+    behind the demotion's copies. Nothing waits. With a ``mesh`` (a
+    ``DeviceMesh``, the engine's) the snapshot comes back as DTensors
+    with the pools' placements, ``serve_state_specs`` of its own
+    one-row tree: the b = 1 slot dim replicates where the DP axes have
+    more than one rank. Each rank keeps its slice of the full value it
+    holds; nothing is communicated."""
+    tree = slot_ops.tree_slot_map(
         lambda t, axis: t.to(device, non_blocking=True), snap.tree)
+    if mesh is None:
+        return tree
+    from repro_torch.parallel.sharding import (make_shardings, place_tree,
+                                               serve_state_specs)
+    return place_tree(tree, make_shardings(serve_state_specs(tree, mesh),
+                                           mesh))

@@ -302,3 +302,188 @@ def w_launcher(rank, world, argv):
             "state": {k: t.full_tensor() for k, t in
                       flatten({"params": out["params"],
                                "opt": out["opt"]})}}
+
+
+# -- the serving half (ServingEngine(mesh=), serve --mesh-*) ---------------
+
+# (arch, kind, overlap) of the engine runs on a mesh; granite-moe's MoE
+# layers run with dispatch_spec set on the mesh's axes
+SERVE_RUNS = [("smollm-135m", "darkformer", False),
+              ("smollm-135m", "darkformer", True),
+              ("smollm-135m", "exact", False),
+              ("smollm-135m", "exact", True),
+              ("granite-moe-3b-a800m", None, True)]
+
+
+def serve_cfg(arch, kind, mesh=None):
+    """The reduced ``arch`` under ``kind`` (None: its own), kernels on
+    (their plain versions on the CPU); with ``mesh``, MoE's
+    ``dispatch_spec`` on its axes."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.parallel import dp_axes
+
+    cfg = configs.get_config(arch, reduced=True, use_kernel=True)
+    if kind:
+        cfg = configs.darkify(cfg, kind, cfg.attn.num_features)
+    if mesh is not None and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch_spec=(dp_axes(mesh), "model")))
+    return cfg
+
+
+def serve_requests(vocab, n=6, seed=0, prefix=(), gap=0.0):
+    """``n`` greedy requests with pinned uids (6000 + i), prompts of 4-20
+    tokens after ``prefix``, 3-8 new tokens, request i arriving at
+    ``i * gap`` s."""
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(prompt=list(prefix) + rng.integers(
+        0, vocab, int(rng.integers(4, 21))).tolist(),
+        max_new_tokens=int(rng.integers(3, 9)), uid=6000 + i,
+        arrival_time=i * gap)
+        for i in range(n)]
+
+
+# timed arrivals: one every ARRIVAL_GAP s on a clock that reads CLOCK_DT
+# s more at each reading; rank r of the mesh engine runs its clock
+# 1 + r * CLOCK_DRIFT times as fast as the first rank's
+ARRIVAL_GAP, CLOCK_DT, CLOCK_DRIFT = 0.3, 0.05, 0.5
+
+
+def reading_clock(eng, rate=1.0):
+    """Give ``eng`` a clock that reads ``rate * CLOCK_DT`` more at each
+    reading: a deterministic stand-in for wall time, on which ranks with
+    different rates disagree about the step a request arrives in."""
+    import itertools
+
+    n = itertools.count()
+    eng._t0 = 0.0                  # run()'s clock jumps then change nothing
+    eng._now = lambda: next(n) * CLOCK_DT * rate
+    return eng
+
+
+def serve_streams(params, cfg, *, overlap=False, mesh=None, cache=None,
+                  reqs=None, slots=3, engine=None):
+    """{uid: tokens} of ``reqs`` (default :func:`serve_requests`) through
+    a ``ServingEngine`` on the CPU (or through ``engine``)."""
+    from repro_torch.serving import ServingEngine
+
+    eng = engine or ServingEngine(
+        params, cfg, max_slots=slots, max_len=64, chunk_tokens=8, seed=0,
+        overlap=overlap, mesh=mesh, prefix_cache=cache, device="cpu")
+    for r in reqs or serve_requests(cfg.vocab):
+        eng.submit(r)
+    return {r.uid: list(r.tokens) for r in eng.run()}
+
+
+def placement_report(tree, mesh):
+    """[(path, placements as its serve_state_specs say, each local
+    shape as its spec gives)] for each leaf of a DTensor serve-state
+    tree: every entry should read (path, True, True)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel import (make_shardings, serve_state_specs,
+                                      sharding)
+    want = dict(sharding._leaves_with_path(make_shardings(
+        serve_state_specs(tree, mesh), mesh)))
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    out = []
+    for path, t in sharding._leaves_with_path(tree):
+        ok = isinstance(t, DTensor) and \
+            tuple(t.placements) == want[path].placements
+        local = ok and tuple(t.to_local().shape) == spec_local_shape(
+            tuple(t.shape), want[path].spec, sizes)
+        out.append((path, ok, local))
+    return out
+
+
+def w_serve_mesh(rank, world, shape):
+    """Every run of :data:`SERVE_RUNS` through an engine on a ``shape``
+    mesh: its streams and both pools' placement reports after the run;
+    then the snapshot round trip: a primed cache-on engine (darkformer,
+    and exact on paged KV) whose entries are demoted to the host tier
+    before the sharers run, so that the mesh-aware promotion serves
+    their forks."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.serving import PrefixCacheConfig, Request
+    from repro_torch.serving import prefix_cache as pcache
+    from repro_torch.serving import ServingEngine
+
+    mesh = make_local_mesh(*shape, device_type="cpu")
+    out = {}
+    for arch, kind, overlap in SERVE_RUNS:
+        cfg = serve_cfg(arch, kind, mesh)
+        params = lm.init_params(cfg, seed=0, device="cpu")
+        eng = ServingEngine(params, cfg, max_slots=3, max_len=64,
+                            chunk_tokens=8, seed=0, overlap=overlap,
+                            mesh=mesh, device="cpu")
+        out[(arch, kind, overlap)] = {
+            "streams": serve_streams(params, cfg, engine=eng),
+            "placements": placement_report(eng.pool, mesh)
+            + placement_report(eng.staging, mesh)}
+    # timed arrivals on clocks that disagree across ranks
+    cfg = serve_cfg("smollm-135m", "darkformer")
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    for overlap in (False, True):
+        eng = reading_clock(ServingEngine(
+            params, cfg, max_slots=3, max_len=64, chunk_tokens=8, seed=0,
+            overlap=overlap, mesh=mesh, device="cpu"),
+            1 + rank * CLOCK_DRIFT)
+        reqs = serve_requests(cfg.vocab, gap=ARRIVAL_GAP)
+        streams = serve_streams(params, cfg, engine=eng, reqs=reqs)
+        out[("timed", overlap)] = {"streams": streams,
+                                   "steps": eng.stats["decode_steps"]}
+    # MoE's pin on DTensor (B, E, C, d) buffers: placements and values
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.models import layers
+    moe = serve_cfg("granite-moe-3b-a800m", None, mesh).moe
+    x = torch.arange(4 * 4 * 2 * 3, dtype=torch.float32).reshape(4, 4, 2, 3)
+    xd = distribute_tensor(x, mesh, [Replicate()] * mesh.ndim)
+    pins = [layers._pin(xd, moe, e) for e in (True, False)]
+    out["pin"] = {"placements": [[str(p) for p in t.placements]
+                                 for t in pins],
+                  "equal": all(torch.equal(t.full_tensor(), x)
+                               for t in pins),
+                  "plain_is_identity": layers._pin(x, moe, True) is x}
+    pc = PrefixCacheConfig(block_tokens=8, page_size=8)
+    for kind in ("darkformer", "exact"):
+        cfg = serve_cfg("smollm-135m", kind)
+        params = lm.init_params(cfg, seed=0, device="cpu")
+        prefix = np.random.default_rng(42).integers(0, cfg.vocab,
+                                                    16).tolist()
+        eng = ServingEngine(params, cfg, max_slots=4, max_len=64,
+                            chunk_tokens=8, seed=0, mesh=mesh,
+                            prefix_cache=pc, device="cpu")
+        serve_streams(params, cfg, engine=eng, reqs=[Request(
+            prompt=prefix + [1, 2, 3], max_new_tokens=2, uid=5999)])
+        ents = list(eng.prefix_cache._entries.values())
+        for ent in ents:
+            ent.state = pcache.snapshot_to_host(ent.state)
+            ent.on_host = True
+        streams = serve_streams(params, cfg, engine=eng,
+                                reqs=serve_requests(cfg.vocab, 6, 7,
+                                                    prefix))
+        promoted = [e.state for e in ents if not e.on_host]
+        out[("snapshot", kind)] = {
+            "streams": streams, "stats": eng.stats,
+            "promoted": [placement_report(s, mesh) for s in promoted],
+            "pages_replicated": eng._pages is None or all(
+                all(p.is_replicate() for p in t.placements)
+                for t in eng._pages.values())}
+    return out
+
+
+def w_serve_cli(rank, world, argv):
+    """``serve.main(argv)`` on this group: each request's tokens, by
+    uid order (the order the CLI submitted them)."""
+    from repro_torch.launch import serve
+
+    st = serve.main(argv)
+    return {"tokens": [r.tokens for r in sorted(st["results"],
+                                                key=lambda r: r.uid)],
+            "paths": (st["prefill_path"], st["decode_path"])}

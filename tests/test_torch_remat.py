@@ -2,12 +2,13 @@
 unit of layers under ``torch.utils.checkpoint``) against the reference's
 ``jax.checkpoint`` on the CPU.
 
-For five reduced archs (recurrentgemma-2b with its ``rem`` block, MoE,
-the audio encoder): under "full" and "dots" the loss and every gradient
-equal the "none" ones bitwise, and each lies within OUT_TOL/GRAD_TOL of
-the reference's ``jax.grad`` at the same remat; the bytes kept for the
-backward (``saved_tensors_hooks``, plus the products "dots" keeps for
-the recompute) fall from "none" to "dots" to "full", and the recompute
+For six reduced archs (recurrentgemma-2b with its ``rem`` block, MoE,
+the audio encoder, rwkv6-7b's attention-free stack): under "full" and
+"dots" the loss and every gradient equal the "none" ones bitwise, and
+each lies within OUT_TOL/GRAD_TOL of the reference's ``jax.grad`` at
+the same remat; the bytes kept for the backward
+(``saved_tensors_hooks``, plus the products "dots" keeps for the
+recompute) fall from "none" to "dots" to "full", and the recompute
 under "dots" multiplies none of the kept products again. The
 linear-attention kernel's plain path runs its forward again in the
 recompute. The configs carry the reference's ``remat`` and
@@ -30,7 +31,7 @@ import _torch_arch_parity as par
 
 torch.set_num_threads(1)
 ARCHS = ["smollm-135m", "darkformer-2b", "recurrentgemma-2b",
-         "granite-moe-3b-a800m", "hubert-xlarge"]
+         "granite-moe-3b-a800m", "hubert-xlarge", "rwkv6-7b"]
 POLICIES = ("none", "full", "dots")
 
 

@@ -20,7 +20,11 @@ kernel, as the reference's block does. Tolerances:
     S, shift, cshift, pos; greedy engine streams) at
     ``tests/_torch_arch_parity.py``'s tolerances;
   * inside the port, streams across schedulers and prefix-cache forks
-    token for token.
+    token for token;
+  * the train launcher resumed from the reference's {"params", "opt"}
+    checkpoint: its losses within ``OUT_TOL`` of the reference's train
+    step, each leaf's update within ``UPDATE_RTOL`` of the reference's
+    and every param within ``PARAM_ATOL_LR`` lr.
 """
 import random
 
@@ -31,8 +35,15 @@ import pytest
 import torch
 
 import _torch_arch_parity as par
+from repro import checkpoint as jckpt
+from repro.data import SyntheticLM
+from repro.launch import steps as jsteps
 from repro.models import lm as jlm
 from repro.models import recurrent as jrec
+from repro.optim import AdamWConfig as JAdamWConfig
+from repro.optim import adamw_init as jadamw_init
+from repro.optim.schedules import cosine_warmup as jcosine_warmup
+from repro_torch import checkpoint as tckpt
 from repro_torch import bridge
 from repro_torch import configs as tcfgs
 from repro_torch.launch import serve, train
@@ -48,6 +59,14 @@ F32_TOL = dict(atol=1e-5, rtol=1e-4)
 BF16_TOL = 2 ** -7
 BF16_STATE_TOL = 1e-2
 D, H = 64, 4                   # the reduced config's width and heads
+# the launcher's three updates from the reference's checkpoint, set from
+# this test's readings: ||port update - reference update|| over
+# ||reference update|| per leaf read 4.4e-5 at most (embed), where a
+# launcher that never updates reads 1 and one with the sign flipped 2;
+# the largest element gap read 0.005 lr, where a launcher that never
+# updates reads 2.34 lr or more on every leaf
+UPDATE_RTOL = 1e-3
+PARAM_ATOL_LR = 0.05
 
 
 def test_config_fields_match_reference():
@@ -378,3 +397,49 @@ def test_clis_run_rwkv(capsys):
     assert tlm.collect_qk(out["params"], out["config"], batch) == {}
     assert tlm.whitening_calibrate(out["params"], out["config"],
                                    batch) is out["params"]
+
+
+def test_train_launcher_resumes_reference_state(tmp_path):
+    """The reference trains reduced rwkv6-7b one step and writes its
+    params and AdamW state ({"params", "opt"}, step 0). ``launch/train.py
+    --ckpt-dir`` resumes from that checkpoint and runs steps 1-3 under
+    the launcher's AdamW and cosine schedule, beside the reference's
+    train step on the same batches: each loss within ``OUT_TOL``, each
+    leaf's update (params less the loaded params) within ``UPDATE_RTOL``
+    of the reference's in norm, every param within ``PARAM_ATOL_LR`` lr,
+    and the launcher's final checkpoint at step 3."""
+    jcfg, _, jparams, _ = par.setup(ARCH)
+    steps, lr, warmup, b, l = 4, 3e-3, 2, 2, 24
+    jopt_cfg = JAdamWConfig(lr=lr)
+    jstep = jax.jit(jsteps.make_train_step(
+        jcfg, jopt_cfg, jcosine_warmup(lr, warmup, steps)))
+    jopt = jadamw_init(jparams, jopt_cfg)
+    data = SyntheticLM(jcfg.vocab, l, b, seed=0)
+    jparams, jopt, _ = jstep(jparams, jopt, dict(data.batch(0)),
+                             jnp.int32(0))
+    loaded = par.flat_np(jparams)
+    ck = tmp_path / "ck"
+    jckpt.save_checkpoint(str(ck), 0, {"params": jparams, "opt": jopt})
+    out = train.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                      "--steps", str(steps), "--batch", str(b), "--seq",
+                      str(l), "--lr", str(lr), "--warmup", str(warmup),
+                      "--log-every", "1", "--ckpt-dir", str(ck),
+                      "--ckpt-every", str(steps)])
+    losses = []
+    for s in range(1, steps):
+        jparams, jopt, m = jstep(jparams, jopt, dict(data.batch(s)),
+                                 jnp.int32(s))
+        losses.append(float(m["loss"]))
+    assert [m["step"] for m in out["metrics"]] == [1, 2, 3]
+    np.testing.assert_allclose([m["loss"] for m in out["metrics"]],
+                               losses, **par.OUT_TOL)
+    exp = par.flat_np(jparams)
+    for path, t in flatten(out["params"]):
+        got, want = t.numpy(), exp[path]
+        ref_update = want - loaded[path]
+        gap = np.linalg.norm(got - want) / np.linalg.norm(ref_update)
+        assert gap <= UPDATE_RTOL, (path, gap)
+        np.testing.assert_allclose(got, want, err_msg=path, rtol=0,
+                                   atol=PARAM_ATOL_LR * lr)
+    assert int(out["opt"]["count"]) == int(jopt["count"]) == steps
+    assert tckpt.all_steps(str(ck)) == [0, steps - 1]
