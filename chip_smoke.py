@@ -264,7 +264,19 @@ Phases, each printed as a JSON line:
      placements; phase 3e's traffic at ``prefill_rows=1`` through a
      cache-on engine on the mesh whose snapshots are demoted to the
      host before it, forks served by the mesh-aware promotion, streams
-     equal to a cache-less engine's; each part with its seconds.
+     equal to a cache-less engine's; each part with its seconds; (e) on
+     (c)'s group, the ZeRO-3 step (params, gradients and AdamW state as
+     shards, each leaf gathered where the model uses it) against the
+     plain step, 4 steps each: the first two equal to (c)'s plain ones
+     (bitwise where (c)'s two plain runs are), ms a step, peak memory,
+     gathers a step (2 x 30 layers x 7 sharded leaves + the tied
+     embedding twice) and B5 = 60 a step on both;
+  13. the reference's two examples in the port on the card:
+     ``examples/torch_quickstart.py`` (60 steps, then prefill and 12
+     greedy decode steps; the loss at step 59 below step 0's) and
+     ``examples/torch_long_context_serving.py`` (contexts 1 024, 8 192,
+     65 536: the PRF state's bytes equal, the KV cache's linear), each
+     kernel's launches and the seconds of each.
 Then the kernels line (all seven kernels: launches on their path, max
 error, time and device time, prf_fused_decode's and prf_decode_step's
 cold beside their warm ones, plain time,
@@ -273,7 +285,8 @@ linear_attention_causal, linear_attention_carry and prf_featmap, which
 run on the tensor cores, at 495 TFLOP/s of TF32; B1's and B2's launches
 in phase 3e's, each phase 7 model's and phase 8's serving run beside,
 and every kernel's in phase 9's training and serving, in phase 10, in
-phase 10b, in phase 11 by arch and in phase 12, ``launches_runtime``)
+phase 10b, in phase 11 by arch, in phase 12, ``launches_runtime``, and
+in phase 13, ``launches_examples``)
 and, last, the
 ``{"ok": true, ...}`` line. Exits non-zero, without that line, when there is no CUDA device
 or any phase fails. Imports neither JAX nor the reference package.
@@ -3779,8 +3792,10 @@ def phase_modalities(torch, dev, counters):
 # 4, clean and with a failure injected before step 6 (restored from step
 # 3's checkpoint: steps 4 and 5 run again, 14 steps in all); (b) one
 # step's loss and gradients under each remat policy; (c) the mesh path on
-# a single-rank NCCL group
+# a single-rank NCCL group; (e) the ZeRO-3 step on that group, timed
 RT_STEPS, RT_CKPT_EVERY, RT_FAIL_AT, RT_RESUME_STEPS = 12, 4, 6, 16
+# (e): steps of the ZeRO-3 step and of the plain one, timed
+ZERO_STEPS = 4
 
 
 def tree_gap(torch, a, b) -> float:
@@ -4083,6 +4098,7 @@ def runtime_mesh(torch, dev, counters, ck_dir, clean_state):
                                                     constant(3e-4), mesh),
                       sp, so, True)
         launches = launch_counts(counters)
+        del sp, so
         placements_kept = all(
             hasattr(t, "placements") for _, t in flatten(
                 {"p": sharded[0], "o": sharded[1]}))
@@ -4095,7 +4111,9 @@ def runtime_mesh(torch, dev, counters, ck_dir, clean_state):
         gap = tree_gap(torch, full, plain_state)
         step_equal = held(torch, full, plain_state, gauge) and \
             sharded[2] == ref[2]
-        del full, plain_state, ref2, sp, so
+        del full, plain_state, ref2
+        zero = runtime_zero(torch, dev, counters, mesh, cfg, params, opt,
+                            opt_cfg, data, ref, gauge, plain)
 
         gen = torch.Generator(device=dev).manual_seed(3)
         g = {"a": torch.randn(4096, generator=gen, device=dev),
@@ -4162,7 +4180,116 @@ def runtime_mesh(torch, dev, counters, ck_dir, clean_state):
                 "linear_attention_causal": 6 * per_step}
         if launches != want:
             fail(f"mesh: launches {launches}, expected {want}")
-    return fields, check, launches["linear_attention_causal"]
+    return fields, check, launches["linear_attention_causal"], zero
+
+
+def runtime_zero(torch, dev, counters, mesh, cfg, params, opt, opt_cfg,
+                 data, ref, gauge, plain):
+    """Phase 12 (e), on (c)'s single-rank group: the ZeRO-3 step
+    (``steps.make_sharded_train_step``: each leaf's shard gathered where
+    the model uses it, its gradient reduce-scattered back) against the
+    plain step, ``ZERO_STEPS`` steps each from seed 0's params, each
+    side's peak device memory (reset before it) and ms a step
+    (synchronised). The sharded side's first two steps must be (c)'s
+    plain ones (``ref``: params, mu, nu and every metric), bitwise where
+    (c)'s two plain runs are (``gauge`` 0.0, :func:`held`); each
+    step gathers ``2 x layers x sharded leaves a layer`` (a unit's
+    forward and its recompute under "dots") plus the tied embedding
+    twice (input and head), and launches B5 ``b5_per_step`` (60) times,
+    as the plain step does. Returns (fields, checks, B5 launches)."""
+    import gc
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import lm
+    from repro_torch.optim.schedules import constant
+    from repro_torch.parallel import (local_batch, make_shardings,
+                                      opt_state_specs, param_specs,
+                                      place_tree, sharding)
+    from repro_torch.tree import flatten
+
+    t0 = time.perf_counter()
+    pspecs = param_specs(params, mesh, overrides=cfg.sharding_overrides)
+    split_leaves = [p for p, sp in flatten(pspecs)
+                    if p.startswith("['units']")
+                    and any(a is not None for a in sp)]
+    # a unit's leaves in its forward, again in its recompute under
+    # "full" and "dots"; the tied embedding at the input and the head
+    want_gathers = ((1 if cfg.remat == "none" else 2) * cfg.n_units
+                    * len(split_leaves) + 2)
+    batches = [to_device(local_batch(data.batch(i), mesh), dev)
+               for i in range(ZERO_STEPS)]
+
+    def run(step_fn, p, o):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(counters)
+        ms, out, kept, gathers, gathered_peak = [], [], None, [], []
+        for i, b in enumerate(batches):
+            sharding.GAUGE.reset()
+            t1 = time.perf_counter()
+            p, o, m = step_fn(p, o, b, i)
+            out.append({k: float(v) for k, v in m.items()})  # synchronises
+            ms.append((time.perf_counter() - t1) * 1e3)
+            gathers.append(sharding.GAUGE.gathers)
+            gathered_peak.append(sharding.GAUGE.peak)
+            if i == 1:
+                kept = (p, o)
+        return {"ms": ms, "metrics": out, "kept": kept,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": launch_counts(counters), "gathers": gathers,
+                "gathered_peak_bytes": gathered_peak}
+    res = {"plain": run(plain, params, opt)}
+    res["plain"].pop("kept")
+    sp = place_tree(params, make_shardings(pspecs, mesh))
+    so = place_tree(opt, make_shardings(opt_state_specs(opt, pspecs, mesh),
+                                        mesh))
+    res["sharded"] = run(steps.make_sharded_train_step(
+        cfg, opt_cfg, constant(3e-4), mesh), sp, so)
+    del sp, so
+    kp, ko = res["sharded"].pop("kept")
+    full = {"params": lm.tree_map(lambda t: t.full_tensor(), kp),
+            "opt": lm.tree_map(lambda t: t.full_tensor(), ko)}
+    plain_state = {"params": ref[0], "opt": ref[1]}
+    gap = tree_gap(torch, full, plain_state)
+    equal = (held(torch, full, plain_state, gauge)
+             and res["sharded"]["metrics"][:2] == ref[2])
+    del full, kp, ko, plain_state
+    per_step = b5_per_step(cfg)
+    fields = {
+        "steps": ZERO_STEPS, "equal_to_plain_steps": equal,
+        "gap_to_plain_steps": gap, "plain_vs_plain_gap": gauge,
+        "step_ms_p50": {k: float(np.median(r["ms"])) for k, r in res.items()},
+        "step_ms": {k: r["ms"] for k, r in res.items()},
+        "peak_gb": {k: r["peak_gb"] for k, r in res.items()},
+        "gathers_per_step": res["sharded"]["gathers"],
+        "gathers_expected": want_gathers,
+        "sharded_leaves_per_layer": len(split_leaves),
+        "gathered_peak_bytes": res["sharded"]["gathered_peak_bytes"],
+        "launches": {k: r["launches"] for k, r in res.items()},
+        "b5_expected": ZERO_STEPS * per_step,
+        "losses": {k: [m["loss"] for m in r["metrics"]]
+                   for k, r in res.items()},
+        "seconds": time.perf_counter() - t0}
+
+    def check():
+        if not equal:
+            fail(f"zero: two sharded steps {gap:.3e} from the plain ones "
+                 f"(two plain runs: {gauge:.3e})")
+        want = {**dict.fromkeys(counters, 0),
+                "linear_attention_causal": ZERO_STEPS * per_step}
+        for k, r in res.items():
+            if r["launches"] != want:
+                fail(f"zero: {k} launches {r['launches']}, expected {want}")
+        if set(res["sharded"]["gathers"]) != {want_gathers}:
+            fail(f"zero: gathers {res['sharded']['gathers']}, expected "
+                 f"{want_gathers} a step")
+        if res["plain"]["gathers"] != [0] * ZERO_STEPS:
+            fail("zero: the plain step gathered")
+    return fields, check, res["sharded"]["launches"][
+        "linear_attention_causal"] + res["plain"]["launches"][
+        "linear_attention_causal"]
 
 
 def mesh_serve(torch, dev, counters, params, cfg, reqs, mesh=None,
@@ -4322,10 +4449,11 @@ def runtime_serve_mesh(torch, dev, counters):
 
 def phase_runtime(torch, dev, counters):
     """Phase 12: training at scale: (a) :func:`runtime_supervisor`, (b)
-    :func:`runtime_remat`, (c) :func:`runtime_mesh`, and the serving
-    half of distribution, (d) :func:`runtime_serve_mesh`, one JSON line
-    each with its seconds. Returns each kernel's launches in the phase
-    (B5's in (a)-(c), B1's and B2's in (d); the others' must be 0)."""
+    :func:`runtime_remat`, (c) :func:`runtime_mesh` with (e)
+    :func:`runtime_zero` on its group, and the serving half of
+    distribution, (d) :func:`runtime_serve_mesh`, one JSON line each
+    with its seconds. Returns each kernel's launches in the phase (B5's
+    in (a)-(c) and (e), B1's and B2's in (d); the others' must be 0)."""
     import gc
     import shutil
 
@@ -4344,10 +4472,12 @@ def phase_runtime(torch, dev, counters):
     check_rem()
     gc.collect()
     torch.cuda.empty_cache()
-    mesh, check_mesh, b5_c = runtime_mesh(torch, dev, counters, ck_dir,
-                                          clean)
+    mesh, check_mesh, b5_c, (zero, check_zero, b5_e) = runtime_mesh(
+        torch, dev, counters, ck_dir, clean)
     emit({"phase": "runtime_mesh", **mesh})
     check_mesh()
+    emit({"phase": "runtime_zero", **zero})
+    check_zero()
     shutil.rmtree(ck_dir, ignore_errors=True)
     del clean
     gc.collect()
@@ -4359,35 +4489,81 @@ def phase_runtime(torch, dev, counters):
     gc.collect()
     torch.cuda.empty_cache()
     return {**serve_launches, "linear_attention_causal":
-            b5_a + b5_b + b5_c + serve_launches["linear_attention_causal"]}
+            b5_a + b5_b + b5_c + b5_e
+            + serve_launches["linear_attention_causal"]}
 
 
-# every kernel of the port: (its module, its launch counter, its CUDA
-# source, the Pallas TPU kernel it replaces)
+def run_example(name: str, argv: list) -> tuple:
+    """``examples/<name>.py``'s ``main(argv)`` in this process: (its
+    result, seconds)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    out = mod.main(argv)
+    return out, time.perf_counter() - t0
+
+
+def phase_examples(torch, dev):
+    """Phase 13: the reference's two examples in the port on the card,
+    with no arguments but the device: ``examples/torch_quickstart.py``
+    (60 steps of a 4-layer darkformer through B5, then a prefill through
+    B2 and 12 greedy decode steps through B1), its loss at step 59 below
+    step 0's; ``examples/torch_long_context_serving.py`` (reduced
+    smollm-135m, decode at contexts 1 024, 8 192 and 65 536), the PRF
+    state's bytes equal at every context and the exact KV cache's linear
+    in the context. Each example counts its own launches. Returns each
+    kernel's launches in both."""
+    qs, qs_s = run_example("torch_quickstart", ["--device", str(dev)])
+    lc, lc_s = run_example("torch_long_context_serving",
+                           ["--device", str(dev)])
+    rows = lc["rows"]
+    ctx = [r["context"] for r in rows]
+    kv = [r["kv_cache_bytes"] for r in rows]
+    prf = {r["prf_state_bytes"] for r in rows}
+    linear = (len(rows) == 3 and kv[0] < kv[1] < kv[2] and
+              (kv[2] - kv[1]) * (ctx[1] - ctx[0])
+              == (kv[1] - kv[0]) * (ctx[2] - ctx[1]))
+    losses = qs["losses"]
+    emit({"phase": "examples",
+          "quickstart": {"seconds": qs_s, "loss_0": losses[0],
+                         "loss_59": losses[-1], "steps": len(losses),
+                         "generated": qs["generated"][0].tolist(),
+                         "launches": qs["launches"]},
+          "long_context": {"seconds": lc_s, "rows": rows,
+                           "prf_state_equal": len(prf) == 1,
+                           "kv_linear": linear,
+                           "launches": lc["launches"]}})
+    if not (len(losses) == 60 and losses[-1] < losses[0]
+            and all(math.isfinite(x) for x in losses)):
+        fail(f"quickstart: losses {losses[0]} -> {losses[-1]}")
+    if len(prf) != 1 or not linear or ctx != [1024, 8192, 65536]:
+        fail(f"long context: PRF bytes {prf}, KV bytes {kv} at {ctx}")
+    return {n: qs["launches"][n] + lc["launches"][n] for n in qs["launches"]}
+
+
+# every kernel of the port (its module and launch counter:
+# ``repro_torch.kernels.COUNTERS``): (its CUDA source, the Pallas TPU
+# kernel it replaces)
 KERNELS = {
-    "prf_fused_decode": ("prf_fused_decode", "launches", "prf_fused_decode",
+    "prf_fused_decode": ("prf_fused_decode",
                          "src/repro/kernels/prf_fused_decode.py:131"),
-    "prf_fused_prefill": ("prf_fused_prefill", "launches",
-                          "prf_fused_prefill",
+    "prf_fused_prefill": ("prf_fused_prefill",
                           "src/repro/kernels/prf_fused_prefill.py:167"),
-    "prf_decode_step": ("prf_decode_step", "launches", "prf_decode_step",
+    "prf_decode_step": ("prf_decode_step",
                         "src/repro/kernels/prf_decode_step.py:56"),
-    "linear_attention_carry": ("linear_attn_scan", "carry_launches",
-                               "linear_attn_scan",
+    "linear_attention_carry": ("linear_attn_scan",
                                "src/repro/kernels/linear_attn_scan.py:158"),
-    "linear_attention_causal": ("linear_attn_scan", "launches",
-                                "linear_attn_scan",
+    "linear_attention_causal": ("linear_attn_scan",
                                 "src/repro/kernels/linear_attn_scan.py:73"),
-    "prf_featmap": ("prf_featmap", "launches", "prf_featmap",
-                    "src/repro/kernels/prf_featmap.py:51"),
-    "wkv6": ("wkv6_scan", "launches", "wkv6_scan",
-             "src/repro/kernels/wkv6_scan.py:60"),
+    "prf_featmap": ("prf_featmap", "src/repro/kernels/prf_featmap.py:51"),
+    "wkv6": ("wkv6_scan", "src/repro/kernels/wkv6_scan.py:60"),
 }
 
 
 def main() -> int:
-    import importlib
-
     # before torch loads: the caching allocator's expandable segments.
     # Phase 9's launcher run (8 x 512) fits the card alone at a 74.30 GB
     # peak, but after phases 2-8 the default allocator held 8.2-9.4 GiB
@@ -4400,11 +4576,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import COUNTERS, _build
 
-    mod = {n: importlib.import_module(f"repro_torch.kernels.{m}")
-           for n, (m, _, _, _) in KERNELS.items()}
-    counters = {n: (mod[n], KERNELS[n][1]) for n in KERNELS}
+    counters = dict(COUNTERS)
+    if counters.keys() != KERNELS.keys():
+        fail(f"kernels {sorted(counters)} against {sorted(KERNELS)}")
+    mod = {n: m for n, (m, _) in counters.items()}
     kd, kp, kds = (mod[n] for n in ("prf_fused_decode", "prf_fused_prefill",
                                     "prf_decode_step"))
     kl, kf, kw = (mod[n] for n in ("linear_attention_causal", "prf_featmap",
@@ -4471,6 +4648,7 @@ def main() -> int:
     rwkv_train = phase_rwkv_train(torch, dev, counters)
     modalities = phase_modalities(torch, dev, counters)
     runtime = phase_runtime(torch, dev, counters)
+    examples = phase_examples(torch, dev)
 
     emit({"kernels": [
         {"name": n, "route": "cuda",
@@ -4490,9 +4668,10 @@ def main() -> int:
          "launches_rwkv_train": rwkv_train[n],
          "launches_modalities": {a: m[n] for a, m in modalities.items()},
          "launches_runtime": runtime[n],
+         "launches_examples": examples[n],
          "bound_ms": timing[n]["bound_ms"],
          "bound_by": timing[n]["bound_by"], "library_ms": None}
-        for n, (_, _, src, replaces) in KERNELS.items()],
+        for n, (src, replaces) in KERNELS.items()],
         "card": card, "total_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,6 @@ without a CUDA device or when a seed's gaps exceed the limits.
 from __future__ import annotations
 
 import argparse
-import importlib
 import subprocess
 import sys
 from pathlib import Path
@@ -46,6 +45,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_train_gap_seeds: no CUDA device", file=sys.stderr)
         return 1
+    from repro_torch import kernels
     from repro_torch.kernels import linear_attn_scan as kl
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -60,9 +60,7 @@ def main() -> int:
     for seed in args.seeds:
         try:
             if args.arch == "hubert-xlarge":
-                counters = {n: (importlib.import_module(
-                    f"repro_torch.kernels.{m}"), attr) for n, (m, attr, _, _)
-                    in chip_smoke.KERNELS.items()}
+                counters = dict(kernels.COUNTERS)
                 fields, check = chip_smoke.hubert_cross_device(
                     torch, dev, counters, seed=seed)
                 chip_smoke.emit({"phase": "hubert_cross_device", **fields})

@@ -110,12 +110,10 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, target, step: Optional[int] = None):
-    """Restore into the structure of ``target`` (a nested dict of
-    tensors), each leaf cast to the target leaf's dtype and device; a
-    DTensor target leaf gives a DTensor with its mesh and placements.
-    Returns (tree, step)."""
-    from torch.distributed.tensor import DTensor
+def _restore(ckpt_dir: str, target, step: Optional[int], make):
+    """Each leaf of ``target`` read from the checkpoint on the host (its
+    shape checked) and built by ``make(key, host array, target leaf)``,
+    one leaf at a time. Returns (tree, step)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -127,26 +125,43 @@ def restore_checkpoint(ckpt_dir: str, target, step: Optional[int] = None):
     def leaf(key, t):
         if key not in payload:
             raise KeyError(f"checkpoint missing leaf {key}")
-        arr = _unpack_leaf(payload[key])
+        arr = _unpack_leaf(payload.pop(key))
         if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"shape mismatch for {key}: ckpt "
                              f"{tuple(arr.shape)} vs target "
                              f"{tuple(t.shape)}")
+        return make(key, arr, t)
+    return map_with_path(leaf, target), step
+
+
+def restore_checkpoint(ckpt_dir: str, target, step: Optional[int] = None):
+    """Restore into the structure of ``target`` (a nested dict of
+    tensors), each leaf cast to the target leaf's dtype and device; a
+    DTensor target leaf gives a DTensor with its mesh and placements
+    (each rank moving only its shard to the device). Returns (tree,
+    step)."""
+    from torch.distributed.tensor import DTensor
+
+    def make(key, arr, t):
         if isinstance(t, DTensor):
             from repro_torch.parallel.sharding import place
             return place(arr.to(t.dtype), t.device_mesh, t.placements)
         return arr.to(device=t.device, dtype=t.dtype)
-    return map_with_path(leaf, target), step
+    return _restore(ckpt_dir, target, step, make)
 
 
 def restore_to_shardings(ckpt_dir: str, target, shardings,
                          step: Optional[int] = None):
     """Elastic restore: each leaf restored as ``target``'s (its shape
-    and dtype checked against the checkpoint), then placed with its
+    and dtype checked against the checkpoint) and placed with its
     sharding from ``shardings``, a tree mirroring ``target`` of
-    ``parallel.sharding.NamedSharding`` on any ``DeviceMesh``: a
-    checkpoint written on one mesh reloads onto another. Returns (tree
-    of DTensors, step)."""
-    from repro_torch.parallel.sharding import place_tree
-    tree, step = restore_checkpoint(ckpt_dir, target, step)
-    return place_tree(tree, shardings), step
+    ``parallel.sharding.NamedSharding`` on any ``DeviceMesh``, straight
+    from the host: each rank moves only its shard to the device, so a
+    checkpoint written on one mesh reloads onto another without a whole
+    copy on any device. Returns (tree of DTensors, step)."""
+    from repro_torch.parallel.sharding import place
+    flat = dict(flatten(shardings))
+
+    def make(key, arr, t):
+        return place(arr.to(t.dtype), flat[key].mesh, flat[key].placements)
+    return _restore(ckpt_dir, target, step, make)

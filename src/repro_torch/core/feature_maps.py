@@ -1,9 +1,8 @@
 """Positive random feature (PRF) maps: config, projection draws, the
 whitening init of M, the feature maps and the decode-time projection
-precompose.
+precompose, and the trigonometric features (benchmarks only).
 
-The counterpart of ``repro.core.feature_maps`` (``trig_features``, for
-benchmarks only, waits with ROADMAP A14). The isotropic Performer kinds
+The counterpart of ``repro.core.feature_maps``. The isotropic Performer kinds
 draw W; the DARKFormer kind adds the re-embedding M (Sigma = M^T M), so
 that phi_Sigma(x) = phi_iso(Mx). Every map subtracts a stabilizer c, a
 max taken without gradient, which cancels in the attention's
@@ -18,6 +17,9 @@ import math
 from typing import Optional
 
 import torch
+
+FEATURE_KINDS = ("exact", "performer", "darkformer", "lfk", "trig",
+                 "random", "constant")
 
 # kinds with a decode-time PRF (S, z, c) state, and hence a fused path
 PRF_KINDS = ("performer", "darkformer", "lfk")
@@ -138,6 +140,18 @@ def dark_features(x: torch.Tensor, w: torch.Tensor, m_mat: torch.Tensor, *,
     x_tilde = torch.einsum("...ld,rd->...lr", x, m_mat)
     return prf_features(x_tilde, w, stabilize=stabilize,
                         shared_stabilizer=shared_stabilizer)
+
+
+def trig_features(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Trigonometric random features for the softmax kernel (§2):
+    h(x) [cos(x Wᵀ), sin(x Wᵀ)] / sqrt(m) with h(x) = exp(‖x‖²/2).
+    Unbiased but possibly negative, so attention over them is unstable;
+    no attention path takes them (``qk_features`` refuses "trig").
+    x: (..., L, d), w: (m, d) -> (..., L, 2m). For benchmarks only."""
+    proj = torch.einsum("...ld,md->...lm", x, w)
+    h = torch.exp(0.5 * torch.sum(x * x, dim=-1, keepdim=True))
+    feats = torch.cat([torch.cos(proj), torch.sin(proj)], dim=-1)
+    return h * feats / math.sqrt(w.shape[0])
 
 
 def qk_features(q: torch.Tensor, k: torch.Tensor, w: torch.Tensor,

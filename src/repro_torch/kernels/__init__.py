@@ -27,6 +27,9 @@ The two-stage kernels (``prf_decode_step`` and the carried scan) and
 first use (``_build``); importing this package needs neither nvcc nor a
 GPU.
 """
+from repro_torch.kernels import (linear_attn_scan, prf_decode_step,
+                                 prf_featmap, prf_fused_decode,
+                                 prf_fused_prefill, wkv6_scan)
 from repro_torch.kernels.linear_attn_scan import (
     linear_attention_causal, linear_attention_prefill_chunk)
 from repro_torch.kernels.prf_decode_step import linear_attention_decode_step
@@ -34,6 +37,30 @@ from repro_torch.kernels.prf_fused_decode import fused_prf_decode
 from repro_torch.kernels.prf_fused_prefill import fused_prf_prefill
 from repro_torch.kernels.wkv6_scan import wkv6
 
-__all__ = ["fused_prf_decode", "fused_prf_prefill", "linear_attention_causal",
+# each kernel's launch counter: (module, attribute), which its wrapper
+# adds one to where it launches the kernel (never on a CPU tensor)
+COUNTERS = {
+    "prf_fused_decode": (prf_fused_decode, "launches"),
+    "prf_fused_prefill": (prf_fused_prefill, "launches"),
+    "prf_decode_step": (prf_decode_step, "launches"),
+    "linear_attention_carry": (linear_attn_scan, "carry_launches"),
+    "linear_attention_causal": (linear_attn_scan, "launches"),
+    "prf_featmap": (prf_featmap, "launches"),
+    "wkv6": (wkv6_scan, "launches"),
+}
+
+
+def launch_counts() -> dict:
+    """{kernel: launches} of the seven kernels since their last reset."""
+    return {n: getattr(mod, attr) for n, (mod, attr) in COUNTERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
+
+
+__all__ = ["COUNTERS", "fused_prf_decode", "fused_prf_prefill",
+           "launch_counts", "linear_attention_causal",
            "linear_attention_decode_step", "linear_attention_prefill_chunk",
-           "wkv6"]
+           "reset_launch_counts", "wkv6"]

@@ -1,17 +1,26 @@
-"""Step builders for the training launcher (port of the training half of
-``repro.launch.steps``), and the data-parallel step over a mesh.
+"""Step builders for the launchers (port of ``repro.launch.steps``):
+the train, eval, prefill and decode steps, and the sharded train step
+over a mesh.
 
-:func:`make_sharded_train_step` keeps params and optimizer state as
-DTensors with their placements between steps, but computes on full
-local tensors: each rank gathers every leaf, runs the port's own step
-arithmetic (kernels included) on its shard of the batch, and reduces the
-gradients over the DP axes. So every kernel sees plain tensors, and the
-step returns what the unsharded step returns on the whole batch: MoE's
-load-balancing term too, from the router's statistics all-reduced over
-the DP axes in every MoE layer (under remat once more in the
-recompute). It
-does not shard a device's compute or memory (no FSDP or tensor-parallel
-execution): each rank holds the full params while it steps.
+:func:`make_sharded_train_step` runs ZeRO-3 over the sharding rule
+tables: params, gradients and AdamW's μ and ν stay this rank's shards
+(DTensors placed by ``parallel.sharding.param_specs`` and
+``opt_state_specs``) between steps and during one. The model gathers a
+leaf whole only where it uses it (``parallel.sharding.LocalShard``: a
+layer's leaves inside its remat unit, so under "full" and "dots" the
+recompute gathers them again), and each gather's backward
+reduce-scatters the gradient back to the shard, averaged over the DP
+axes with each rank's loss weighted by its share of the batch;
+replicated leaves (norm scales, the feature params, the router, RWKV's
+``mu`` and ``u``) keep the DP all-reduce. AdamW updates the shards,
+its clip norm and factored ν made global. Kernels see plain tensors.
+The step returns what the unsharded step returns on the whole batch:
+MoE's load-balancing term too, from the router's statistics
+all-reduced over the DP axes in every MoE layer (under remat once more
+in the recompute). Compute is not sharded over ``model``: the ranks of
+one ``model`` group run the same batch rows on the same gathered
+weights (tensor-parallel compute, activations split over ``model``, is
+later work).
 """
 from __future__ import annotations
 
@@ -27,20 +36,30 @@ from repro_torch.optim import AdamWConfig, adamw_update
 from repro_torch.tree import flatten, map_with_path, tree_map
 
 
-def make_grad_fn(cfg: lm.ModelConfig, freeze: Optional[Callable] = None):
+def _plain_input(t: torch.Tensor, requires_grad: bool):
+    t = t.detach().requires_grad_(requires_grad)
+    return t, t
+
+
+def make_grad_fn(cfg: lm.ModelConfig, freeze: Optional[Callable] = None,
+                 leaf_input: Callable = _plain_input):
     """Returns grad_fn(params, batch, step, gen=None, loss_scale=None) ->
     (grads, metrics): the loss's gradient at every leaf (zeros where
     ``freeze`` holds or no path reaches the loss), the loss multiplied
     by ``loss_scale`` (a 0-d tensor) when given. Arguments as
-    :func:`make_train_step`'s."""
+    :func:`make_train_step`'s. ``leaf_input(leaf, requires_grad)`` gives
+    (what the model reads in the leaf's place, the tensor differentiated):
+    the leaf itself, detached, by default."""
 
     def grad_fn(params, batch, step, gen: Optional[torch.Generator] = None,
                 loss_scale: Optional[torch.Tensor] = None):
-        inputs = map_with_path(lambda p, t: t.detach().requires_grad_(
-            not (freeze and freeze(p))), params)
+        pairs = map_with_path(lambda p, t: leaf_input(
+            t, not (freeze and freeze(p))), params)
+        inputs = tree_map(lambda pr: pr[1], pairs)
         if gen is None and cfg.attn.kind == "random":
             gen = torch.Generator().manual_seed(int(step))
-        loss, metrics = lm.loss_fn(inputs, cfg, batch, gen)
+        loss, metrics = lm.loss_fn(tree_map(lambda pr: pr[0], pairs), cfg,
+                                   batch, gen)
         if loss_scale is not None:
             loss = loss * loss_scale
         diff = [(p, t) for p, t in flatten(inputs) if t.requires_grad]
@@ -82,26 +101,46 @@ def make_train_step(cfg: lm.ModelConfig, opt_cfg: AdamWConfig,
     return train_step
 
 
+def _shard_input(t: torch.Tensor, requires_grad: bool):
+    """A DTensor leaf split along some dim as its local shard, which the
+    model gathers where it uses it; any other leaf (replicated, or a
+    plain full tensor) as itself."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel.sharding import LocalShard, shard_dims
+    local = (t.to_local() if isinstance(t, DTensor) else t).detach()
+    local.requires_grad_(requires_grad)
+    dims = shard_dims(t)
+    return (LocalShard(local, t.device_mesh, dims) if any(dims)
+            else local), local
+
+
 def make_sharded_grad_fn(cfg: lm.ModelConfig, mesh,
                          freeze: Optional[Callable] = None):
     """Returns grad_fn(params, batch, step, gen=None) -> (grads, metrics)
-    on every rank of ``mesh``: ``params`` full plain tensors, ``batch``
-    this rank's shard (``parallel.sharding.local_batch``). Each rank's
-    loss is weighted by its share of the loss denominator summed over
-    the DP axes (the masked positions: ``lm.loss_weights``) and the
-    gradients are averaged over the DP axes (``compressed_psum_mean``),
-    so grads and metrics are the whole batch's, equal on every rank.
-    MoE's load-balancing term takes the router's per-expert means (me,
-    ce) over the whole batch: each MoE layer all-reduces them over the
-    DP axes (the ranks hold equal row counts), and me keeps this rank's
-    own gradient path, divided by the loss scale, so the DP mean of the
-    gradients is the whole batch's."""
+    on every rank of ``mesh``: ``batch`` this rank's shard
+    (``parallel.sharding.local_batch``), ``params`` DTensors placed on
+    ``mesh`` or full plain tensors. Each rank's loss is weighted by its
+    share of the loss denominator summed over the DP axes (the masked
+    positions: ``lm.loss_weights``). A leaf that some dim's placement
+    splits enters the model as its local shard, gathered where it is
+    used, and its gradient comes back as the shard's, reduce-scattered
+    and averaged over the DP axes by the gather's backward
+    (``parallel.sharding.grad_to_shard``); the other leaves' gradients
+    are averaged over the DP axes (``compressed_psum_mean``). So grads
+    are this rank's shards of the whole batch's gradients (the whole
+    gradient for a replicated or plain leaf), and metrics the whole
+    batch's, equal on every rank. MoE's load-balancing term takes the
+    router's per-expert means (me, ce) over the whole batch: each MoE
+    layer all-reduces them over the DP axes (the ranks hold equal row
+    counts), and me keeps this rank's own gradient path, divided by the
+    loss scale, so the DP mean of the gradients is the whole batch's."""
     import torch.distributed as dist
 
     from repro_torch.parallel.compression import compressed_psum_mean
-    from repro_torch.parallel.sharding import dp_axes
+    from repro_torch.parallel.sharding import dp_axes, shard_dims
 
-    local = make_grad_fn(cfg, freeze)
+    local = make_grad_fn(cfg, freeze, leaf_input=_shard_input)
     dp = dp_axes(mesh)
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     n_dp = math.prod(sizes[a] for a in dp)
@@ -125,7 +164,10 @@ def make_sharded_grad_fn(cfg: lm.ModelConfig, mesh,
               else contextlib.nullcontext()):
             grads, metrics = local(params, batch, step, gen,
                                    loss_scale=scale)
-        grads, _ = compressed_psum_mean(grads, dp, "none", mesh=mesh)
+        split = {p for p, t in flatten(params) if any(shard_dims(t))}
+        whole = {p: g for p, g in flatten(grads) if p not in split}
+        whole, _ = compressed_psum_mean(whole, dp, "none", mesh=mesh)
+        grads = map_with_path(lambda p, g: whole.get(p, g), grads)
         metrics, _ = compressed_psum_mean(
             {k: v * scale for k, v in metrics.items()}, dp, "none",
             mesh=mesh)
@@ -140,28 +182,34 @@ def make_sharded_train_step(cfg: lm.ModelConfig, opt_cfg: AdamWConfig,
     """Returns train_step(params, opt_state, batch, step, gen=None) ->
     (params, opt_state, metrics) over ``mesh`` (a ``DeviceMesh``; every
     rank calls it). ``params`` and ``opt_state`` are DTensor trees
-    (``parallel.sharding.place_tree``), ``batch`` this rank's shard. Every
-    leaf is gathered whole, :func:`make_sharded_grad_fn` gives the whole
-    batch's gradients, AdamW updates the full leaves on every rank, and
-    each new leaf goes back with its placements."""
+    (``parallel.sharding.place_tree``), ``batch`` this rank's shard.
+    :func:`make_sharded_grad_fn` gives this rank's shards of the whole
+    batch's gradients, AdamW updates the local shards (its clip norm
+    and factored ν global over the mesh), and each new shard goes back
+    as a DTensor with its leaf's placements, with no communication: no
+    rank holds a whole leaf between steps, and one only while the model
+    uses it (module docstring)."""
     from torch.distributed.tensor import DTensor
 
-    from repro_torch.parallel.sharding import place
+    from repro_torch.parallel.sharding import shard_dims
 
     grad_fn = make_sharded_grad_fn(cfg, mesh, freeze)
 
-    def full(t):
-        return t.full_tensor() if isinstance(t, DTensor) else t
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
 
     def back(new, old):
-        return place(new, old.device_mesh, old.placements)
+        return DTensor.from_local(new, old.device_mesh, old.placements,
+                                  run_check=False, shape=old.shape,
+                                  stride=old.stride())
 
     def train_step(params, opt_state, batch, step,
                    gen: Optional[torch.Generator] = None):
-        p_full, o_full = tree_map(full, params), tree_map(full, opt_state)
-        grads, metrics = grad_fn(p_full, batch, step, gen)
-        new_p, new_o, om = adamw_update(p_full, grads, o_full, opt_cfg,
-                                        schedule(step))
+        grads, metrics = grad_fn(params, batch, step, gen)
+        new_p, new_o, om = adamw_update(
+            tree_map(local, params), grads, tree_map(local, opt_state),
+            opt_cfg, schedule(step), mesh=mesh,
+            dims=tree_map(shard_dims, params))
         return (tree_map(back, new_p, params),
                 tree_map(back, new_o, opt_state), {**metrics, **om})
 
@@ -174,6 +222,24 @@ def make_eval_step(cfg: lm.ModelConfig):
             _, metrics = lm.loss_fn(params, cfg, batch)
         return metrics
     return eval_step
+
+
+def make_prefill_step(cfg: lm.ModelConfig, max_len: int):
+    """Returns prefill_step(params, batch) -> (logits, state): the
+    whole prompt ``batch["tokens"]`` (B, L) prefilled into a fresh serve
+    state of ``max_len`` positions (``lm.prefill``)."""
+    def prefill_step(params, batch):
+        return lm.prefill(params, cfg, batch, max_len)
+    return prefill_step
+
+
+def make_decode_step(cfg: lm.ModelConfig):
+    """Returns serve_step(params, token, state) -> (logits, state): one
+    token (B,) a row (``lm.decode_step``, which advances ``state`` in
+    place and returns it)."""
+    def serve_step(params, token, state):
+        return lm.decode_step(params, cfg, token, state)
+    return serve_step
 
 
 def qkv_only_freeze(path: str) -> bool:

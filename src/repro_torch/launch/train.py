@@ -20,12 +20,15 @@ it resumes from the directory's latest checkpoint, checkpoints every
 checkpoint when a step fails (``--simulate-failure-at N`` injects one
 failure before step N), stops after checkpointing on SIGTERM/SIGINT,
 and reports the steps its ``StragglerMonitor`` flagged. A
-``--mesh-data`` x ``--mesh-model`` mesh above 1 x 1 runs the
-data-parallel step of ``launch.steps.make_sharded_train_step`` over the
-process group that ``torchrun`` describes (NCCL for ``--device cuda``,
-gloo for ``cpu``): params and optimizer state as DTensors by the
-sharding rules, each rank on its shard of the batch. At 1 x 1 nothing is
-placed and no group is made.
+``--mesh-data`` x ``--mesh-model`` mesh above 1 x 1 runs the ZeRO-3
+step of ``launch.steps.make_sharded_train_step`` over the process group
+that ``torchrun`` describes (NCCL for ``--device cuda``, gloo for
+``cpu``), each rank on its shard of the batch: params are drawn on the
+host and placed leaf by leaf, each rank moving only its shard to its
+device, and AdamW's state is made as shards, so a device holds its
+shards of params, gradients and state by the sharding rules and a
+leaf whole only while the model uses it. At 1 x 1 nothing is placed
+and no group is made.
 
 Examples:
   # smollm-135m at full width on the GPU
@@ -82,6 +85,7 @@ from repro_torch.optim.schedules import cosine_warmup
 from repro_torch.parallel import sharding
 from repro_torch.runtime import (PreemptionHandler, StragglerMonitor,
                                  TrainSupervisor)
+from repro_torch.tree import tree_map
 
 KINDS = ("exact", "performer", "darkformer", "lfk", "random", "constant")
 
@@ -181,7 +185,9 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> dict:
             if args.mesh_data * args.mesh_model > 1 else None)
     rank0 = mesh is None or dist.get_rank() == 0
 
-    params = lm.init_params(cfg, seed=args.seed, device=args.device)
+    # under a mesh drawn on the host: no device holds the whole tree
+    params = lm.init_params(cfg, seed=args.seed, device=args.device
+                            if mesh is None else "cpu")
     if args.finetune_from:
         # checkpoints hold {"params", "opt"}: restore the params only, the
         # finetune starts a fresh optimizer
@@ -191,20 +197,21 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> dict:
         if rank0:
             print(f"finetuning from {args.finetune_from} @ step {step0}")
     opt_cfg = AdamWConfig(lr=args.lr)
-    opt_state = adamw_init(params, opt_cfg)
     schedule = cosine_warmup(args.lr, args.warmup, args.steps)
     freeze = steps_lib.qkv_only_freeze if args.qkv_only else None
     if mesh is None:
+        opt_state = adamw_init(params, opt_cfg)
         train_step = steps_lib.make_train_step(cfg, opt_cfg, schedule,
                                                freeze)
     else:
         pspecs = sharding.param_specs(params, mesh, moe=cfg.moe is not None,
                                       overrides=cfg.sharding_overrides)
-        params, opt_state = (
-            sharding.place_tree(params, sharding.make_shardings(pspecs,
-                                                                mesh)),
-            sharding.place_tree(opt_state, sharding.make_shardings(
-                sharding.opt_state_specs(opt_state, pspecs, mesh), mesh)))
+        opt_shapes = adamw_init(tree_map(
+            lambda t: t.to("meta"), params), opt_cfg)
+        params = sharding.place_tree(params, sharding.make_shardings(
+            pspecs, mesh))
+        opt_state = sharding.zeros_placed(opt_shapes, sharding.make_shardings(
+            sharding.opt_state_specs(opt_shapes, pspecs, mesh), mesh))
         train_step = steps_lib.make_sharded_train_step(
             cfg, opt_cfg, schedule, mesh, freeze)
     data = make_data(cfg, args)

@@ -53,6 +53,7 @@ from repro_torch.models import attention_block as ab
 from repro_torch.models import layers as ll
 from repro_torch.models import recurrent as rec
 from repro_torch.models import remat as remat_lib
+from repro_torch.parallel.sharding import gathered
 from repro_torch.tree import tree_map
 
 # the reference's remat keys and the JAX policy each names. The port
@@ -500,9 +501,9 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
         x = batch["frames"].to(dt)
         if "mask" in batch:
             x = torch.where(batch["mask"][..., None],
-                            params["mask_embed"].to(dt), x)
+                            gathered(params["mask_embed"]).to(dt), x)
         return x
-    tok = params["embed"][batch["tokens"]]
+    tok = gathered(params["embed"])[batch["tokens"]]
     if cfg.embed_scale:
         tok = tok * torch.tensor(cfg.d_model ** 0.5, dtype=tok.dtype)
     if cfg.modality == "vlm":
@@ -511,8 +512,10 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 
 
 def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = ll.apply_norm(cfg.norm_kind, params["final_norm"], x)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    x = ll.apply_norm(cfg.norm_kind, gathered(params["final_norm"]), x)
+    head = gathered(params["embed"] if cfg.tie_embeddings
+                    else params["lm_head"])
+    head = head.T if cfg.tie_embeddings else head
     logits = (x @ head.to(x.dtype)).float()
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap
@@ -542,7 +545,16 @@ def forward_train(params, cfg: ModelConfig, batch: dict,
     i's (L, L) logits from :func:`baseline_draws` of ``gen``; the other
     kinds read none. Each unit of ``len(block_pattern)`` layers runs
     under ``cfg.remat`` (:func:`_remat`); under "full" and "dots" its
-    forward runs again in the backward, kernel launches included."""
+    forward runs again in the backward, kernel launches included.
+
+    Params may be a sharded train step's :class:`parallel.sharding.
+    LocalShard` leaves (``launch.steps.make_sharded_train_step``): each
+    is gathered whole where it is used, a layer's leaves inside the
+    function that remat wraps, so under "full" and "dots" the recompute
+    gathers them again and no full weight stays alive from a unit's
+    forward to its backward (under "none" each layer's stay until its
+    backward, as its activations do; the remainder layers run
+    unwrapped, so theirs stay too). Plain tensors pass through."""
     _check_servable(cfg)
     x = _embed_inputs(params, cfg, batch)
     draws = (baseline_draws(cfg, x.shape[1], gen, x.device)
@@ -555,7 +567,7 @@ def forward_train(params, cfg: ModelConfig, batch: dict,
         for li in range(lo, hi):
             kind, bp = blocks[li][:2]
             x, aux_l = _apply_block(
-                bp, x, cfg, kind, mode="train",
+                gathered(bp), x, cfg, kind, mode="train",
                 draw=None if draws is None else draws[li])
             if aux_l is not None:
                 aux = aux + aux_l

@@ -372,13 +372,64 @@ def make_shardings(specs: PyTree, mesh) -> PyTree:
     return _map_with_path(lambda _, s: NamedSharding(mesh, s), specs)
 
 
+def local_slice(t: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's slice of ``t`` (the full value) under ``placements``,
+    as DTensor splits it: mesh dim by mesh dim in mesh order, each
+    ``Shard(i)`` an even split of tensor dim i (the rule tables drop a
+    split that does not divide). A view of ``t``."""
+    for i, pl in enumerate(placements):
+        if pl.is_shard():
+            n, r = mesh.size(i), mesh.get_local_rank(i)
+            size = t.shape[pl.dim] // n
+            t = t.narrow(pl.dim, r * size, size)
+    return t
+
+
 def place(t: torch.Tensor, mesh, placements):
-    """``t`` (the full value, equal on every rank) as a DTensor on
-    ``mesh`` with ``placements``: each rank keeps its own slice, with no
-    communication (``src_data_rank=None``)."""
-    from torch.distributed.tensor import distribute_tensor
-    return distribute_tensor(t.to(mesh.device_type), mesh, placements,
-                             src_data_rank=None)
+    """``t`` (the full value, equal on every rank, on any device) as a
+    DTensor on ``mesh`` with ``placements``: each rank slices its own
+    shard where ``t`` lies and moves only that to the mesh's device,
+    with no communication. The shard never aliases a larger ``t``, so
+    dropping ``t`` frees it."""
+    from torch.distributed.tensor import DTensor
+    local = local_slice(t, mesh, placements).to(mesh.device_type)
+    local = local.contiguous()
+    if local.numel() < t.numel() and (local.untyped_storage().data_ptr()
+                                      == t.untyped_storage().data_ptr()):
+        local = local.clone()
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=t.shape,
+                              stride=_contiguous_stride(t.shape))
+
+
+def zeros_placed(tree: PyTree, shardings: PyTree) -> PyTree:
+    """Zeros shaped and typed as ``tree``'s leaves (anything with
+    ``shape`` and ``dtype``: ``meta`` tensors) as DTensors placed by
+    the mirroring :class:`NamedSharding` tree: each rank allocates its
+    shard alone."""
+    from torch.distributed.tensor import DTensor
+    flat = dict(_leaves_with_path(shardings))
+
+    def zeros(p, t):
+        sh = flat[p]
+        shape = list(t.shape)
+        for k, pl in enumerate(sh.placements):
+            if pl.is_shard():
+                shape[pl.dim] //= sh.mesh.size(k)
+        local = torch.zeros(shape, dtype=t.dtype,
+                            device=sh.mesh.device_type)
+        return DTensor.from_local(local, sh.mesh, sh.placements,
+                                  run_check=False, shape=t.shape,
+                                  stride=_contiguous_stride(t.shape))
+    return _map_with_path(zeros, tree)
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
 
 
 def place_tree(tree: PyTree, shardings: PyTree) -> PyTree:
@@ -408,3 +459,168 @@ def constrain_batch_axis(x: torch.Tensor, mesh):
     if isinstance(x, DTensor):
         return x.redistribute(mesh, sh.placements)
     return place(x, mesh, sh.placements)
+
+
+# -- ZeRO-3 execution: each leaf gathered just in time, its gradient
+# reduce-scattered back to the shard ---------------------------------------
+
+
+def shard_dims(t: torch.Tensor) -> tuple:
+    """Per dim of ``t``, the mesh axes that split it, in mesh order (the
+    order DTensor splits a dim sharded over several axes): () for every
+    dim of a plain tensor or a replicated DTensor."""
+    from torch.distributed.tensor import DTensor
+    dims: list = [()] * t.ndim
+    if isinstance(t, DTensor):
+        for a, pl in zip(t.device_mesh.mesh_dim_names, t.placements):
+            if pl.is_shard():
+                dims[pl.dim] = dims[pl.dim] + (a,)
+    return tuple(dims)
+
+
+class GatherGauge:
+    """What :class:`LocalShard` gathers: ``gathers`` (all-gathered leaves,
+    one collective per sharded axis each), ``live`` (bytes of gathered
+    full tensors still alive: a ``weakref.finalize`` on each takes its
+    bytes off when autograd and the model have dropped it) and ``peak``
+    (the most ``live`` held since :meth:`reset`)."""
+
+    def __init__(self):
+        import threading
+        self._lock = threading.Lock()
+        self.live = self.peak = self.gathers = 0
+
+    def reset(self) -> None:
+        with self._lock:
+            self.peak, self.gathers = self.live, 0
+
+    def _alloc(self, nbytes: int) -> None:
+        with self._lock:
+            self.live += nbytes
+            self.peak = max(self.peak, self.live)
+            self.gathers += 1
+
+    def _free(self, nbytes: int) -> None:
+        with self._lock:
+            self.live -= nbytes
+
+
+GAUGE = GatherGauge()
+
+
+def _all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """``x``'s pieces on the ``n`` ranks of ``group`` concatenated along
+    ``dim`` in rank order."""
+    import torch.distributed as dist
+    x0 = x.movedim(dim, 0).contiguous()
+    out = x0.new_empty((n * x0.shape[0], *x0.shape[1:]))
+    dist.all_gather_into_tensor(out, x0, group=group)
+    return out if dim == 0 else out.movedim(0, dim).contiguous()
+
+
+def _reduce_scatter(g: torch.Tensor, dim: int, group, n: int
+                    ) -> torch.Tensor:
+    """This rank's piece along ``dim`` of the sum of ``g`` over the ``n``
+    ranks of ``group``."""
+    import torch.distributed as dist
+    g0 = g.movedim(dim, 0).contiguous()
+    out = g0.new_empty((g0.shape[0] // n, *g0.shape[1:]))
+    dist.reduce_scatter(out, list(g0.chunk(n)), group=group)
+    return out if dim == 0 else out.movedim(0, dim)
+
+
+def grad_to_shard(g: torch.Tensor, shard: "LocalShard") -> torch.Tensor:
+    """The backward of :class:`LocalShard`'s gather: ``g``, the gradient
+    of the full tensor on this rank (its loss already weighted by the
+    rank's share of the batch), brought to this rank's shard and averaged
+    over the DP axes, as ``compressed_psum_mean(..., "none")`` averages a
+    whole gradient. Along a dim, the DP axes that split it reduce-scatter
+    and a ``model`` axis takes this rank's piece with no reduction (the
+    ranks of one ``model`` group run the same rows on the same weights,
+    so their gradients are equal); a DP axis that splits no dim
+    all-reduces the shard."""
+    import torch.distributed as dist
+    mesh, names = shard.mesh, shard.mesh.mesh_dim_names
+    dp = dp_axes(mesh)
+    incoming = g
+    for i, axes in enumerate(shard.dims):
+        for a in axes:                      # outer axis first
+            k = names.index(a)
+            n, r = mesh.size(k), mesh.get_local_rank(k)
+            if a in dp:
+                g = _reduce_scatter(g, i, mesh.get_group(a), n)
+            else:
+                g = g.narrow(i, r * (g.shape[i] // n), g.shape[i] // n)
+    used = {a for axes in shard.dims for a in axes}
+    rest = [a for a in dp if a not in used]
+    if rest:        # reduced in place: never into autograd's own buffer
+        g = (g.clone(memory_format=torch.contiguous_format)
+             if g.untyped_storage().data_ptr()
+             == incoming.untyped_storage().data_ptr() else g.contiguous())
+        for a in rest:
+            dist.all_reduce(g, group=mesh.get_group(a))
+    n_dp = 1
+    for a in dp:
+        n_dp *= mesh.size(names.index(a))
+    return (g / n_dp).contiguous()
+
+
+class _Gather(torch.autograd.Function):
+    """The full tensor from this rank's shard: forward all-gathers along
+    each sharded dim over its axes (innermost axis first, so pieces land
+    in DTensor's mesh order); backward is :func:`grad_to_shard`."""
+
+    @staticmethod
+    def forward(ctx, local, shard):
+        import weakref
+        ctx.shard = shard
+        mesh, names = shard.mesh, shard.mesh.mesh_dim_names
+        full = local
+        for i, axes in enumerate(shard.dims):
+            for a in reversed(axes):
+                full = _all_gather(full, i, mesh.get_group(a),
+                                   mesh.size(names.index(a)))
+        nbytes = full.numel() * full.element_size()
+        GAUGE._alloc(nbytes)
+        weakref.finalize(full, GAUGE._free, nbytes)
+        return full
+
+    @staticmethod
+    def backward(ctx, g):
+        return grad_to_shard(g, ctx.shard), None
+
+
+class LocalShard:
+    """This rank's shard of one leaf inside a sharded train step, handed
+    to the model in the leaf's place: ``local`` (a plain tensor, the
+    step's differentiable input), ``mesh`` and ``dims`` (per dim, the
+    axes that split it: :func:`shard_dims`). :meth:`full` gathers the
+    whole leaf where the model uses it, and a gather's backward
+    reduce-scatters the gradient to ``local``. ``shard[u]`` is unit u
+    of a stacked ``(n_units, ...)`` leaf, whose unit dim no rule
+    splits."""
+
+    def __init__(self, local: torch.Tensor, mesh, dims: tuple):
+        self.local, self.mesh, self.dims = local, mesh, dims
+
+    def __getitem__(self, u: int) -> "LocalShard":
+        if self.dims[0]:
+            raise ValueError(f"the leading dim is split over {self.dims[0]}"
+                             f": a unit slice would not be one unit")
+        return LocalShard(self.local[u], self.mesh, self.dims[1:])
+
+    def full(self) -> torch.Tensor:
+        return _Gather.apply(self.local, self)
+
+
+def gathered(tree: PyTree) -> PyTree:
+    """``tree`` with each :class:`LocalShard` leaf gathered whole
+    (:meth:`LocalShard.full`, a collective every rank of its mesh makes)
+    and every other leaf as it is: without a mesh, the tree itself."""
+    if isinstance(tree, LocalShard):
+        return tree.full()
+    if isinstance(tree, dict):
+        return {k: gathered(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [gathered(v) for v in tree]
+    return tree

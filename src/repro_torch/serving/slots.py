@@ -64,6 +64,35 @@ def write_slots(pool: dict, new: dict, idx: torch.Tensor) -> dict:
     return pool
 
 
+def _one_slot(pool: dict, idx) -> torch.Tensor:
+    """Slot ``idx`` (an int or () tensor) as a (1,) int64 index on the
+    pool's device."""
+    return torch.as_tensor(idx, dtype=torch.int64,
+                           device=pool["pos"].device).reshape(1)
+
+
+def write_slot(pool: dict, new: dict, idx) -> dict:
+    """Scatter a single-sequence serve state into slot ``idx``, in place.
+
+    ``new`` is the state of a B=1 ``lm.prefill`` (or a B=1 decode
+    chain): its batch axis has size 1 where present, and its
+    per-sequence scalars (``pos``, the exact kind's ``length``) have one
+    dim less than the pool leaf, so they gain the slot axis first. A
+    length-1 :func:`write_slots`. Returns ``pool``."""
+    def _expand(p, n, axis):
+        n = torch.as_tensor(n, device=p.device)
+        return n.unsqueeze(axis) if n.dim() < p.dim() else n
+    return write_slots(pool, tree_slot_map(_expand, pool, new),
+                       _one_slot(pool, idx))
+
+
+def read_slot(pool: dict, idx) -> dict:
+    """Slot ``idx`` gathered back out as a B=1 serve state (a copy, the
+    size-1 slot axis kept, so it round-trips through
+    :func:`write_slot`): a length-1 :func:`read_slots`."""
+    return read_slots(pool, _one_slot(pool, idx))
+
+
 def fork_slots(pool: dict, row: dict, idx: torch.Tensor,
                tables: Optional[torch.Tensor] = None) -> dict:
     """Broadcast a ONE-row serve state into slots ``idx``, in place: the

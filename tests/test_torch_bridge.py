@@ -73,13 +73,14 @@ def test_port_init_matches_reference_tree(arch):
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """No file of the port, nor chip_smoke.py or the port's scripts,
-    imports JAX, the reference package or msgpack; ml_dtypes only inside
-    ``bridge._to_numpy``, which the tests alone call (the card's machine
-    has neither package)."""
+    """No file of the port, nor chip_smoke.py or the port's scripts and
+    examples, imports JAX, the reference package or msgpack; ml_dtypes
+    only inside ``bridge._to_numpy``, which the tests alone call (the
+    card's machine has neither package)."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     files += sorted((ROOT / "scripts").glob("torch_*.py"))
+    files += sorted((ROOT / "examples").glob("torch_*.py"))
     names = {f.relative_to(ROOT).as_posix() for f in files}
     for mod in ("core/attention", "core/feature_maps",
                 "core/linear_attention", "kernels/linear_attn_scan",
@@ -93,6 +94,8 @@ def test_port_imports_neither_jax_nor_reference():
                 "parallel/compression", "tree"):
         assert f"src/repro_torch/{mod}.py" in names, mod
     assert "scripts/torch_decode_rows.py" in names
+    assert {"examples/torch_quickstart.py",
+            "examples/torch_long_context_serving.py"} <= names
     bad = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\.|"
                      r"from\s+repro\.|import\s+repro\s*$|from\s+repro\s+|"
                      r"import\s+msgpack\b|from\s+msgpack\b)",
