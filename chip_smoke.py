@@ -270,7 +270,23 @@ Phases, each printed as a JSON line:
      plain step, 4 steps each: the first two equal to (c)'s plain ones
      (bitwise where (c)'s two plain runs are), ms a step, peak memory,
      gathers a step (2 x 30 layers x 7 sharded leaves + the tied
-     embedding twice) and B5 = 60 a step on both;
+     embedding twice) and B5 = 60 a step on both (on a one-rank
+     ``model`` axis this is also the TP train step, which computes
+     whole there); (f) on (c)'s group, tensor parallelism over
+     ``model`` with its branches forced onto the one rank (the test
+     seam ``tensor_parallel._MIN_RANKS`` = 1): smollm-135m's TP train
+     step, 4 steps, its step-0 loss bitwise (e)'s plain one and step
+     0's gradients within a stated limit, an f32 witness of the same
+     comparison held tighter, two controls that must fail the limits,
+     nothing gathered over ``model``. A one-rank axis cannot show a
+     missing ``model`` sum or a wrong group slice: tensor parallelism's
+     correctness rests on the gloo tests (tests/test_torch_tp.py);
+     granite-8b at full depth and width through a mesh
+     engine with the branches on, greedy streams bitwise an engine's
+     without a mesh, B1 and B2 launches equal, its resident bytes; B1,
+     B2 and B5 against their plain versions at the per-rank head
+     layouts tensor parallelism gives the configs a card cannot hold
+     (one KV group a rank);
   13. the reference's two examples in the port on the card:
      ``examples/torch_quickstart.py`` (60 steps, then prefill and 12
      greedy decode steps; the loss at step 59 below step 0's) and
@@ -285,8 +301,9 @@ linear_attention_causal, linear_attention_carry and prf_featmap, which
 run on the tensor cores, at 495 TFLOP/s of TF32; B1's and B2's launches
 in phase 3e's, each phase 7 model's and phase 8's serving run beside,
 and every kernel's in phase 9's training and serving, in phase 10, in
-phase 10b, in phase 11 by arch, in phase 12, ``launches_runtime``, and
-in phase 13, ``launches_examples``)
+phase 10b, in phase 11 by arch, in phase 12, ``launches_runtime``, in
+phase 12 (f)'s checks at the per-rank geometries,
+``launches_tp_geometry``, and in phase 13, ``launches_examples``)
 and, last, the
 ``{"ok": true, ...}`` line. Exits non-zero, without that line, when there is no CUDA device
 or any phase fails. Imports neither JAX nor the reference package.
@@ -4114,6 +4131,8 @@ def runtime_mesh(torch, dev, counters, ck_dir, clean_state):
         del full, plain_state, ref2
         zero = runtime_zero(torch, dev, counters, mesh, cfg, params, opt,
                             opt_cfg, data, ref, gauge, plain)
+        tp = runtime_tp(torch, dev, counters, mesh, cfg, params, opt_cfg,
+                        data, zero[0]["losses"]["plain"])
 
         gen = torch.Generator(device=dev).manual_seed(3)
         g = {"a": torch.randn(4096, generator=gen, device=dev),
@@ -4180,7 +4199,7 @@ def runtime_mesh(torch, dev, counters, ck_dir, clean_state):
                 "linear_attention_causal": 6 * per_step}
         if launches != want:
             fail(f"mesh: launches {launches}, expected {want}")
-    return fields, check, launches["linear_attention_causal"], zero
+    return fields, check, launches["linear_attention_causal"], zero, tp
 
 
 def runtime_zero(torch, dev, counters, mesh, cfg, params, opt, opt_cfg,
@@ -4290,6 +4309,341 @@ def runtime_zero(torch, dev, counters, mesh, cfg, params, opt, opt_cfg,
     return fields, check, res["sharded"]["launches"][
         "linear_attention_causal"] + res["plain"]["launches"][
         "linear_attention_causal"]
+
+
+# phase 12 (f): tensor parallelism over ``model`` on (c)'s one-rank
+# group. A card's mesh has one ``model`` rank, where the layers compute
+# whole: the port's TP train step there is the ZeRO-3 step that (e)
+# holds bitwise to the plain one. With ``tensor_parallel._MIN_RANKS``
+# lowered to 1 (its test seam) every tensor-parallel branch runs on the
+# card, each rank's share the whole: blocks gathered over ``data``, the
+# collectives over a one-rank NCCL group, the KV groups cut for the
+# kernels, the vocab-parallel cross-entropy. On one rank the all-reduces
+# are identities and a share is the whole leaf, so a missing ``model``
+# sum or a wrong group slice cannot show here: the correctness of tensor
+# parallelism rests on the gloo tests (tests/test_torch_tp.py). This
+# phase shows that the branches run on CUDA and NCCL, through the
+# kernels, with the plain path's arithmetic up to rounding.
+# The branches' forward is the plain one's arithmetic (the step-0 loss
+# bitwise, in bf16 and f32); the backward sums the logsumexp's terms in
+# another order. In bf16 (the card's path) step 0's gradients are held
+# within TP_GRAD_TOL of each leaf's largest |g|. That the gap is
+# rounding is witnessed in f32 (params and activations), where the same
+# comparison is held within TP_GRAD_TOL_F32 and the four steps' losses
+# within TP_LOSS_TOL_F32 of the plain step's. Each limit is checked to
+# lie below a control that must fail it: step 0's bf16 gradients with
+# every label rolled one position (the wrong target) for the gradient
+# limits, the f32 steps with their updates lost (lr 0) for the loss
+# limit. The bf16 losses after step 0 are reported, not held: AdamW
+# divides each gradient element by its own magnitude, so where a
+# gradient sits at bf16 rounding the two runs move an element up to
+# about lr apart a step, and a lost update moves the loss little more
+# than that at this lr.
+TP_STEPS = 4
+TP_GRAD_TOL = 0.05
+TP_GRAD_TOL_F32 = 1e-4
+TP_LOSS_TOL_F32 = 1e-5
+# the per-rank geometries tensor parallelism gives the configs that a
+# card cannot hold whole: (arch, model ranks), one KV group a rank
+TP_GEOMETRIES = (("granite-8b", 8), ("qwen3-32b", 8), ("yi-34b", 8),
+                 ("internvl2-76b", 8), ("qwen3-moe-235b-a22b", 4))
+TP_SERVE = "granite-8b"
+
+
+def tree_rel_gap(torch, a, b) -> tuple:
+    """(max over leaves of max |a - b| / max |b|, that leaf's path)."""
+    from repro_torch.tree import flatten
+    worst = (0.0, None)
+    for (p, x), (_, y) in zip(flatten(a), flatten(b)):
+        if x.numel():
+            gap = float((x.float() - y.float()).abs().max()
+                        / y.float().abs().max().clamp(min=1e-30))
+            worst = max(worst, (gap, p), key=lambda w: w[0])
+    return worst
+
+
+@contextlib.contextmanager
+def tp_on_one_rank():
+    """Within, a one-rank ``model`` axis computes on shards (the test
+    seam ``tensor_parallel._MIN_RANKS`` lowered to 1)."""
+    from repro_torch.parallel import tensor_parallel as tpl
+    prev, tpl._MIN_RANKS = tpl._MIN_RANKS, 1
+    try:
+        yield
+    finally:
+        tpl._MIN_RANKS = prev
+
+
+def tp_geometry_kernels(torch, dev, kd, kp, kl):
+    """(f) (c): B1, B2 and B5 against their plain versions at the
+    per-rank head layouts of :data:`TP_GEOMETRIES` (G = n_kv / M = 1),
+    full width, bf16: B1 at 8 slots, B2 at the packer's 8 x 32 and
+    1 x 256 grants, B5 forward and gradients at 8 x 512. Returns (cases,
+    the worst error per kernel, each kernel's launches in the checks)."""
+    from repro_torch import configs
+    from repro_torch.kernels import check as kc
+
+    state = (5, 6, 7)
+    err = dict.fromkeys(("prf_fused_decode", "prf_fused_prefill",
+                         "linear_attention_causal"), 0.0)
+    before = {"prf_fused_decode": kd.launches,
+              "prf_fused_prefill": kp.launches,
+              "linear_attention_causal": kl.launches}
+    cases, seen = [], set()
+    for arch, m_ranks in TP_GEOMETRIES:
+        c = configs.get_config(arch)
+        g, hg, d, m = (c.n_kv // m_ranks, c.n_heads // c.n_kv, c.head_dim,
+                       c.attn.num_features)
+        if (g, hg, d, m) in seen:
+            continue
+        seen.add((g, hg, d, m))
+        geo = f"{arch} M={m_ranks} G={g} Hg={hg} d={d} m={m}"
+        args = kc.make_inputs(dev, 8, g, hg, d, m, d, None, True,
+                              seed=400 + len(cases), dtype=torch.bfloat16)
+        e = kc.check_case(f"decode {geo} bf16 B=8", lambda: kd.launches,
+                          kd.fused_prf_decode, kd.prf_fused_decode_plain,
+                          args, state, eps=1e-8)
+        err["prf_fused_decode"] = max(err["prf_fused_decode"], e)
+        cases.append({"case": f"decode {geo} bf16 B=8", "max_abs_err": e})
+        for b, l, vl in (kc.PACKER_GRANTS[0], kc.PACKER_GRANTS[-1]):
+            name = f"prefill {geo} bf16 B={b} L={l}"
+            args = kc.make_inputs(dev, b, g, hg, d, m, d, l, True,
+                                  seed=400 + len(cases),
+                                  dtype=torch.bfloat16)
+            vlt = torch.tensor(vl, dtype=torch.int32, device=dev)
+            e = kc.check_case(name, lambda: kp.launches,
+                              kp.fused_prf_prefill,
+                              kp.prf_fused_prefill_plain, args, state, vlt,
+                              eps=1e-8)
+            err["prf_fused_prefill"] = max(err["prf_fused_prefill"], e)
+            cases.append({"case": name, "max_abs_err": e})
+        name = f"linear_attention_causal {geo} B=8 L=512 bf16"
+        args = kc.make_lin_attn_inputs(dev, 8, g, hg, 512, m, d,
+                                       seed=400 + len(cases),
+                                       dtype=torch.bfloat16)
+        fwd, grad = kc.check_autograd(
+            name, kl, lambda q, k, v: kl.linear_attention_causal(
+                q, k, v, eps=1e-8),
+            lambda q, k, v: kl.linear_attention_causal_plain(q, k, v, 1e-8),
+            args, seed=len(cases))
+        err["linear_attention_causal"] = max(err["linear_attention_causal"],
+                                             fwd)
+        cases.append({"case": name, "max_abs_err": fwd,
+                      "grad_max_abs_err": grad})
+    launches = {"prf_fused_decode": kd.launches, "prf_fused_prefill":
+                kp.launches, "linear_attention_causal": kl.launches}
+    return cases, err, {n: launches[n] - before[n] for n in launches}
+
+
+def runtime_tp(torch, dev, counters, mesh, cfg, params, opt_cfg, data,
+               plain_losses):
+    """Phase 12 (f), on (c)'s single-rank group with the tensor-parallel
+    branches on (:func:`tp_on_one_rank`; module comment above
+    :data:`TP_STEPS`). (a) smollm-135m at 8 x 512 from seed 0's params:
+    the TP train step ``TP_STEPS`` steps in bf16, its step-0 loss
+    bitwise (e)'s plain one (``plain_losses``), the later gaps reported;
+    step 0's gradients against the plain step's within
+    :data:`TP_GRAD_TOL`; the f32 witness, plain and TP ``TP_STEPS``
+    steps each from the same params in f32, step 0's gradients within
+    :data:`TP_GRAD_TOL_F32` and every loss within
+    :data:`TP_LOSS_TOL_F32`; the controls, which must fail the limits
+    (rolled labels; the f32 TP steps at lr 0); nothing gathered over
+    ``model``, B5 ``b5_per_step`` times a step and a gradient call. (b)
+    granite-8b at full depth and width, drawn on the card, through an
+    overlapped engine on the mesh with the branches on and through one
+    without a mesh (8 requests, prompts of 64-256 tokens, 16-32 new):
+    greedy streams bitwise, B1 and B2 launches equal, nothing gathered
+    over ``model``; the resident bytes of its params and pools on the
+    rank. (c) :func:`tp_geometry_kernels`. Returns (fields, checks, the
+    paths' launches, the checks' launches)."""
+    import gc
+    from repro_torch import configs
+    from repro_torch import kernels as kmod
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.schedules import constant
+    from repro_torch.parallel import (local_batch, make_shardings,
+                                      opt_state_specs, param_specs,
+                                      place_tree, sharding)
+    from repro_torch.serving import synthetic_requests
+
+    t0 = time.perf_counter()
+    batches = [to_device(local_batch(data.batch(i), mesh), dev)
+               for i in range(TP_STEPS)]
+    rolled = {**batches[0], "labels": torch.roll(batches[0]["labels"], 1,
+                                                 dims=1)}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = lm.tree_map(lambda t: t.float(), params)
+    b5 = {}
+
+    def run(name, c, p, lr, placed):
+        """``TP_STEPS`` steps of ``c`` from ``p`` at ``lr``, the TP step
+        with the branches on (``placed``) or the plain one: losses."""
+        o = adamw_init(p, opt_cfg)
+        if placed:
+            pspecs = param_specs(p, mesh, overrides=c.sharding_overrides)
+            p = place_tree(p, make_shardings(pspecs, mesh))
+            o = place_tree(o, make_shardings(opt_state_specs(o, pspecs, mesh),
+                                             mesh))
+        step_fn = (steps.make_sharded_train_step(c, opt_cfg, constant(lr),
+                                                 mesh) if placed else
+                   steps.make_train_step(c, opt_cfg, constant(lr)))
+        zero_counts(counters)
+        losses = []
+        with (tp_on_one_rank() if placed else contextlib.nullcontext()):
+            for i, b in enumerate(batches):
+                p, o, m = step_fn(p, o, b, i)
+                losses.append(float(m["loss"]))
+        b5[name] = launch_counts(counters)["linear_attention_causal"]
+        return losses
+
+    def grads(name, c, p, batch, placed):
+        """Step 0's gradients of ``c`` at ``p`` on ``batch``, plain or
+        through the TP branches (the local shards, here the whole)."""
+        zero_counts(counters)
+        if placed:
+            with tp_on_one_rank():
+                g, _ = steps.make_sharded_grad_fn(c, mesh)(place_tree(
+                    p, make_shardings(param_specs(
+                        p, mesh, overrides=c.sharding_overrides), mesh)),
+                    batch, 0)
+        else:
+            g, _ = steps.make_grad_fn(c)(p, batch, 0)
+        b5[name] = launch_counts(counters)["linear_attention_causal"]
+        return g
+
+    t1 = time.perf_counter()
+    sharding.GAUGE.reset()
+    tp_losses = run("tp", cfg, params, 3e-4, True)
+    over_model = sharding.GAUGE.over_model
+    g_plain = grads("grad_plain", cfg, params, batches[0], False)
+    g_tp = grads("grad_tp", cfg, params, batches[0], True)
+    grad_gap, grad_leaf = tree_rel_gap(torch, g_tp, g_plain)
+    del g_tp
+    g_rolled = grads("grad_rolled_labels", cfg, params, rolled, True)
+    rolled_gap, rolled_leaf = tree_rel_gap(torch, g_rolled, g_plain)
+    del g_rolled, g_plain
+    bf16_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    g_plain = grads("grad_plain_f32", cfg32, params32, batches[0], False)
+    g_tp = grads("grad_tp_f32", cfg32, params32, batches[0], True)
+    grad_gap32, grad_leaf32 = tree_rel_gap(torch, g_tp, g_plain)
+    del g_tp, g_plain
+    plain32 = run("plain_f32", cfg32, params32, 3e-4, False)
+    tp32 = run("tp_f32", cfg32, params32, 3e-4, True)
+    lost32 = run("tp_f32_lr0", cfg32, params32, 0.0, True)
+    f32_s = time.perf_counter() - t1
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def rel_gaps(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    loss_gaps = rel_gaps(tp_losses, plain_losses)
+    loss_gaps32 = rel_gaps(tp32, plain32)
+    lost_gaps32 = rel_gaps(lost32, plain32)
+    per_step = b5_per_step(cfg)
+    b5_want = {k: (TP_STEPS if k in ("tp", "plain_f32", "tp_f32",
+                                      "tp_f32_lr0") else 1) * per_step
+               for k in b5}
+    train = {"steps": TP_STEPS,
+             "losses": {"plain_bf16_from_e": plain_losses,
+                        "tp_bf16": tp_losses, "plain_f32": plain32,
+                        "tp_f32": tp32, "tp_f32_lr0_control": lost32},
+             "bf16_step0_loss_bitwise": tp_losses[0] == plain_losses[0],
+             "bf16_loss_rel_gaps": loss_gaps,
+             "bf16_grad_rel_gap": grad_gap, "bf16_grad_gap_leaf": grad_leaf,
+             "f32_step0_loss_bitwise": tp32[0] == plain32[0],
+             "f32_loss_rel_gaps": loss_gaps32,
+             "f32_grad_rel_gap": grad_gap32, "f32_grad_gap_leaf": grad_leaf32,
+             "control_rolled_labels_grad_rel_gap": rolled_gap,
+             "control_rolled_labels_grad_gap_leaf": rolled_leaf,
+             "control_lr0_f32_loss_rel_gaps": lost_gaps32,
+             "limits": {"grad_bf16": TP_GRAD_TOL, "grad_f32": TP_GRAD_TOL_F32,
+                        "loss_f32": TP_LOSS_TOL_F32},
+             "over_model": over_model,
+             "b5_launches": b5, "b5_expected": b5_want,
+             "seconds": {"bf16": bf16_s, "f32": f32_s}}
+    gc.collect()
+
+    t1 = time.perf_counter()
+    scfg = configs.get_config(TP_SERVE, use_kernel=True)
+    sparams = lm.init_params(scfg, seed=0, device=dev, draw_on=dev)
+
+    def reqs():
+        return synthetic_requests(8, scfg.vocab, seed=3,
+                                  prompt_range=(64, 256),
+                                  gen_range=(16, 32))
+    base, l_base, _ = mesh_serve(torch, dev, counters, sparams, scfg,
+                                 reqs())
+    sharding.GAUGE.reset()
+    with tp_on_one_rank():
+        got, l_tp, eng = mesh_serve(torch, dev, counters, sparams, scfg,
+                                    reqs(), mesh=mesh)
+    serve_gauge = {"gathers": sharding.GAUGE.gathers,
+                   "over_model": sharding.GAUGE.over_model}
+    leaf_bytes = [t.to_local().numel() * t.element_size()
+                  for _, t in sharding._leaves_with_path(eng.params)]
+    pool_bytes = sum(t.to_local().numel() * t.element_size()
+                     for _, t in sharding._leaves_with_path(eng.pool))
+    paths = (eng.stats["prefill_path"], eng.stats["decode_path"])
+    del eng, sparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_fields = {
+        "config": scfg.name, "n_layers": scfg.n_layers, "requests": 8,
+        "paths": list(paths), "streams_bitwise": got == base,
+        "launches_plain": l_base, "launches_tp_branches": l_tp,
+        "gauge": serve_gauge, "resident_param_bytes": sum(leaf_bytes),
+        "resident_pool_bytes": pool_bytes,
+        "seconds": time.perf_counter() - t1}
+
+    kd, kp, kl = (kmod.COUNTERS[n][0] for n in
+                  ("prf_fused_decode", "prf_fused_prefill",
+                   "linear_attention_causal"))
+    cases, errs, check_launches = tp_geometry_kernels(torch, dev, kd, kp, kl)
+    fields = {"train": train, "serve": serve_fields,
+              "geometry_cases": cases, "geometry_max_abs_err": errs,
+              "geometry_launches": check_launches,
+              "seconds": time.perf_counter() - t0}
+
+    def check():
+        if not (train["bf16_step0_loss_bitwise"]
+                and train["f32_step0_loss_bitwise"]):
+            fail(f"tp: the TP branches' step-0 loss is not bitwise the "
+                 f"plain one's (bf16 {tp_losses[0]} vs {plain_losses[0]}, "
+                 f"f32 {tp32[0]} vs {plain32[0]})")
+        if grad_gap > TP_GRAD_TOL or grad_gap32 > TP_GRAD_TOL_F32:
+            fail(f"tp: step 0's gradients {grad_gap:.3e} at {grad_leaf} "
+                 f"(bf16, limit {TP_GRAD_TOL}) and {grad_gap32:.3e} at "
+                 f"{grad_leaf32} (f32, limit {TP_GRAD_TOL_F32}) from the "
+                 f"plain step's")
+        if max(loss_gaps32) > TP_LOSS_TOL_F32:
+            fail(f"tp: f32 losses {loss_gaps32} from the plain step's "
+                 f"(limit {TP_LOSS_TOL_F32})")
+        if rolled_gap <= TP_GRAD_TOL or max(lost_gaps32) <= TP_LOSS_TOL_F32:
+            fail(f"tp: a control passes its limit: rolled labels' gradients "
+                 f"{rolled_gap:.3e} (limit {TP_GRAD_TOL}), lr 0's f32 losses "
+                 f"{lost_gaps32} (limit {TP_LOSS_TOL_F32})")
+        if b5 != b5_want:
+            fail(f"tp: B5 launches {b5}, expected {b5_want}")
+        if over_model:
+            fail(f"tp: the TP branches gathered over model ({over_model})")
+        if paths != ("fused_kernel", "fused_kernel"):
+            fail(f"tp serve: paths {paths}")
+        if got != base:
+            fail("tp serve: the mesh engine's greedy streams differ from "
+                 "the engine's without a mesh")
+        if l_tp != l_base or not (l_tp["prf_fused_decode"]
+                                  and l_tp["prf_fused_prefill"]):
+            fail(f"tp serve: launches {l_tp} on the mesh, {l_base} without")
+        if serve_gauge["over_model"]:
+            fail(f"tp serve: gathered over model ({serve_gauge})")
+    launches = {n: l_tp[n] + l_base[n] for n in counters}
+    launches["linear_attention_causal"] += sum(b5.values())
+    return fields, check, launches, check_launches
 
 
 def mesh_serve(torch, dev, counters, params, cfg, reqs, mesh=None,
@@ -4450,10 +4804,11 @@ def runtime_serve_mesh(torch, dev, counters):
 def phase_runtime(torch, dev, counters):
     """Phase 12: training at scale: (a) :func:`runtime_supervisor`, (b)
     :func:`runtime_remat`, (c) :func:`runtime_mesh` with (e)
-    :func:`runtime_zero` on its group, and the serving half of
-    distribution, (d) :func:`runtime_serve_mesh`, one JSON line each
-    with its seconds. Returns each kernel's launches in the phase (B5's
-    in (a)-(c) and (e), B1's and B2's in (d); the others' must be 0)."""
+    :func:`runtime_zero` and (f) :func:`runtime_tp` on its group, and
+    the serving half of distribution, (d) :func:`runtime_serve_mesh`,
+    one JSON line each with its seconds. Returns (each kernel's
+    launches on the phase's paths: B5's in (a)-(c), (e) and (f), B1's
+    and B2's in (d) and (f), the others' 0; (f)'s checks' launches)."""
     import gc
     import shutil
 
@@ -4472,12 +4827,15 @@ def phase_runtime(torch, dev, counters):
     check_rem()
     gc.collect()
     torch.cuda.empty_cache()
-    mesh, check_mesh, b5_c, (zero, check_zero, b5_e) = runtime_mesh(
-        torch, dev, counters, ck_dir, clean)
+    mesh, check_mesh, b5_c, (zero, check_zero, b5_e), \
+        (tp, check_tp, tp_launches, tp_checks) = runtime_mesh(
+            torch, dev, counters, ck_dir, clean)
     emit({"phase": "runtime_mesh", **mesh})
     check_mesh()
     emit({"phase": "runtime_zero", **zero})
     check_zero()
+    emit({"phase": "runtime_tp", **tp})
+    check_tp()
     shutil.rmtree(ck_dir, ignore_errors=True)
     del clean
     gc.collect()
@@ -4488,9 +4846,9 @@ def phase_runtime(torch, dev, counters):
     check_serve_mesh()
     gc.collect()
     torch.cuda.empty_cache()
-    return {**serve_launches, "linear_attention_causal":
-            b5_a + b5_b + b5_c + b5_e
-            + serve_launches["linear_attention_causal"]}
+    out = {n: serve_launches[n] + tp_launches[n] for n in counters}
+    out["linear_attention_causal"] += b5_a + b5_b + b5_c + b5_e
+    return out, tp_checks
 
 
 def run_example(name: str, argv: list) -> tuple:
@@ -4647,7 +5005,7 @@ def main() -> int:
     rwkv = phase_rwkv(torch, dev, counters)
     rwkv_train = phase_rwkv_train(torch, dev, counters)
     modalities = phase_modalities(torch, dev, counters)
-    runtime = phase_runtime(torch, dev, counters)
+    runtime, tp_geometry = phase_runtime(torch, dev, counters)
     examples = phase_examples(torch, dev)
 
     emit({"kernels": [
@@ -4668,6 +5026,7 @@ def main() -> int:
          "launches_rwkv_train": rwkv_train[n],
          "launches_modalities": {a: m[n] for a, m in modalities.items()},
          "launches_runtime": runtime[n],
+         "launches_tp_geometry": tp_geometry.get(n, 0),
          "launches_examples": examples[n],
          "bound_ms": timing[n]["bound_ms"],
          "bound_by": timing[n]["bound_by"], "library_ms": None}

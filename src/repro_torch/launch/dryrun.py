@@ -23,7 +23,11 @@ process group):
     with the reason.
 
 It reports the parameter count and the per-rank bytes of params,
-optimizer state (train cells), batch and serve state (decode cells).
+optimizer state (train cells), batch and serve state (decode cells):
+what the port's sharded train step (``launch.steps.
+make_sharded_train_step``) and mesh engine (``ServingEngine(mesh=)``)
+hold on each rank between steps (tests/test_torch_zero.py holds both
+to it), not what a step gathers while it runs.
 The reference's flops, bytes-accessed, collective and compile fields
 come from XLA's analyses: they are absent here, not zero, and
 ``--probe`` (the reference's unrolled cost probe) is refused. One JSON a

@@ -17,9 +17,13 @@ giving the suffix's range. ``--mesh-data`` x ``--mesh-model`` above
 1 x 1 places the engine's slot and staging pools on a mesh over the
 process group ``torchrun`` describes (NCCL for ``--device cuda``, gloo
 for ``cpu``; the train launcher's ``make_mesh``): every rank serves the
-same requests with the params whole, and the pools live as DTensors
-between steps (``ServingEngine(mesh=)``: no compute or memory is
-sharded). At 1 x 1 no group is made.
+same requests, the params placed by the reference's "2d" rules (drawn
+on the host, or restored from ``--load`` straight onto their
+placements, so no device holds the whole tree) and the pools by its
+serve-state rules (``ServingEngine(mesh=)``): each rank
+holds and computes its share over ``model`` (attention's KV groups,
+the MLP's hidden columns, MoE's experts, the vocab slice). At 1 x 1 no
+group is made.
 
 Examples:
   # 8 requests over 4 slots on the GPU, greedy
@@ -46,6 +50,10 @@ Examples:
   # the pools on a (2, 1) mesh of two gloo ranks on the CPU
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
       --arch smollm-135m --reduced --device cpu --mesh-data 2
+
+  # tensor parallel over two gloo ranks: each computes one of 2 KV groups
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --arch granite-8b --reduced --device cpu --mesh-model 2
 """
 from __future__ import annotations
 
@@ -74,6 +82,29 @@ def _parse_range(spec: str) -> tuple[int, int]:
 
 def _quiet(*args, **kw) -> None:
     """A rank other than 0 prints nothing."""
+
+
+def _placed_params(cfg, args, mesh, say) -> dict:
+    """This rank's shards of the params on ``mesh``, placed by the
+    reference's "2d" rules (``parallel.param_specs``), with no whole copy
+    on any device: drawn on the host and placed leaf by leaf, each rank
+    moving only its shard, or with ``--load`` restored from the
+    checkpoint straight onto their placements (no draw at all)."""
+    from repro_torch.launch.dryrun import param_shapes
+    from repro_torch.parallel import sharding
+
+    shapes = param_shapes(cfg)
+    shardings = sharding.make_shardings(sharding.param_specs(
+        shapes, mesh, moe=cfg.moe is not None,
+        overrides=cfg.sharding_overrides), mesh)
+    if not args.load:
+        return sharding.place_tree(
+            lm.init_params(cfg, seed=args.seed, device="cpu"), shardings)
+    # trainer checkpoints hold {"params", "opt"}: restore the params
+    wrapped, step = ckpt_lib.restore_to_shardings(
+        args.load, {"params": shapes}, {"params": shardings})
+    say(f"loaded params from {args.load} @ step {step}")
+    return wrapped["params"]
 
 
 def main(argv=None) -> dict:
@@ -165,23 +196,27 @@ def main(argv=None) -> dict:
     cfg = dataclasses.replace(cfg, use_kernel=args.use_kernel)
     if cfg.modality != "text":
         raise SystemExit("serving engine drives text decode only")
-    # a non-trivial mesh places the pools; 1 x 1 keeps the engine as it is
+    # a non-trivial mesh places the params and the pools; 1 x 1 keeps the
+    # engine as it is
     mesh = None
     if args.mesh_data * args.mesh_model > 1:
         from repro_torch.launch.train import make_mesh
         mesh = make_mesh(args.mesh_data, args.mesh_model, args.device)
     say = print if mesh is None or dist.get_rank() == 0 else _quiet
 
-    # with --load every leaf is overwritten: draw the template on the
-    # device (seconds at full width, where the host takes minutes)
-    params = lm.init_params(cfg, seed=args.seed, device=args.device,
-                            draw_on=args.device if args.load else "cpu")
-    if args.load:
-        # trainer checkpoints hold {"params", "opt"}: restore the params
-        wrapped, step = ckpt_lib.restore_checkpoint(args.load,
-                                                    {"params": params})
-        params = wrapped["params"]
-        say(f"loaded params from {args.load} @ step {step}")
+    if mesh is not None:
+        params = _placed_params(cfg, args, mesh, say)
+    else:
+        # with --load every leaf is overwritten: draw the template on the
+        # device (seconds at full width, where the host takes minutes)
+        params = lm.init_params(cfg, seed=args.seed, device=args.device,
+                                draw_on=args.device if args.load else "cpu")
+        if args.load:
+            # trainer checkpoints hold {"params", "opt"}: restore the params
+            wrapped, step = ckpt_lib.restore_checkpoint(args.load,
+                                                        {"params": params})
+            params = wrapped["params"]
+            say(f"loaded params from {args.load} @ step {step}")
     pc = None
     if args.prefix_cache:
         pc = PrefixCacheConfig(block_tokens=args.prefix_block,

@@ -2,25 +2,32 @@
 the train, eval, prefill and decode steps, and the sharded train step
 over a mesh.
 
-:func:`make_sharded_train_step` runs ZeRO-3 over the sharding rule
-tables: params, gradients and AdamW's μ and ν stay this rank's shards
-(DTensors placed by ``parallel.sharding.param_specs`` and
-``opt_state_specs``) between steps and during one. The model gathers a
-leaf whole only where it uses it (``parallel.sharding.LocalShard``: a
-layer's leaves inside its remat unit, so under "full" and "dots" the
-recompute gathers them again), and each gather's backward
-reduce-scatters the gradient back to the shard, averaged over the DP
-axes with each rank's loss weighted by its share of the batch;
-replicated leaves (norm scales, the feature params, the router, RWKV's
-``mu`` and ``u``) keep the DP all-reduce. AdamW updates the shards,
-its clip norm and factored ν made global. Kernels see plain tensors.
-The step returns what the unsharded step returns on the whole batch:
-MoE's load-balancing term too, from the router's statistics
-all-reduced over the DP axes in every MoE layer (under remat once more
-in the recompute). Compute is not sharded over ``model``: the ranks of
-one ``model`` group run the same batch rows on the same gathered
-weights (tensor-parallel compute, activations split over ``model``, is
-later work).
+:func:`make_sharded_train_step` runs the reference's "2d" rules, FSDP
+over the DP axes and tensor parallelism over ``model``: params,
+gradients and AdamW's μ and ν stay this rank's shards (DTensors placed
+by ``parallel.sharding.param_specs`` and ``opt_state_specs``) between
+steps and during one. Under ``parallel.tensor_parallel.over_model``
+each layer computes this rank's share over ``model``: attention its KV
+groups (B5 on (B, G/M·Hg, L, ·)), the MLP its hidden columns, MoE its
+experts or their hidden columns, the head its vocab slice with a
+vocab-parallel cross-entropy (the (B, L, V) logits never gathered).
+Such a leaf keeps its ``model`` shard and is gathered over the DP axes
+only where the layer uses it (``parallel.sharding.LocalShard.block``:
+a layer's leaves inside its remat unit, so under "full" and "dots" the
+recompute gathers them again); a leaf of a block without a tensor
+parallel form (the RG-LRU, RWKV-6, attention whose n_kv the axis does
+not divide, ``mask_embed``) is gathered whole, as in ZeRO-3. Each
+gather's backward reduce-scatters the gradient back to the shard over
+the DP axes, averaged with each rank's loss weighted by its share of
+the batch; replicated leaves keep the DP all-reduce, and those a rank
+uses on its own heads or groups only (qk-norm's scales, the feature
+params) are first summed over ``model`` by the forward's
+``copy_to_model``. AdamW updates the shards, its clip norm and factored
+ν made global. Kernels see plain tensors. Every ``model`` rank of a DP
+group runs the same batch rows. The step returns what the unsharded
+step returns on the whole batch: MoE's load-balancing term too, from
+the router's statistics all-reduced over the DP axes in every MoE layer
+(under remat once more in the recompute).
 """
 from __future__ import annotations
 
@@ -139,6 +146,7 @@ def make_sharded_grad_fn(cfg: lm.ModelConfig, mesh,
 
     from repro_torch.parallel.compression import compressed_psum_mean
     from repro_torch.parallel.sharding import dp_axes, shard_dims
+    from repro_torch.parallel.tensor_parallel import over_model
 
     local = make_grad_fn(cfg, freeze, leaf_input=_shard_input)
     dp = dp_axes(mesh)
@@ -161,7 +169,7 @@ def make_sharded_grad_fn(cfg: lm.ModelConfig, mesh,
             st = st / n_dp
             return st[0] + (me - me.detach()) / scale, st[1]
         with (ll.moe_balance_over(whole_batch) if cfg.moe is not None
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), over_model(mesh):
             grads, metrics = local(params, batch, step, gen,
                                    loss_scale=scale)
         split = {p for p, t in flatten(params) if any(shard_dims(t))}

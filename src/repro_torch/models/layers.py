@@ -3,8 +3,10 @@
 The counterpart of ``repro.models.layers``. Params are plain dicts of
 tensors with the reference's key names, so a reference param tree maps
 leaf for leaf (``bridge``). MoE's ``dispatch_spec`` pins the dispatch
-buffers' placements when they are DTensors; the port computes on full
-local tensors (``launch.steps``), so today the pin is the identity.
+buffers' placements when they are DTensors; the port computes on local
+tensors (``launch.steps``, the mesh engine), so on its paths the pin is
+the identity. Under tensor parallelism MoE runs this rank's share of
+the experts (:class:`MoEShare`).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.remat import dot
+from repro_torch.parallel import tensor_parallel as tpl
 
 
 def trunc_normal(gen: torch.Generator, shape, scale: float,
@@ -116,6 +119,16 @@ class MoEConfig:
     dispatch_spec: Optional[tuple] = None
 
 
+@dataclasses.dataclass(frozen=True)
+class MoEShare:
+    """The share of the experts one rank computes over the mesh's
+    ``model`` axis ``ax`` (a ``parallel.tensor_parallel.ModelAxis``):
+    ``mode`` "experts", its E/M experts whole (expert parallelism), or
+    "hidden", every expert's d_ff/M hidden columns."""
+    ax: object
+    mode: str
+
+
 def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig,
              dtype=torch.float32) -> dict:
     # draw order follows the reference's key split: router, gate, up, out
@@ -179,8 +192,8 @@ def _pin(t: torch.Tensor, cfg: MoEConfig, expert_axis: bool):
     """``t`` redistributed to ``cfg.dispatch_spec``'s placements on its
     own mesh when it is a DTensor (the reference's sharding constraint);
     a plain tensor, or no spec, passes through unchanged. The port's
-    steps compute on full local tensors, so on its paths the pin is the
-    identity today."""
+    steps and the mesh engine compute on local tensors, so on its paths
+    the pin is the identity."""
     if cfg.dispatch_spec is None:
         return t
     from torch.distributed.tensor import DTensor
@@ -195,7 +208,8 @@ def _pin(t: torch.Tensor, cfg: MoEConfig, expert_axis: bool):
                           NamedSharding(t.device_mesh, P(*axes)).placements)
 
 
-def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig):
+def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig,
+              share: Optional[MoEShare] = None):
     """x: (B, L, d) -> (out (B, L, d) in x's dtype, aux loss 0-d f32).
 
     Router logits in f32, softmax, top-k with the gates renormalised;
@@ -207,7 +221,17 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig):
     holds the slot as it is. The experts' SwiGLU runs as batched
     products over the buffer; the outputs are gathered back and combined
     with the gates (zero for dropped pairs) in x's dtype. The buffers
-    and the gather pass through :func:`_pin` as the reference's do."""
+    and the gather pass through :func:`_pin` as the reference's do.
+
+    With ``share`` every rank of its ``model`` axis routes the same rows
+    (the router whole), and runs its share of the experts: "experts"
+    scatters only the pairs of its E/M experts into a (B, E/M, cap, d)
+    buffer (``params``' expert leaves are those experts), "hidden" every
+    pair through its d_ff/M columns of each expert (a partial sum). The
+    gathered (B, L, K, d) outputs, zeros for another rank's experts, are
+    summed over ``model`` before the gates combine them, so the router's
+    gradient is whole on every rank; the dispatched input's gradient is
+    summed over ``model`` (``tensor_parallel.copy_to_model``)."""
     b, l, d = x.shape
     e = cfg.num_experts
     probs, gate_vals, idx, pos, in_cap, cap = moe_route(
@@ -220,15 +244,27 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig):
     aux = cfg.aux_loss_weight * e * (me * ce).sum()
     pos_c = pos.clamp(0, cap - 1)
     b_idx = torch.arange(b, device=x.device)[:, None, None].expand_as(idx)
-    upd = x[:, :, None, :] * in_cap[..., None].to(x.dtype)
-    xin = torch.zeros((b, e, cap, d), dtype=x.dtype,
+    ax = None if share is None else share.ax
+    keep, eidx, n_e = in_cap, idx, e
+    if share is not None and share.mode == "experts":
+        n_e = params["w_gate"].shape[0]
+        local = idx - ax.rank * n_e
+        keep = in_cap & (local >= 0) & (local < n_e)
+        eidx = local.clamp(0, n_e - 1)
+    upd = tpl.copy_to_model(x, ax)[:, :, None, :] * keep[..., None].to(
+        x.dtype)
+    xin = torch.zeros((b, n_e, cap, d), dtype=x.dtype,
                       device=x.device).index_put(
-        (b_idx, idx, pos_c), upd, accumulate=True)           # (B, E, C, d)
+        (b_idx, eidx, pos_c), upd, accumulate=True)          # (B, E, C, d)
     xin = _pin(xin, cfg, True)
     h = (F.silu(torch.einsum("becd,edf->becf", xin, params["w_gate"]))
          * torch.einsum("becd,edf->becf", xin, params["w_up"]))
     xout = _pin(torch.einsum("becf,efd->becd", h, params["w_out"]), cfg,
                 True)
-    gathered = _pin(xout[b_idx, idx, pos_c], cfg, False)     # (B, L, K, d)
+    got = xout[b_idx, eidx, pos_c]                           # (B, L, K, d)
+    if keep is not in_cap:
+        got = torch.where(keep[..., None], got, torch.zeros(
+            (), dtype=got.dtype, device=got.device))
+    got = _pin(tpl.reduce_from_model(got, ax), cfg, False)
     gates = (gate_vals * in_cap.float()).to(x.dtype)
-    return torch.einsum("blkd,blk->bld", gathered, gates), aux
+    return torch.einsum("blkd,blk->bld", got, gates), aux

@@ -53,6 +53,7 @@ from repro_torch.models import attention_block as ab
 from repro_torch.models import layers as ll
 from repro_torch.models import recurrent as rec
 from repro_torch.models import remat as remat_lib
+from repro_torch.parallel import tensor_parallel as tpl
 from repro_torch.parallel.sharding import gathered
 from repro_torch.tree import tree_map
 
@@ -283,19 +284,26 @@ def build_decode_proj(params: dict, cfg: ModelConfig,
     "m_mat": (L, G, r, d) | None}}, or {"units": {"b<i>": ... with
     leaves (n_units, ...) | None}, "rem": [... | None]}, None at the
     blocks without attention; None when the config has no fused path or
-    no attention layer."""
+    no attention layer. Under a model axis that splits attention
+    (:func:`attn_split`), G is this rank's G/M groups."""
     if not (cfg.use_kernel and cfg.attn.kind in fm.PRF_KINDS
             and has_attention(cfg)):
         return None
     if stacked is None:
         stacked = can_stack_layers(cfg)
+
+    def feat(block, kind):
+        ax = attn_split(cfg, kind)
+        f = block["attn"]["feat"]
+        return (gathered(f) if ax is None else
+                {k: tpl.block(v, -3, ax) for k, v in f.items()})
     if stacked:
         return {"layers": fm.precompose_projection(
-            _layers(params, cfg)["attn"]["feat"], cfg.attn.kind)}
+            feat(_layers(params, cfg), cfg.block_pattern[0]),
+            cfg.attn.kind)}
 
     def proj(block, kind):
-        return (fm.precompose_projection(block["attn"]["feat"],
-                                         cfg.attn.kind)
+        return (fm.precompose_projection(feat(block, kind), cfg.attn.kind)
                 if kind in ATTN_KINDS else None)
     out: dict[str, Any] = {"units": {
         f"b{i}": proj(params["units"][f"b{i}"], kind)
@@ -432,6 +440,98 @@ def _blocks(params, cfg: ModelConfig, state=None, proj=None, pages=None):
                None if pages is None else (pages["k"][li], pages["v"][li]))
 
 
+def attn_split(cfg: ModelConfig, kind: str = "attn"):
+    """The model axis a ``kind`` block's attention computes its share of
+    (:func:`parallel.tensor_parallel.model_axis`), KV group by KV group:
+    None without one, for a block without attention, and where the
+    group count n_kv does not divide it (MQA: such a block gathers its
+    leaves whole and every ``model`` rank computes all of it)."""
+    ax = tpl.model_axis()
+    if ax is None or kind not in ATTN_KINDS or cfg.n_kv % ax.size:
+        return None
+    return ax
+
+
+def _attn_share(p: dict, ax) -> dict:
+    """The attention leaves of this rank's KV groups (G/M of them and
+    their query heads): wq, wk, wv's column block, wo's row block, the
+    groups' feature params; qk-norm's scales whole."""
+    out = {"wq": tpl.block(p["wq"], -1, ax), "wk": tpl.block(p["wk"], -1, ax),
+           "wv": tpl.block(p["wv"], -1, ax), "wo": tpl.block(p["wo"], -2, ax)}
+    if "feat" in p:
+        out["feat"] = {k: tpl.block(v, -3, ax) for k, v in p["feat"].items()}
+    for k in ("q_norm", "k_norm"):
+        if k in p:
+            out[k] = {"scale": tpl.shared(p[k]["scale"], ax)}
+    return out
+
+
+def _mlp_share(p: dict, d_ff: int, ax):
+    """(the dense MLP's leaves of this rank's hidden columns, ax), or
+    (the whole leaves, None) where d_ff does not divide over ``model``."""
+    if ax is None or d_ff % ax.size:
+        return gathered(p), None
+    out = {k: tpl.block(v, -1, ax) for k, v in p.items() if k != "w_out"}
+    out["w_out"] = tpl.block(p["w_out"], -2, ax)
+    return out, ax
+
+
+def _moe_share(p: dict, moe: ll.MoEConfig, ax):
+    """(the MoE leaves this rank computes, its ``ll.MoEShare``), or (the
+    whole leaves, None). The placement decides: experts split over
+    ``model`` run expert-parallel (this rank's E/M experts), an expert
+    hidden dim split over it (the rule tables' fallback, granite-moe's
+    overrides) runs each expert's hidden columns; unplaced leaves the
+    same by the counts (experts if E divides, else the hidden dim)."""
+    if ax is None:
+        return gathered(p), None
+    wg = p["w_gate"]
+    if isinstance(wg, tpl.LocalShard) and any(
+            "model" in axes for axes in wg.dims):
+        mode = ("experts" if "model" in wg.dims[-3] else
+                "hidden" if "model" in wg.dims[-1] else None)
+    else:
+        mode = ("experts" if moe.num_experts % ax.size == 0 else
+                "hidden" if moe.d_ff % ax.size == 0 else None)
+    if mode is None:
+        return gathered(p), None
+    out = {"router": gathered(p["router"])}
+    if mode == "experts":
+        for k in ("w_gate", "w_up", "w_out"):
+            out[k] = tpl.block(p[k], -3, ax)
+    else:
+        out["w_gate"] = tpl.block(p["w_gate"], -1, ax)
+        out["w_up"] = tpl.block(p["w_up"], -1, ax)
+        out["w_out"] = tpl.block(p["w_out"], -2, ax)
+    return out, ll.MoEShare(ax, mode)
+
+
+def _own_groups(state, g: int, ax):
+    """``state`` (a layer's ``AttnServeState`` or ``KVCacheState``) with
+    the leaves that hold every KV group cut to this rank's ``g`` groups,
+    contiguous for the kernels, and a function that writes them back
+    where they lie (None when nothing was cut). The rules place the KV
+    cache's groups over ``model`` (each rank holds its own), the linear
+    state's (S, z, c) whole on every rank: the reference's
+    ``serve_state_specs`` names them ``'s'``, ``'z'``, ``'c'``, which a
+    NamedTuple's field path (``.s``) never contains."""
+    from repro_torch.core.attention import AttnServeState, KVCacheState
+    if not isinstance(state, (AttnServeState, KVCacheState)):
+        return state, None
+    cut = [t.ndim > 1 and t.shape[1] == g * ax.size for t in state]
+    if not any(cut):
+        return state, None
+    views = [t.narrow(1, ax.rank * g, g) if c else t
+             for t, c in zip(state, cut)]
+    local = [v.contiguous() for v in views]
+
+    def back():
+        for v, t in zip(views, local):
+            if t.data_ptr() != v.data_ptr():
+                v.copy_(t)
+    return type(state)(*local), back
+
+
 def _apply_block(params, x, cfg: ModelConfig, kind: str = "attn", *, mode,
                  state=None, position=None, valid_len=None, proj=None,
                  draw=None, pages=None):
@@ -439,8 +539,20 @@ def _apply_block(params, x, cfg: ModelConfig, kind: str = "attn", *, mode,
     or the RG-LRU, whose serve state it writes in place), then the dense
     or MoE feed-forward; or RWKV-6's time and channel mixes, whose S and
     token shifts it writes in place. Returns (x, the block's aux loss:
-    0-d f32 with MoE, else None)."""
-    h = ll.apply_norm(cfg.norm_kind, params["ln1"], x)
+    0-d f32 with MoE, else None).
+
+    ``params`` may hold a sharded step's :class:`parallel.sharding.
+    LocalShard` leaves, gathered here. Under a model axis
+    (:func:`parallel.tensor_parallel.model_axis`) attention computes
+    this rank's KV groups (:func:`attn_split`; ``state``, ``proj`` and
+    the paged pools' groups are its own), the MLP its hidden columns
+    and MoE its experts or their hidden columns, each summed over
+    ``model`` after its output product; the RG-LRU and RWKV-6 blocks
+    gather their leaves whole and compute all of it on every rank."""
+    ax = tpl.model_axis()
+    if ax is None or kind in ("rec", "rwkv"):
+        params, ax = gathered(params), None
+    h = ll.apply_norm(cfg.norm_kind, gathered(params["ln1"]), x)
     if kind == "rwkv":
         mix, tst = rec.rwkv6_apply(
             params["tmix"], h, cfg.n_heads,
@@ -465,29 +577,48 @@ def _apply_block(params, x, cfg: ModelConfig, kind: str = "attn", *, mode,
             state.h.copy_(new.h)
             state.conv.copy_(new.conv)
     else:
-        common = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+        a_ax = attn_split(cfg, kind)
+        n_heads, n_kv, back = cfg.n_heads, cfg.n_kv, None
+        if a_ax is None:
+            attn = gathered(params["attn"])
+        else:
+            attn = _attn_share(params["attn"], a_ax)
+            n_heads, n_kv = n_heads // a_ax.size, n_kv // a_ax.size
+            h = tpl.copy_to_model(h, a_ax)
+            if pages is not None:       # the pools hold every group
+                pages = tuple(pg.narrow(2, a_ax.rank * n_kv, n_kv)
+                              for pg in pages)
+            state, back = _own_groups(state, n_kv, a_ax)
+        common = dict(n_heads=n_heads, n_kv=n_kv,
                       d_head=cfg.head_dim, qk_norm=cfg.qk_norm,
                       rope_theta=cfg.rope_theta, use_kernel=cfg.use_kernel,
                       window=cfg.window if kind == "local" else None)
         if mode == "train":
-            mix = ab.attn_apply(params["attn"], h, cfg.attn,
+            mix = ab.attn_apply(attn, h, cfg.attn,
                                 causal=cfg.causal, baseline_draw=draw,
                                 **common)
         elif mode == "prefill":
-            mix, _ = ab.attn_prefill(params["attn"], h, cfg.attn,
+            mix, _ = ab.attn_prefill(attn, h, cfg.attn,
                                      state=state, position=position,
                                      valid_len=valid_len, proj=proj,
                                      pages=pages, **common)
         else:
-            mix, _ = ab.attn_decode(params["attn"], h, state, cfg.attn,
+            mix, _ = ab.attn_decode(attn, h, state, cfg.attn,
                                     position=position, proj=proj,
                                     pages=pages, **common)
+        if back is not None:
+            back()
+        mix = tpl.reduce_from_model(mix, a_ax)
     x = x + mix
-    h2 = ll.apply_norm(cfg.norm_kind, params["ln2"], x)
+    h2 = ll.apply_norm(cfg.norm_kind, gathered(params["ln2"]), x)
     if cfg.moe:
-        f, aux = ll.moe_apply(params["ffn"], h2, cfg.moe)
+        ffn, share = _moe_share(params["ffn"], cfg.moe, ax)
+        f, aux = (ll.moe_apply(ffn, h2, cfg.moe) if share is None
+                  else ll.moe_apply(ffn, h2, cfg.moe, share=share))
         return x + f, aux
-    return x + ll.mlp_apply(params["ffn"], h2, cfg.mlp_kind), None
+    ffn, f_ax = _mlp_share(params["ffn"], cfg.d_ff, ax)
+    f = ll.mlp_apply(ffn, tpl.copy_to_model(h2, f_ax), cfg.mlp_kind)
+    return x + tpl.reduce_from_model(f, f_ax), None
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
@@ -503,7 +634,7 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
             x = torch.where(batch["mask"][..., None],
                             gathered(params["mask_embed"]).to(dt), x)
         return x
-    tok = gathered(params["embed"])[batch["tokens"]]
+    tok = _embed_tokens(params, cfg, batch["tokens"])
     if cfg.embed_scale:
         tok = tok * torch.tensor(cfg.d_model ** 0.5, dtype=tok.dtype)
     if cfg.modality == "vlm":
@@ -511,16 +642,48 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     return tok.to(dt)
 
 
-def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def vocab_split(cfg: ModelConfig):
+    """The model axis the vocabulary is split over (embedding rows, head
+    columns, logits): :func:`parallel.tensor_parallel.model_axis` where
+    it divides the vocab, else None."""
+    ax = tpl.model_axis()
+    return None if ax is None or cfg.vocab % ax.size else ax
+
+
+def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor):
+    """The embedding rows of ``tokens``; over a vocab split, each rank's
+    rows looked up and summed over ``model``."""
+    ax = vocab_split(cfg)
+    if ax is None:
+        return gathered(params["embed"])[tokens]
+    return tpl.vocab_embed(tpl.block(params["embed"], 0, ax), tokens, ax)
+
+
+def _logits_share(params, cfg: ModelConfig, x: torch.Tensor):
+    """(logits f32 of this rank's vocab slice, the model axis) over a
+    vocab split (:func:`vocab_split`), else (the whole logits, None)."""
     x = ll.apply_norm(cfg.norm_kind, gathered(params["final_norm"]), x)
-    head = gathered(params["embed"] if cfg.tie_embeddings
-                    else params["lm_head"])
+    ax = vocab_split(cfg)
+    if ax is None:
+        head = gathered(params["embed"] if cfg.tie_embeddings
+                        else params["lm_head"])
+    else:
+        head = (tpl.block(params["embed"], 0, ax) if cfg.tie_embeddings
+                else tpl.block(params["lm_head"], 1, ax))
+        x = tpl.copy_to_model(x, ax)
     head = head.T if cfg.tie_embeddings else head
     logits = (x @ head.to(x.dtype)).float()
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
-    return logits
+    return logits, ax
+
+
+def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The whole logits f32; over a vocab split, the slices gathered
+    (serving gathers only its last positions' rows)."""
+    logits, ax = _logits_share(params, cfg, x)
+    return logits if ax is None else tpl.gather_model(logits, ax, -1)
 
 
 def baseline_draws(cfg: ModelConfig, l: int,
@@ -537,9 +700,20 @@ def baseline_draws(cfg: ModelConfig, l: int,
 
 def forward_train(params, cfg: ModelConfig, batch: dict,
                   gen: Optional[torch.Generator] = None):
+    """(logits (B, L, V) f32, aux loss) of :func:`_forward`, the
+    logits gathered whole over a vocab split."""
+    logits, aux, ax = _forward(params, cfg, batch, gen)
+    return (logits if ax is None else tpl.gather_model(logits, ax, -1),
+            aux)
+
+
+def _forward(params, cfg: ModelConfig, batch: dict,
+                  gen: Optional[torch.Generator] = None):
     """Full forward over the batch's input (:func:`_embed_inputs`: (B, L)
-    positions), layer by layer in either layout. Returns (logits (B, L, V) f32, aux loss 0-d f32: the MoE
-    load-balancing losses summed over the layers, zero without MoE).
+    positions), layer by layer in either layout. Returns (logits (B, L, V)
+    f32, aux loss 0-d f32: the MoE load-balancing losses summed over the
+    layers, zero without MoE, the model axis the logits' vocab is split
+    over or None: then the logits are this rank's (B, L, V/M) slice).
     With ``cfg.use_kernel`` every layer's causal PRF attention runs the
     ``linear_attention_causal`` kernel. The random baseline reads layer
     i's (L, L) logits from :func:`baseline_draws` of ``gen``; the other
@@ -554,7 +728,10 @@ def forward_train(params, cfg: ModelConfig, batch: dict,
     gathers them again and no full weight stays alive from a unit's
     forward to its backward (under "none" each layer's stay until its
     backward, as its activations do; the remainder layers run
-    unwrapped, so theirs stay too). Plain tensors pass through."""
+    unwrapped, so theirs stay too). Plain tensors pass through. Under a
+    model axis (``parallel.tensor_parallel.over_model``) each block
+    computes this rank's share (:func:`_apply_block`), and a leaf split
+    over ``model`` is gathered over the other axes only."""
     _check_servable(cfg)
     x = _embed_inputs(params, cfg, batch)
     draws = (baseline_draws(cfg, x.shape[1], gen, x.device)
@@ -567,7 +744,7 @@ def forward_train(params, cfg: ModelConfig, batch: dict,
         for li in range(lo, hi):
             kind, bp = blocks[li][:2]
             x, aux_l = _apply_block(
-                gathered(bp), x, cfg, kind, mode="train",
+                bp, x, cfg, kind, mode="train",
                 draw=None if draws is None else draws[li])
             if aux_l is not None:
                 aux = aux + aux_l
@@ -578,7 +755,8 @@ def forward_train(params, cfg: ModelConfig, batch: dict,
         x, aux_u = unit(x, u * k, (u + 1) * k)
         aux = aux + aux_u
     x, aux_r = run(x, cfg.n_units * k, cfg.n_layers)
-    return _logits(params, cfg, x), aux + aux_r
+    logits, ax = _logits_share(params, cfg, x)
+    return logits, aux + aux_r, ax
 
 
 def loss_weights(cfg: ModelConfig, batch: dict) -> torch.Tensor:
@@ -598,20 +776,30 @@ def loss_fn(params, cfg: ModelConfig, batch: dict,
     (the last ``labels.shape[1]`` of the row), for audio with a
     batch["mask"] over the masked frames only. ``gen`` feeds the random
     baseline (:func:`forward_train`). Returns (loss 0-d f32, metrics
-    {loss, ce, z_loss, aux, accuracy}, detached)."""
-    logits, aux = forward_train(params, cfg, batch, gen)
+    {loss, ce, z_loss, aux, accuracy}, detached). Over a vocab split
+    the cross-entropy is vocab-parallel: the logsumexp's max and sum of
+    exps, the label's logit and the argmax all-reduced over ``model``,
+    the (B, L, V) logits never gathered."""
+    logits, aux, ax = _forward(params, cfg, batch, gen)
     labels = batch["labels"].long()
     if cfg.modality == "vlm":
         logits = logits[:, -labels.shape[1]:]
-    logz = torch.logsumexp(logits, dim=-1)
-    ll_tok = torch.gather(logits, -1,
-                          labels.clamp(min=0)[..., None])[..., 0] - logz
+    if ax is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1,
+                              labels.clamp(min=0)[..., None])[..., 0]
+        pred = logits.argmax(-1)
+    else:
+        logz = tpl.vocab_logsumexp(logits, ax)
+        picked = tpl.vocab_pick(logits, labels.clamp(min=0), ax)
+        pred = tpl.vocab_argmax(logits, ax)
+    ll_tok = picked - logz
     wmask = loss_weights(cfg, batch)
     denom = wmask.sum().clamp(min=1.0)
     ce = -(ll_tok * wmask).sum() / denom
     zl = cfg.z_loss * (logz.square() * wmask).sum() / denom
     loss = ce + zl + aux
-    acc = ((logits.argmax(-1) == labels).float() * wmask).sum() / denom
+    acc = ((pred == labels).float() * wmask).sum() / denom
     metrics = {"loss": loss, "ce": ce, "z_loss": zl, "aux": aux,
                "accuracy": acc}
     return loss, {k: t.detach() for k, t in metrics.items()}
@@ -780,7 +968,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, state: dict,
     ``linear_attention_decode_step`` kernel. ``pages`` as in
     :func:`prefill_chunk`."""
     pos = state["pos"]
-    x = params["embed"][token][:, None]
+    x = _embed_tokens(params, cfg, token)[:, None]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     x = x.to(cfg.param_dtype)

@@ -17,12 +17,15 @@ functions take any mesh with axis names and sizes: a ``DeviceMesh``, or
 
 :func:`make_shardings` turns each spec into DTensor placements on a
 ``DeviceMesh``: mesh dimension ``a`` gets ``Shard(i)`` when tensor dim i
-names ``a``, else ``Replicate()``. A dim sharded over a tuple of axes,
-e.g. ("model", "data"), gets ``Shard(i)`` on both mesh dims; DTensor
-splits such a dim in mesh order (data-major on a (data, model) mesh)
-where JAX splits it in the tuple's order (model-major), so a rank holds
-another slice than its JAX counterpart. Values are unaffected: every
-checkpoint holds full arrays.
+names ``a``, else ``Replicate()``. A dim sharded over a tuple of axes is
+split in the tuple's order, the first axis major, as JAX splits it: on
+a (data, model) mesh, ("model", "data") gives rank (d, m) chunk
+m * D + d, so the ranks of one ``model`` coordinate hold its contiguous
+block m of M once gathered over ``data`` (whole heads, whole KV groups:
+what tensor parallelism computes on). DTensor splits in mesh order, so
+a tuple axis that comes earlier in the mesh than a more major one gets
+``_StridedShard(i, split_factor=<the major axes' size>)``, DTensor's
+placement for that right-to-left split; every function here reads it.
 """
 from __future__ import annotations
 
@@ -359,12 +362,53 @@ class NamedSharding:
     @property
     def placements(self) -> tuple:
         from torch.distributed.tensor import Replicate, Shard
+        names = tuple(self.mesh.mesh_dim_names)
+        sizes = _sizes(self.mesh)
         out = []
-        for a in self.mesh.mesh_dim_names:
+        for a in names:
             dims = [i for i, ax in enumerate(self.spec)
                     if ax == a or (isinstance(ax, tuple) and a in ax)]
-            out.append(Shard(dims[0]) if dims else Replicate())
+            if not dims:
+                out.append(Replicate())
+                continue
+            ax = self.spec[dims[0]]
+            # the tuple's axes more major than a that DTensor splits after
+            # it (later in the mesh): a's split is strided by their size
+            major = ax[:ax.index(a)] if isinstance(ax, tuple) else ()
+            sf = 1
+            for b in major:
+                if names.index(b) > names.index(a):
+                    sf *= sizes[b]
+            out.append(Shard(dims[0]) if sf == 1
+                       else _strided(dims[0], sf))
         return tuple(out)
+
+
+def _strided(dim: int, split_factor: int):
+    from torch.distributed.tensor.placement_types import _StridedShard
+    return _StridedShard(dim, split_factor=split_factor)
+
+
+def _shard_dim(pl) -> Optional[int]:
+    """The tensor dim a placement splits (``Shard`` or ``_StridedShard``,
+    which some torch versions do not count as ``is_shard()``), else
+    None."""
+    if pl.is_shard() or type(pl).__name__ == "_StridedShard":
+        return pl.dim
+    return None
+
+
+def placement_dims(mesh, placements, ndim: int) -> tuple:
+    """Per tensor dim, the mesh axes that split it, major first: mesh
+    order, except that a strided split (``_StridedShard``) is minor to
+    the later axes that split the same dim."""
+    names = mesh.mesh_dim_names
+    dims: list = [[] for _ in range(ndim)]
+    for k, pl in enumerate(placements):
+        i = _shard_dim(pl)
+        if i is not None:           # a strided split sorts after the rest
+            dims[i].append((getattr(pl, "split_factor", 1) > 1, k))
+    return tuple(tuple(names[k] for _, k in sorted(d)) for d in dims)
 
 
 def make_shardings(specs: PyTree, mesh) -> PyTree:
@@ -372,16 +416,23 @@ def make_shardings(specs: PyTree, mesh) -> PyTree:
     return _map_with_path(lambda _, s: NamedSharding(mesh, s), specs)
 
 
-def local_slice(t: torch.Tensor, mesh, placements) -> torch.Tensor:
-    """This rank's slice of ``t`` (the full value) under ``placements``,
-    as DTensor splits it: mesh dim by mesh dim in mesh order, each
-    ``Shard(i)`` an even split of tensor dim i (the rule tables drop a
-    split that does not divide). A view of ``t``."""
-    for i, pl in enumerate(placements):
-        if pl.is_shard():
-            n, r = mesh.size(i), mesh.get_local_rank(i)
-            size = t.shape[pl.dim] // n
-            t = t.narrow(pl.dim, r * size, size)
+def local_slice(t: torch.Tensor, mesh, placements,
+                axes: Optional[tuple] = None) -> torch.Tensor:
+    """This rank's slice of ``t`` (the full value) under ``placements``:
+    along each split dim, the chunk at this rank's coordinates over the
+    axes that split it, major first (:func:`placement_dims`; the rule
+    tables drop a split that does not divide). With ``axes``, ``t`` is
+    cut along those mesh axes only (its other splits already taken). A
+    view of ``t``."""
+    names = mesh.mesh_dim_names
+    for i, order in enumerate(placement_dims(mesh, placements, t.ndim)):
+        for a in order:                     # major first
+            if axes is not None and a not in axes:
+                continue
+            k = names.index(a)
+            n, r = mesh.size(k), mesh.get_local_rank(k)
+            size = t.shape[i] // n
+            t = t.narrow(i, r * size, size)
     return t
 
 
@@ -414,7 +465,7 @@ def zeros_placed(tree: PyTree, shardings: PyTree) -> PyTree:
         sh = flat[p]
         shape = list(t.shape)
         for k, pl in enumerate(sh.placements):
-            if pl.is_shard():
+            if _shard_dim(pl) is not None:
                 shape[pl.dim] //= sh.mesh.size(k)
         local = torch.zeros(shape, dtype=t.dtype,
                             device=sh.mesh.device_type)
@@ -466,39 +517,39 @@ def constrain_batch_axis(x: torch.Tensor, mesh):
 
 
 def shard_dims(t: torch.Tensor) -> tuple:
-    """Per dim of ``t``, the mesh axes that split it, in mesh order (the
-    order DTensor splits a dim sharded over several axes): () for every
-    dim of a plain tensor or a replicated DTensor."""
+    """Per dim of ``t``, the mesh axes that split it, major first (the
+    spec's tuple order: :func:`placement_dims`): () for every dim of a
+    plain tensor or a replicated DTensor."""
     from torch.distributed.tensor import DTensor
-    dims: list = [()] * t.ndim
     if isinstance(t, DTensor):
-        for a, pl in zip(t.device_mesh.mesh_dim_names, t.placements):
-            if pl.is_shard():
-                dims[pl.dim] = dims[pl.dim] + (a,)
-    return tuple(dims)
+        return placement_dims(t.device_mesh, t.placements, t.ndim)
+    return ((),) * t.ndim
 
 
 class GatherGauge:
     """What :class:`LocalShard` gathers: ``gathers`` (all-gathered leaves,
-    one collective per sharded axis each), ``live`` (bytes of gathered
-    full tensors still alive: a ``weakref.finalize`` on each takes its
-    bytes off when autograd and the model have dropped it) and ``peak``
-    (the most ``live`` held since :meth:`reset`)."""
+    one collective per sharded axis each), ``over_model`` (those of them
+    gathered over a ``model`` axis of more than one rank too: whole
+    leaves that tensor parallelism would split), ``live`` (bytes of gathered tensors still
+    alive: a ``weakref.finalize`` on each takes its bytes off when
+    autograd and the model have dropped it) and ``peak`` (the most
+    ``live`` held since :meth:`reset`)."""
 
     def __init__(self):
         import threading
         self._lock = threading.Lock()
-        self.live = self.peak = self.gathers = 0
+        self.live = self.peak = self.gathers = self.over_model = 0
 
     def reset(self) -> None:
         with self._lock:
-            self.peak, self.gathers = self.live, 0
+            self.peak, self.gathers, self.over_model = self.live, 0, 0
 
-    def _alloc(self, nbytes: int) -> None:
+    def _alloc(self, nbytes: int, over_model: bool = False) -> None:
         with self._lock:
             self.live += nbytes
             self.peak = max(self.peak, self.live)
             self.gathers += 1
+            self.over_model += over_model
 
     def _free(self, nbytes: int) -> None:
         with self._lock:
@@ -529,22 +580,44 @@ def _reduce_scatter(g: torch.Tensor, dim: int, group, n: int
     return out if dim == 0 else out.movedim(0, dim)
 
 
-def grad_to_shard(g: torch.Tensor, shard: "LocalShard") -> torch.Tensor:
+def _gather_dims(local: torch.Tensor, mesh, dims: tuple,
+                 skip: tuple = ()) -> torch.Tensor:
+    """``local`` (a shard split as ``dims``: per tensor dim its axes,
+    major first) gathered along every split dim over its axes, minor
+    axis first, except the axes in ``skip``, which stay split: a skipped
+    major axis leaves this rank's contiguous block of it."""
+    names = mesh.mesh_dim_names
+    full = local
+    for i, axes in enumerate(dims):
+        for a in reversed(axes):
+            if a in skip:
+                continue
+            full = _all_gather(full, i, mesh.get_group(a),
+                               mesh.size(names.index(a)))
+    return full
+
+
+def grad_to_shard(g: torch.Tensor, shard: "LocalShard",
+                  skip: tuple = ()) -> torch.Tensor:
     """The backward of :class:`LocalShard`'s gather: ``g``, the gradient
-    of the full tensor on this rank (its loss already weighted by the
+    of the gathered tensor on this rank (its loss already weighted by the
     rank's share of the batch), brought to this rank's shard and averaged
     over the DP axes, as ``compressed_psum_mean(..., "none")`` averages a
     whole gradient. Along a dim, the DP axes that split it reduce-scatter
     and a ``model`` axis takes this rank's piece with no reduction (the
-    ranks of one ``model`` group run the same rows on the same weights,
-    so their gradients are equal); a DP axis that splits no dim
-    all-reduces the shard."""
+    ranks of one ``model`` group hold the same gradient of a leaf they
+    gather whole: the model sums partial uses over ``model`` itself,
+    ``parallel.tensor_parallel.copy_to_model``); an axis in ``skip`` was
+    not gathered, so ``g`` is already its piece; a DP axis that splits
+    no dim all-reduces the shard."""
     import torch.distributed as dist
     mesh, names = shard.mesh, shard.mesh.mesh_dim_names
     dp = dp_axes(mesh)
     incoming = g
     for i, axes in enumerate(shard.dims):
         for a in axes:                      # outer axis first
+            if a in skip:
+                continue
             k = names.index(a)
             n, r = mesh.size(k), mesh.get_local_rank(k)
             if a in dp:
@@ -566,39 +639,42 @@ def grad_to_shard(g: torch.Tensor, shard: "LocalShard") -> torch.Tensor:
 
 
 class _Gather(torch.autograd.Function):
-    """The full tensor from this rank's shard: forward all-gathers along
-    each sharded dim over its axes (innermost axis first, so pieces land
-    in DTensor's mesh order); backward is :func:`grad_to_shard`."""
+    """The leaf from this rank's shard, gathered over every axis that
+    splits it but those in ``skip`` (:func:`_gather_dims`); backward is
+    :func:`grad_to_shard`."""
 
     @staticmethod
-    def forward(ctx, local, shard):
+    def forward(ctx, local, shard, skip):
         import weakref
-        ctx.shard = shard
-        mesh, names = shard.mesh, shard.mesh.mesh_dim_names
-        full = local
-        for i, axes in enumerate(shard.dims):
-            for a in reversed(axes):
-                full = _all_gather(full, i, mesh.get_group(a),
-                                   mesh.size(names.index(a)))
+        ctx.shard, ctx.skip = shard, skip
+        if all(a in skip for axes in shard.dims for a in axes):
+            return local.view_as(local)     # nothing to gather
+        full = _gather_dims(local, shard.mesh, shard.dims, skip)
         nbytes = full.numel() * full.element_size()
-        GAUGE._alloc(nbytes)
+        names = shard.mesh.mesh_dim_names
+        GAUGE._alloc(nbytes, "model" not in skip and any(
+            "model" in axes for axes in shard.dims)
+            and shard.mesh.size(names.index("model")) > 1)
         weakref.finalize(full, GAUGE._free, nbytes)
         return full
 
     @staticmethod
     def backward(ctx, g):
-        return grad_to_shard(g, ctx.shard), None
+        g = (grad_to_shard(g, ctx.shard, ctx.skip) if ctx.skip
+             else grad_to_shard(g, ctx.shard))
+        return g, None, None
 
 
 class LocalShard:
-    """This rank's shard of one leaf inside a sharded train step, handed
-    to the model in the leaf's place: ``local`` (a plain tensor, the
-    step's differentiable input), ``mesh`` and ``dims`` (per dim, the
-    axes that split it: :func:`shard_dims`). :meth:`full` gathers the
-    whole leaf where the model uses it, and a gather's backward
-    reduce-scatters the gradient to ``local``. ``shard[u]`` is unit u
-    of a stacked ``(n_units, ...)`` leaf, whose unit dim no rule
-    splits."""
+    """This rank's shard of one leaf inside a sharded step, handed to
+    the model in the leaf's place: ``local`` (a plain tensor, the step's
+    differentiable input), ``mesh`` and ``dims`` (per dim, the axes that
+    split it, major first: :func:`shard_dims`). :meth:`full` gathers the
+    whole leaf where the model uses it, :meth:`block` only over the
+    axes other than ``model`` (tensor parallelism's share), and a
+    gather's backward reduce-scatters the gradient to ``local``.
+    ``shard[u]`` is unit u of a stacked ``(n_units, ...)`` leaf, whose
+    unit dim no rule splits."""
 
     def __init__(self, local: torch.Tensor, mesh, dims: tuple):
         self.local, self.mesh, self.dims = local, mesh, dims
@@ -610,7 +686,14 @@ class LocalShard:
         return LocalShard(self.local[u], self.mesh, self.dims[1:])
 
     def full(self) -> torch.Tensor:
-        return _Gather.apply(self.local, self)
+        return _Gather.apply(self.local, self, ())
+
+    def block(self) -> torch.Tensor:
+        """The leaf gathered over every axis but ``model``: along the dim
+        that ``model`` splits major, this rank's contiguous block m of
+        M (no communication when only ``model`` splits the leaf; its
+        gradient is still averaged over the DP axes)."""
+        return _Gather.apply(self.local, self, ("model",))
 
 
 def gathered(tree: PyTree) -> PyTree:
@@ -624,3 +707,78 @@ def gathered(tree: PyTree) -> PyTree:
     if isinstance(tree, list):
         return [gathered(v) for v in tree]
     return tree
+
+
+def local_shards(tree: PyTree) -> PyTree:
+    """``tree`` (DTensor leaves, or plain) with each DTensor that some
+    placement splits as a :class:`LocalShard` of its local tensor and
+    every other DTensor as its local tensor: what a sharded step hands
+    the model."""
+    from torch.distributed.tensor import DTensor
+
+    def conv(_, t):
+        if not isinstance(t, DTensor):
+            return t
+        dims = shard_dims(t)
+        return (LocalShard(t.to_local(), t.device_mesh, dims)
+                if any(dims) else t.to_local())
+    return _map_with_path(conv, tree)
+
+
+# -- values local over ``model``: each rank's own KV groups ---------------
+
+
+def dp_local(tree: PyTree) -> PyTree:
+    """``tree`` with each DTensor leaf gathered over the DP axes of its
+    mesh only: a plain tensor whole along the dims those axes split and
+    still this rank's piece along a dim ``model`` splits. Plain leaves
+    as they are. A collective every rank of the mesh makes."""
+    from torch.distributed.tensor import DTensor
+
+    def conv(_, t):
+        if not isinstance(t, DTensor):
+            return t
+        mesh = t.device_mesh
+        keep = tuple(a for a in mesh.mesh_dim_names
+                     if a not in dp_axes(mesh))
+        return _gather_dims(t.to_local(), mesh, shard_dims(t), keep)
+    return _map_with_path(conv, tree)
+
+
+def place_dp_local(tree: PyTree, shardings: PyTree) -> PyTree:
+    """The inverse of :func:`dp_local`: each leaf of ``tree`` (whole
+    over the DP axes, already this rank's piece over the others) as a
+    DTensor placed by the mirroring :class:`NamedSharding` tree, each
+    rank cutting only along the DP axes; no communication."""
+    from torch.distributed.tensor import DTensor
+    flat = dict(_leaves_with_path(shardings))
+
+    def conv(p, t):
+        sh = flat[p]
+        mesh, pl = sh.mesh, sh.placements
+        dp = dp_axes(mesh)
+        shape = list(t.shape)
+        for i, axes in enumerate(placement_dims(mesh, pl, t.ndim)):
+            for a in axes:
+                if a not in dp:
+                    shape[i] *= mesh.size(mesh.mesh_dim_names.index(a))
+        local = local_slice(t, mesh, pl, axes=dp).contiguous()
+        return DTensor.from_local(local, mesh, pl, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=_contiguous_stride(shape))
+    return _map_with_path(conv, tree)
+
+
+def model_local(tree: PyTree, shardings: PyTree) -> PyTree:
+    """Each leaf of ``tree`` (the full value) cut to this rank's piece
+    along the ``model`` axis only, by the mirroring
+    :class:`NamedSharding` tree: what :func:`dp_local` gives of it once
+    placed."""
+    flat = dict(_leaves_with_path(shardings))
+
+    def cut(p, t):
+        sh = flat[p]
+        keep = tuple(a for a in sh.mesh.mesh_dim_names
+                     if a not in dp_axes(sh.mesh))
+        return local_slice(t, sh.mesh, sh.placements, axes=keep).clone()
+    return _map_with_path(cut, tree)

@@ -99,21 +99,39 @@ composes with overlap, cancel and flush; ``stats`` gains the
 ``prefix_*`` counters, ``forked_requests`` and ``forked_tokens``.
 
 ``mesh=`` (a ``DeviceMesh``; every rank builds the engine with the same
-params and submits the same requests) places BOTH pools as DTensors per
-``parallel.serve_state_specs``: slots over the DP axes, the head groups
-of the KV cache and of the linear state over 'model' (the paged layout's
-page pools, which carry no slot axis, replicated), as the reference's
-``device_put`` does. Each step gathers every pool leaf whole on every
-rank, runs the same step functions on full local tensors (so B1, B2
-and the exact caches see plain tensors, as without a mesh), and places
-the pools back with their placements unchanged; a host-tier prefix
-snapshot is promoted with the pools' placements. The gathers need every
-rank to make the same schedule, so admission reads one clock: whenever
-a request could be admitted, the ranks take the first mesh rank's
-``now`` (a broadcast along each mesh dim), and timed arrivals
-(``rate``, ``run(realtime=True)``) are admitted at the same step on
-every rank. No compute or memory is sharded: each rank holds the full
-params and, while it steps, the full pools, and its streams are bitwise
+params, whole or already placed, and submits the same requests) places
+the params by ``parallel.param_specs`` (the config's MoE and sharding
+overrides), as the reference's serve launcher does; whole params are
+sliced where they lie, so a model larger than one device is given on
+the host or already placed (``launch.serve`` draws on the host or
+restores onto the placements), and the caller drops its whole tree.
+It places BOTH pools as
+DTensors per ``parallel.serve_state_specs``: slots over the DP axes,
+the KV cache's head groups over 'model' (the paged layout's page pools,
+which carry no slot axis, and the linear state's (S, z, c), which the
+rule names but never matches, replicated), as the reference's
+``device_put`` does. Each rank then holds and
+computes only its share over 'model' (``parallel.tensor_parallel``):
+attention its KV groups (B1 and B2 launch once a layer a step on this
+rank's (slots, G/M, ...) pools, against projections precomposed for
+those groups), the MLP its hidden columns, MoE its experts or their
+hidden columns, the head its vocab slice (the sampled rows' logits
+gathered whole); a leaf split over 'data' too is gathered over 'data'
+where a layer uses it, its 'model' shard never. Blocks without a tensor
+parallel form (the RG-LRU, RWKV-6, attention whose group count the
+axis does not divide) gather their leaves whole and compute all of it
+on every rank. Each step gathers the pools over the DP axes only (every
+rank steps every slot of its own groups) and places them back with
+their placements unchanged; where a pool holds every group (the paged
+pools, the linear state) each rank reads and writes its own
+(``lm._apply_block``). Prefix snapshots hold a
+rank's groups: demoted and promoted per rank, with the pools'
+placements. The collectives need every rank to make the same schedule,
+so admission reads one clock: whenever a request could be admitted, the
+ranks take the first mesh rank's ``now`` (a broadcast along each mesh
+dim), and timed arrivals (``rate``, ``run(realtime=True)``) are
+admitted at the same step on every rank. On a mesh whose 'model' axis
+has one rank every leaf is whole there and the streams are bitwise
 those of the engine without a mesh under the same admission clock.
 """
 from __future__ import annotations
@@ -130,6 +148,7 @@ import torch.distributed as dist
 
 from repro_torch.core import feature_maps as fm
 from repro_torch.models import lm
+from repro_torch.parallel.tensor_parallel import over_model
 from repro_torch.serving import prefix_cache as pcache
 from repro_torch.serving import slots as slot_ops
 from repro_torch.serving.prefix_cache import (NoFreePages, PageAllocator,
@@ -256,9 +275,9 @@ class ServingEngine:
     default, False, is the sequential scheduler. ``prefix_cache`` (True
     for the defaults, or a ``PrefixCacheConfig``) turns on snapshot
     capture and fork-on-admit, with paged KV for the exact kind.
-    ``mesh`` (a ``DeviceMesh`` of ``device``'s type) places the pools
-    between steps (module docstring); ``pool`` and ``staging`` are then
-    DTensor trees.
+    ``mesh`` (a ``DeviceMesh`` of ``device``'s type) places the params
+    and the pools (module docstring); ``params``, ``pool`` and
+    ``staging`` are then DTensor trees.
     """
 
     def __init__(self, params, cfg: lm.ModelConfig, *, max_slots: int = 4,
@@ -275,7 +294,6 @@ class ServingEngine:
             raise ValueError("prefill_rows must be >= 1 (None = no cap)")
         if cfg.attn.kind not in ("exact", *fm.PRF_KINDS):
             raise ValueError(f"no serving path for kind {cfg.attn.kind!r}")
-        self.params = params
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_len = max_len
@@ -344,13 +362,31 @@ class ServingEngine:
         # reserved on slot i
         self.staging = pool(max_slots)
         self._fresh_row = pool(1)
+        # on a mesh: this rank's shards of the params, which the model
+        # gathers over 'data' where it uses them
+        step_params = params
+        self.params = params
+        if mesh is not None:
+            from torch.distributed.tensor import DTensor
+
+            from repro_torch.parallel import sharding
+            from repro_torch.tree import flatten
+            if not isinstance(flatten(params)[0][1], DTensor):
+                self.params = sharding.place_tree(
+                    params, sharding.make_shardings(sharding.param_specs(
+                        params, mesh, moe=cfg.moe is not None,
+                        overrides=cfg.sharding_overrides), mesh))
+            step_params = sharding.local_shards(self.params)
         # the layer-stacked params and the precomposed projections
-        # A = (W M)^T, built once here for both kernels
-        self._step_params = dict(params)
+        # A = (W M)^T (this rank's groups on a mesh), built once here for
+        # both kernels
+        self._step_params = dict(step_params)
         if self._stacked:
-            self._step_params["layers"] = lm.stack_layer_params(params, cfg)
-        self._proj = lm.build_decode_proj(self._step_params, cfg,
-                                          stacked=self._stacked)
+            self._step_params["layers"] = lm.stack_layer_params(step_params,
+                                                                cfg)
+        with over_model(mesh):
+            self._proj = lm.build_decode_proj(self._step_params, cfg,
+                                              stacked=self._stacked)
         # what the dispatch runs: no attention at all (rwkv6-7b's stack,
         # no kernel), softmax over the KV cache (no kernel), or the PRF
         # kernels, which only take CUDA tensors (on the CPU the same
@@ -363,6 +399,7 @@ class ServingEngine:
                 "fused_plain")
         self._serve_paths = {"prefill_path": path, "decode_path": path}
         self._pool_shardings = self._page_shardings = None
+        self._row_shardings = None
         if mesh is not None:
             from repro_torch.parallel import sharding
             self._pool_shardings = sharding.make_shardings(
@@ -370,6 +407,11 @@ class ServingEngine:
             self.pool = sharding.place_tree(self.pool, self._pool_shardings)
             self.staging = sharding.place_tree(self.staging,
                                                self._pool_shardings)
+            # a fresh row of this rank's groups; snapshots are such rows
+            self._row_shardings = sharding.make_shardings(
+                sharding.serve_state_specs(self._fresh_row, mesh), mesh)
+            self._fresh_row = sharding.model_local(self._fresh_row,
+                                                   self._row_shardings)
             if self._paged:
                 # page gathers and scatters are id-indexed: replicated
                 self._page_shardings = {
@@ -385,8 +427,9 @@ class ServingEngine:
         if self._pc_cfg is not None:
             self.prefix_cache = PrefixCache(
                 self._pc_cfg, to_host=pcache.snapshot_to_host,
-                to_device=functools.partial(pcache.snapshot_to_device,
-                                            device=self.device, mesh=mesh),
+                to_device=functools.partial(
+                    pcache.snapshot_to_device, device=self.device,
+                    shardings=self._row_shardings),
                 release_pages=self._alloc.release if self._paged else None)
 
         self._slots: list[Optional[_Slot]] = [None] * max_slots
@@ -697,8 +740,8 @@ class ServingEngine:
         for ent, idxs, tables in forks.values():
             row = pc.device_state(ent)
             if self.mesh is not None:
-                from repro_torch.parallel import full_tensors
-                row = full_tensors(row)
+                from repro_torch.parallel.sharding import dp_local
+                row = dp_local(row)
             self._seed(row, idxs, tables)
 
     def _plan_prefill(self) -> list[tuple[int, int]]:
@@ -912,31 +955,36 @@ class ServingEngine:
         empty). The sequential loop runs one packed prefill chunk, then
         one batched decode whose tokens it waits for; the overlapped loop
         runs one turn of its pipeline (module docstring)."""
-        with self._whole_pools():
+        with self._rank_pools():
             if self.overlap:
                 return self._step_overlap()
             return self._step_sequential()
 
     @contextlib.contextmanager
-    def _whole_pools(self):
-        """Under a mesh: the pools (and the paged KV's page pools) as full
-        local tensors within, placed back with their placements after.
-        Without one, nothing."""
+    def _rank_pools(self):
+        """Under a mesh: the pools (and the paged KV's page pools) as
+        local tensors within, gathered over the DP axes only (every slot,
+        this rank's groups), placed back with their placements after,
+        and the mesh's model axis set for the model
+        (``parallel.tensor_parallel.over_model``). Without one,
+        nothing."""
         if self.mesh is None:
             yield
             return
-        from repro_torch.parallel import full_tensors, place_tree
-        self.pool = full_tensors(self.pool)
-        self.staging = full_tensors(self.staging)
+        from repro_torch.parallel.sharding import dp_local, place_dp_local
+        self.pool = dp_local(self.pool)
+        self.staging = dp_local(self.staging)
         if self._paged:
-            self._pages = full_tensors(self._pages)
+            self._pages = dp_local(self._pages)
         try:
-            yield
+            with over_model(self.mesh):
+                yield
         finally:
-            self.pool = place_tree(self.pool, self._pool_shardings)
-            self.staging = place_tree(self.staging, self._pool_shardings)
+            self.pool = place_dp_local(self.pool, self._pool_shardings)
+            self.staging = place_dp_local(self.staging, self._pool_shardings)
             if self._paged:
-                self._pages = place_tree(self._pages, self._page_shardings)
+                self._pages = place_dp_local(self._pages,
+                                             self._page_shardings)
 
     def _step_sequential(self) -> list[RequestResult]:
         finished: list[RequestResult] = []
@@ -1108,7 +1156,7 @@ class ServingEngine:
         every token produced so far is on the host. Returns the newly
         finished results; ``[]`` on the sequential engine."""
         finished: list[RequestResult] = []
-        with self._whole_pools():
+        with self._rank_pools():
             while (self._inflight is not None
                    or self._pending_merge is not None):
                 self._retire(finished)

@@ -379,9 +379,10 @@ def snapshot_to_host(tree) -> HostSnapshot:
     host tensor with ``non_blocking=True`` on the current stream, then an
     event recorded. Nothing waits. A CPU snapshot (an engine on the CPU)
     is already in host memory and stays as it is. A snapshot promoted
-    onto a mesh (DTensor leaves) is gathered whole first."""
-    from repro_torch.parallel.sharding import full_tensors
-    tree = full_tensors(tree)
+    onto a mesh (DTensor leaves) is gathered over the DP axes first: it
+    keeps this rank's KV groups (``parallel.sharding.dp_local``)."""
+    from repro_torch.parallel.sharding import dp_local
+    tree = dp_local(tree)
     event = None
     dev = tree["pos"].device
     if dev.type == "cuda":
@@ -395,20 +396,18 @@ def snapshot_to_host(tree) -> HostSnapshot:
 
 
 def snapshot_to_device(snap: HostSnapshot, device: torch.device,
-                       mesh=None):
+                       shardings=None):
     """Promote a demoted snapshot back to ``device``: pinned to CUDA
     copies with ``non_blocking=True`` on the current stream, enqueued
-    behind the demotion's copies. Nothing waits. With a ``mesh`` (a
-    ``DeviceMesh``, the engine's) the snapshot comes back as DTensors
-    with the pools' placements, ``serve_state_specs`` of its own
-    one-row tree: the b = 1 slot dim replicates where the DP axes have
-    more than one rank. Each rank keeps its slice of the full value it
-    holds; nothing is communicated."""
+    behind the demotion's copies. Nothing waits. With ``shardings`` (the
+    mesh engine's: ``serve_state_specs`` of a one-row pool, as
+    ``NamedSharding``) the snapshot, this rank's KV groups, comes back
+    as DTensors with the pools' placements: the b = 1 slot dim
+    replicates where the DP axes have more than one rank. Each rank
+    keeps its own value; nothing is communicated."""
     tree = slot_ops.tree_slot_map(
         lambda t, axis: t.to(device, non_blocking=True), snap.tree)
-    if mesh is None:
+    if shardings is None:
         return tree
-    from repro_torch.parallel.sharding import (make_shardings, place_tree,
-                                               serve_state_specs)
-    return place_tree(tree, make_shardings(serve_state_specs(tree, mesh),
-                                           mesh))
+    from repro_torch.parallel.sharding import place_dp_local
+    return place_dp_local(tree, shardings)

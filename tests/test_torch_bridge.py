@@ -91,7 +91,8 @@ def test_port_imports_neither_jax_nor_reference():
                 "checkpoint/store", "checkpoint/msgpack_subset",
                 "launch/steps", "launch/train", "launch/mesh",
                 "runtime/fault_tolerance", "parallel/sharding",
-                "parallel/compression", "tree"):
+                "parallel/compression", "parallel/tensor_parallel",
+                "tree"):
         assert f"src/repro_torch/{mod}.py" in names, mod
     assert "scripts/torch_decode_rows.py" in names
     assert {"examples/torch_quickstart.py",

@@ -212,10 +212,14 @@ class _FakeMesh:
 
 def test_placements_of_specs():
     """Mesh dim a gets Shard(i) where tensor dim i names a, else
-    Replicate; a dim over ("model", "data") is Shard on both."""
+    Replicate; a dim over ("model", "data") is split model-major, as
+    JAX splits it: Shard on ``model``, and on ``data``, which DTensor
+    splits first, the strided split of each model block."""
     from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
     cases = {tsh.P("model", None): (Replicate(), Shard(0)),
-             tsh.P(None, ("model", "data")): (Shard(1), Shard(1)),
+             tsh.P(None, ("model", "data")): (
+                 _StridedShard(1, split_factor=2), Shard(1)),
              tsh.P(("data",), None): (Shard(0), Replicate()),
              tsh.P("model", "data"): (Shard(1), Shard(0)),
              tsh.P(): (Replicate(), Replicate())}

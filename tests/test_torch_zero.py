@@ -14,9 +14,12 @@ each step: the resident bytes of params and of AdamW state equal
 (``parallel.sharding.GAUGE``: bytes of gathered full tensors alive)
 peaks at no more than the larger of one unit's gathered leaves and
 embed plus head, plus the remainder layers' (which run outside remat),
-and counts the gathers the layout predicts. AdamW's factored ν on two
-leaves split along rows and along columns equals the plain update; a
-reduce-scatter that drops the DP loss weighting fails the comparison.
+and counts the gathers the layout predicts (under tensor parallelism a
+leaf a layer splits over ``model`` is gathered over ``data`` only);
+the mesh engine's params and pools each rank holds are its
+``rank_bytes`` too. AdamW's factored ν on two leaves split along rows
+and along columns equals the plain update; a reduce-scatter that drops
+the DP loss weighting fails the comparison.
 """
 import math
 
@@ -183,18 +186,85 @@ def test_resident_bytes_equal_rank_bytes(arch, shape, tmp_path):
             assert x["rank_bytes"]["opt"] < whole["opt"] / 2
 
 
+ENGINE_BYTES = [("granite-8b", "darkformer", (1, 2)),
+                ("smollm-135m", "exact", (2, 2))]
+
+
+@pytest.mark.parametrize("arch,kind,shape", ENGINE_BYTES,
+                         ids=[f"{a}-{k}-{s[0]}x{s[1]}"
+                              for a, k, s in ENGINE_BYTES])
+def test_engine_resident_bytes_equal_rank_bytes(arch, kind, shape,
+                                                tmp_path):
+    """The mesh engine after a short run: the params and the slot and
+    staging pools each rank holds are the bytes ``dryrun.rank_bytes``
+    gives for ``params`` and ``serve_state`` (granite-8b's 2 KV groups
+    computed one a rank, with nothing gathered over ``model``;
+    smollm-135m's 3 gathered whole at M = 2, its exact KV cache's groups
+    not split)."""
+    import _torch_tp_ranks as tr
+    for x in td.run_ranks(tr.w_engine_bytes, math.prod(shape), tmp_path,
+                          shape, arch, kind):
+        held, want = x["held"], x["rank_bytes"]
+        assert held["params"] == want["params"], (held, want)
+        assert held["serve_state"] == held["staging"] == \
+            want["serve_state"], (held, want)
+        assert (x["over_model"] == 0) == (arch == "granite-8b"), x
+
+
+def _tp_dim(path, spec, cfg, m):
+    """The dim of a leaf that its layer computes its share of over a
+    ``model`` axis of ``m`` ranks (``models.lm._apply_block``), or None
+    where the layer uses the leaf whole."""
+    if m == 1:
+        return None
+    leaf = path[path.rindex("['") + 2:-2]
+    if "['attn']" in path and cfg.n_kv % m == 0:
+        return {"wq": -1, "wk": -1, "wv": -1, "wo": -2}.get(leaf)
+    if "['ffn']" in path and cfg.moe is not None:
+        if leaf not in ("w_gate", "w_up", "w_out"):
+            return None
+        experts = spec[-3] == "model"       # else each expert's hidden dim
+        return -3 if experts else -1 if leaf != "w_out" else -2
+    if "['ffn']" in path and cfg.d_ff % m == 0:
+        return {"w_gate": -1, "w_up": -1, "w_out": -2}.get(leaf)
+    if path in ("['embed']", "['lm_head']") and cfg.vocab % m == 0:
+        return 0 if path == "['embed']" else 1
+    return None
+
+
 def _gathered_leaves(arch, shape):
-    """{path: full bytes} of the leaves a step gathers on a ``shape``
-    mesh: those whose spec splits some dim."""
+    """{path: bytes of what a step gathers of it} of the leaves a step
+    gathers on a ``shape`` mesh: those whose spec splits some dim, whole,
+    except a leaf that its layer computes its share of over ``model``
+    and that ``model`` splits (major) along that dim alone: it is
+    gathered over the other axes only, to 1/M of it, and not at all
+    when no other axis splits it."""
     cfg = zr.zero_cfg(arch)
     params = tlm.init_params(cfg, seed=0, device="cpu")
+    m = shape[1]
     specs = dict(flatten(sharding.param_specs(
         params, AbstractMesh(shape, ("data", "model")),
         moe=cfg.moe is not None, overrides=cfg.sharding_overrides),
         ))
-    return cfg, {p: t.numel() * t.element_size()
-                 for p, t in flatten(params)
-                 if any(a is not None for a in specs[p])}
+    out = {}
+    for p, t in flatten(params):
+        spec = tuple(specs[p]) + (None,) * t.ndim
+        axes = [() if a is None else a if isinstance(a, tuple) else (a,)
+                for a in spec[:t.ndim]]
+        if not any(axes):
+            continue
+        full = t.numel() * t.element_size()
+        dim = _tp_dim(p, spec[:t.ndim], cfg, m)
+        if dim is not None:
+            dim %= t.ndim
+        block = (dim is not None and axes[dim][:1] == ("model",)
+                 and all("model" not in a for i, a in enumerate(axes)
+                         if i != dim))
+        if not block:
+            out[p] = full
+        elif any(x != "model" for a in axes for x in a):
+            out[p] = full // m
+    return cfg, out
 
 
 @pytest.mark.parametrize("arch,shape", RUNS, ids=RUN_IDS)
@@ -206,21 +276,26 @@ def test_gathered_bytes_stay_within_one_unit(arch, shape, tmp_path):
     alive from their forward to their backward (slack 0). Nothing
     gathered outlives the step. Gathers a step: each unit's leaves in
     its forward and again in its recompute, the remainder layers' once,
-    the embedding at the input and the head at the output."""
+    the embedding at the input and the head at the output. On a
+    ``model`` axis above 1 a leaf that tensor parallelism splits is
+    gathered over ``data`` only, to its block, or not at all
+    (:func:`_gathered_leaves`)."""
     cfg, leaves = _gathered_leaves(arch, shape)
     unit = sum(b for p, b in leaves.items()
                if p.startswith("['units']")) // cfg.n_units
     unit_leaves = sum(p.startswith("['units']") for p in leaves)
     rem = sum(b for p, b in leaves.items() if p.startswith("['rem']"))
     rem_leaves = sum(p.startswith("['rem']") for p in leaves)
-    head = leaves["['embed']"] + leaves.get("['lm_head']", 0)
+    head = leaves.get("['embed']", 0) + leaves.get("['lm_head']", 0)
+    head_gathers = ((2 if cfg.tie_embeddings else 1)
+                    * ("['embed']" in leaves) + ("['lm_head']" in leaves))
     bound = max(unit, head) + rem
     for x in _ranks(arch, shape, tmp_path):
         for g in x["gauge"]:
             assert 0 < g["peak"] <= bound, (g, unit, head, rem)
             assert g["live_after"] == 0
             assert g["gathers"] == (2 * unit_leaves * cfg.n_units
-                                    + rem_leaves + 2), g
+                                    + rem_leaves + head_gathers), g
 
 
 def test_planted_fault_fails_the_comparison(tmp_path):
